@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -69,19 +70,44 @@ _PTR = ctypes.c_void_p
 _I32 = ctypes.c_int
 _I64 = ctypes.c_longlong
 
-
-@functools.lru_cache(maxsize=None)
-def flash_attn_lib() -> ctypes.CDLL:
-    """K1 (csrc/flash_attn_fwd.cu), built and loaded once per process."""
-    path, _ = build("flash_attn_fwd")
-    lib = ctypes.CDLL(str(path))
-    fn = lib.arp_flash_attn_fwd
-    fn.argtypes = (
+# Each library's C entry point and its argtypes: c_void_p for every pointer
+# and the stream (a bare int would be cut to 32 bits), and every launch
+# returns its cudaError_t.
+_ENTRY_POINTS = {
+    "flash_attn_fwd": ("arp_flash_attn_fwd", (
         [_PTR] * 5  # q, k, v, kv_pad, out
         + [_I32] * 5  # dtype, batch, n, heads, head_dim
         + [_I64] * 12  # (b, n, h) strides of q, k, v, out
         + [_I32] * 3  # mask_kind, num_obs_token, num_token_per_step
         + [ctypes.c_float, _PTR]  # scale, stream
-    )
+    )),
+    "int8_gemm": ("arp_int8_gemm", (
+        [_PTR] * 6  # x, a_scale, wt, ws, bias, out
+        + [_I32] * 4  # dtype, M, N, K
+        + [_I64, _I32, _PTR]  # lda, act, stream
+    )),
+    "int8_matmul": ("arp_int8_matmul", (
+        [_PTR] * 4  # x, q, scale, out
+        + [_I32] * 4  # dtype, M, N, K
+        + [_I64, _PTR]  # lda, stream
+    )),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """The library of ``csrc/<name>.cu``, built and loaded once per process."""
+    symbol, argtypes = _ENTRY_POINTS[name]
+    path, _ = build(name)
+    lib = ctypes.CDLL(str(path))
+    fn = getattr(lib, symbol)
+    fn.argtypes = argtypes
     fn.restype = _I32
     return lib
+
+
+def build_all(names) -> dict[str, tuple[Path, str]]:
+    """Build several libraries at once, one nvcc each, all started together."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build, names)))
+

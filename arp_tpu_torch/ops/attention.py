@@ -93,7 +93,7 @@ def flash_attention_fwd(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         flash_attention_fwd.launches += 1
-        err = _build.flash_attn_lib().arp_flash_attn_fwd(
+        err = _build.load("flash_attn_fwd").arp_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if pad is None else pad.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], b, n, h, d, *strides,

@@ -1,10 +1,21 @@
-"""Batched CLIP reward engine on one GPU (port of arp_tpu/reward/engine.py, standard path).
+"""Batched CLIP reward engine on one GPU (port of arp_tpu/reward/engine.py).
 
 Per fixed-size padded batch of uint8 frames:
 
     packed (B, H, W*C) frames -> bit-exact Pillow resize, normalize, patchify
     -> ViT image tower (attention through kernel K1 on CUDA)
     -> L2-normalized or raw float32 features
+
+The image tower runs one of three ways, as in the JAX engine:
+
+  * the CLIP module (the standard path), in ``compute_dtype``; with
+    ``quantize_weights`` every large Linear of both towers holds int8 weights
+    and multiplies through kernel K3 on CUDA (ops/quantization.py);
+  * ``fast_encode``: the packed fused-QKV forward of ops/vit_infer.py in
+    ``compute_dtype``;
+  * ``fast_int8``: the packed static-int8 forward, calibrated lazily on the
+    first device batch, every int8 matmul through kernel K2 on CUDA and,
+    under ``fast_int8_attn``, w8a8 attention.
 
 A producer thread slices and pads host chunks and pins them, so the HDF5 read
 of the next batches overlaps the device's work on this one; each chunk goes
@@ -21,9 +32,8 @@ cast to bf16; the text tower and ``logit_scale`` stay float32, as in the JAX
 engine, which casts only inside its image-encode program.
 
 Not ported yet (each raises ``NotImplementedError``): the ``host`` and
-``fast`` resize modes, ``use_crop``, ``quantize_weights``, the
-``fast_encode``/``fast_int8`` paths and ``mesh``.  The TPU's 64-multiple
-batch guard is left out.
+``fast`` resize modes, ``use_crop`` and ``mesh``.  The TPU's 64-multiple batch
+guard is left out.
 """
 
 from __future__ import annotations
@@ -39,7 +49,9 @@ from ..device import resolve_device
 from ..models.clip.convert import flax_to_torch, read_engine_spec
 from ..models.clip.model import CLIP, MODELS
 from ..models.clip.tokenizer import Char97Tokenizer, build_tokenizer
+from ..ops import vit_infer
 from ..ops.preprocess import clip_preprocess_packed_patches
+from ..ops.quantization import quantize_linears
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -58,6 +70,16 @@ class ClipRewardEngine:
       compute_dtype: torch.float32 or torch.bfloat16 for the image tower.
       device: where the towers run, e.g. "cuda" or "cpu".  CUDA without a GPU
         raises.
+      quantize_weights: int8 weight-only storage of every Linear with >= 1024
+        weights, in both towers (not with a fast path).
+      fast_encode / fast_int8: the packed forward, in ``compute_dtype`` /
+        static int8 (bf16 pack).
+      fast_score_bf16: attention scores and softmax in bf16 on the packed
+        paths; None means True, the JAX engine's default.  K1's softmax is
+        float32 whatever this says, so on CUDA it acts only under int8
+        attention; ``encode_recipe`` names the softmax dtype that runs.
+      fast_int8_attn: w8a8 attention under ``fast_int8``; None means True,
+        the JAX engine's default.
     """
 
     def __init__(
@@ -74,14 +96,13 @@ class ClipRewardEngine:
         quantize_weights: bool = False,
         fast_encode: bool = False,
         fast_int8: bool = False,
+        fast_score_bf16: Optional[bool] = None,
+        fast_int8_attn: Optional[bool] = None,
         mesh=None,
     ):
         unported = {
             "resize_mode != 'pil'": resize_mode != "pil",
             "use_crop": use_crop,
-            "quantize_weights": quantize_weights,
-            "fast_encode": fast_encode,
-            "fast_int8": fast_int8,
             "mesh": mesh is not None,
         }
         for what, asked in unported.items():
@@ -89,6 +110,10 @@ class ClipRewardEngine:
                 raise NotImplementedError(f"ClipRewardEngine({what}) is not ported yet (ROADMAP.md)")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {_DTYPES}, got {compute_dtype}")
+        fast = bool(fast_encode or fast_int8)
+        if quantize_weights and fast:
+            raise ValueError("fast_encode/fast_int8 and quantize_weights are mutually exclusive: "
+                             "the fast path repacks the float weights (int8 mode quantizes them itself)")
         self.device = resolve_device(device)
         if variables is None and model is None:
             raise NotImplementedError("loading the OpenAI CLIP checkpoints is not ported yet: pass variables")
@@ -96,9 +121,21 @@ class ClipRewardEngine:
             model = MODELS[model_name]()
         if variables is not None:
             model.load_state_dict(flax_to_torch(variables))
+        if quantize_weights:
+            quantize_linears(model)
         model.eval().to(self.device)
-        model.visual.to(compute_dtype)
         self.model = model
+        self._fast = self._fast_q = None
+        self._fast_int8 = bool(fast_int8)
+        if fast:
+            # from the float32 tower, cast once; the int8 pack is bf16 until calibrated
+            self._fast_dtype = torch.bfloat16 if fast_int8 else compute_dtype
+            self._fast = vit_infer.pack_vit_params(model.visual, dtype=self._fast_dtype)
+            self._heads = model.vision_features // 64
+            # None resolves as in the JAX engine, so each flag means the same in both packages
+            self._score_dtype = torch.bfloat16 if fast_score_bf16 in (None, True) else torch.float32
+            self._int8_attn = self._fast_int8 and fast_int8_attn in (None, True)
+        model.visual.to(compute_dtype)
         self.logit_scale = float(np.exp(model.logit_scale.item()))
         self.batch_size = batch_size
         self.image_size = model.image_size
@@ -107,7 +144,15 @@ class ClipRewardEngine:
         # provenance stamped onto labeled datasets; "torch;" keeps port labels
         # apart from the JAX engine's
         dtype_name = str(compute_dtype).removeprefix("torch.")
-        self._recipe = f"torch;{dtype_name};score=float32;resize=pil;crop=0;wq=0"
+        self._recipe = f"torch;{dtype_name};score=float32;resize=pil;crop=0;wq={int(quantize_weights)}"
+        if fast:
+            # the softmax that runs: K1's is float32 on CUDA, int8 attention's is score_dtype
+            ran = self._score_dtype if self.device.type == "cpu" or self._int8_attn else torch.float32
+            self._recipe = (
+                f"torch;packed;{'int8' if fast_int8 else dtype_name}"
+                f";score={str(ran).removeprefix('torch.')};int8_attn={int(self._int8_attn)}"
+                ";resize=pil;crop=0"
+            )
 
     @classmethod
     def from_npz(cls, path: str, **engine_kwargs):
@@ -160,7 +205,17 @@ class ClipRewardEngine:
             frames, channels=3, image_size=self.image_size,
             patch_size=self.model.vision_patch_size,
         )
-        feat = self.model.encode_image(x.to(self.compute_dtype), normalize=False).float()
+        if self._fast is None:
+            feat = self.model.encode_image(x.to(self.compute_dtype), normalize=False).float()
+        elif self._fast_int8:
+            if self._fast_q is None:  # lazy calibration on the first device batch, as in JAX
+                amax = vit_infer.calibrate_vit(self._fast, x, self._heads)
+                self._fast_q = vit_infer.quantize_packed(self._fast, amax)
+            feat = vit_infer.vit_encode_int8(self._fast_q, x, self._heads, score_dtype=self._score_dtype,
+                                             int8_attn=self._int8_attn)
+        else:
+            feat = vit_infer.vit_encode(self._fast, x, self._heads, compute_dtype=self._fast_dtype,
+                                        score_dtype=self._score_dtype)
         if normalize:
             feat = feat / torch.linalg.vector_norm(feat, dim=-1, keepdim=True)
         return feat

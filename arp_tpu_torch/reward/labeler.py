@@ -186,6 +186,20 @@ def main(argv=None):
     parser.add_argument("--inst_type", type=str, default="none")
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--bf16", action="store_true", help="run the image tower in bfloat16")
+    parser.add_argument("--int8", action="store_true", help="int8 weight-only quantization")
+    parser.add_argument("--fast", action="store_true",
+                        help="packed fused-QKV encode path (ops/vit_infer.py)")
+    parser.add_argument("--fast_int8", action="store_true",
+                        help="static-int8 encode (calibrated on the first batch)")
+    parser.add_argument("--fast_score_bf16", action=argparse.BooleanOptionalAction, default=None,
+                        help="bf16 attention scores/softmax on the fast paths. Unset = the "
+                             "engine's default (True, as in arp_tpu); --no-fast_score_bf16 forces "
+                             "the fp32-softmax recipe. On CUDA kernel K1's softmax is fp32 either "
+                             "way; the flag then acts only under int8 attention")
+    parser.add_argument("--fast_int8_attn", action=argparse.BooleanOptionalAction, default=None,
+                        help="w8a8 attention on the int8 fast path (int8 QK^T and P@V with "
+                             "static scales; needs --fast_int8). Unset = the engine's default "
+                             "(True under --fast_int8, as in arp_tpu)")
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
@@ -202,6 +216,11 @@ def main(argv=None):
         batch_size=args.batch_size,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         device=args.device,
+        quantize_weights=args.int8,
+        fast_encode=args.fast,
+        fast_int8=args.fast_int8,
+        fast_score_bf16=args.fast_score_bf16,
+        fast_int8_attn=args.fast_int8_attn,
     )
     if args.vl_checkpoint:
         engine = ClipRewardEngine.from_npz(args.vl_checkpoint, **engine_kwargs)

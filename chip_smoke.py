@@ -5,18 +5,33 @@
 
 Phases, each printing one JSON line:
   1. device  — requires CUDA; prints the card's name and power limit.
-  2. build   — builds kernel K1 (arp_tpu_torch/csrc/flash_attn_fwd.cu) with nvcc.
+  2. build   — builds the three kernels from arp_tpu_torch/csrc with nvcc, one
+               nvcc each, all started together: K1 (flash_attn_fwd.cu), K2
+               (int8_gemm.cu), K3 (int8_matmul.cu); ptxas's register lines.
   3. k1      — K1 against the plain attention on the card, float32 and bfloat16,
                over the slice's shapes, the masks, ragged N and a fully masked
                row; K1 and the plain version timed with CUDA events.
-  4. resize  — the packed bit-exact resize on the card against the numpy
+  4. k2      — K2 against its plain version at the six ViT-B/16 int8 sites at
+               batch 256, a ragged M and round-half-to-even ties, within one
+               bf16 ulp; K2, the plain version and a bf16 torch.matmul with the
+               same epilogue timed.
+  5. k3      — K3 against its plain version at the MLP and attention shapes at
+               batch 256 in float32 and bf16, and a ragged M, N and K; both timed.
+  6. resize  — the packed bit-exact resize on the card against the numpy
                fixed-point reference, byte for byte.
-  5. slice   — reward labeling at full CLIP ViT-B/16 width (random weights from
+  7. slice   — reward labeling at full CLIP ViT-B/16 width (random weights from
                a seed, in arp_tpu's Flax layout, through the weight bridge) on an
                in-memory demo group, in float32 and bfloat16; K1 must have been
                launched; 8 rows recomputed by a CPU engine on the same weights.
                Then one more labeling pass per dtype under torch.profiler:
                device time by kernel kind and the device's idle share.
+  8. slice_fast — the same labeling through the packed and int8 engines: fast
+               f32, fast bf16, fast_int8 with and without int8 attention, and
+               quantize_weights f32.  Each engine's kernel launches (counts set
+               to 0 just before its labeling run), its reward MAE against a CPU
+               engine of the same mode on the 8 rows, and its mean feature
+               cosine against the f32 standard engine; then one profiled
+               labeling pass of each engine.
 Then the kernel table and, last, ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without CUDA it exits non-zero at once.
 """
@@ -33,8 +48,11 @@ import numpy as np
 import torch
 
 SEED = 0
-K1_SOURCE = "arp_tpu_torch/csrc/flash_attn_fwd.cu"
-K1_REPLACES = "arp_tpu/ops/attention.py:66"
+KERNELS = {  # name: (source, the TPU kernel it replaces)
+    "flash_attn_fwd": ("arp_tpu_torch/csrc/flash_attn_fwd.cu", "arp_tpu/ops/attention.py:66"),
+    "int8_gemm": ("arp_tpu_torch/csrc/int8_gemm.cu", "arp_tpu/ops/vit_infer.py:341"),
+    "int8_matmul": ("arp_tpu_torch/csrc/int8_matmul.cu", "arp_tpu/ops/quantization.py:38"),
+}
 # K1 against the plain version on the same inputs.  float32: both sum in fp32
 # in different orders (online vs full-row softmax), measured ~1e-6 at N <= 257.
 # bfloat16: the plain version runs on float32 upcasts of the same bf16 inputs,
@@ -46,7 +64,26 @@ K1_ATOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # logit_scale.
 F32_REWARD_MAE = 1e-4
 BF16_COS_MAE = 0.05
+# The int8 engines on the card against the CPU engine of the same mode, both
+# calibrated on the same 8 frames: they run the same int8 arithmetic, and the
+# bf16 roundings that differ between cuBLAS and the CPU (the bf16 bound's
+# cause) move some activations across an int8 rounding edge, one step each.
+# So the bound is the bf16 one.
+INT8_COS_MAE = 0.05
 LOGIT_SCALE = 100.0  # exp(logit_scale) of trained CLIP
+# Mean feature cosine against the f32 standard engine on the card: the JAX
+# package's own bounds (tests/test_vit_infer.py:59, :82, :102;
+# tests/test_quantization.py:80).
+MIN_COSINE = {"fast_f32": 0.995, "fast_bf16": 0.995, "fast_int8": 0.97, "fast_int8_bf16_attn": 0.98,
+              "quantize_weights_f32": 0.99}
+# K3 against its plain version, relative to the largest output: both sum K
+# float32 products in other orders, ~K * 2^-24 of it at worst, held to 1e-4;
+# with bf16 x, add one bf16 rounding of the largest output (2^-7): an output
+# near zero can round to another bf16 value by many of its own ulps.
+K3_F32_REL = 1e-4
+K3_BF16_REL = K3_F32_REL + 2.0 ** -7
+BATCH = 256
+TOKENS = 197  # ViT-B/16 at 224 px: 196 patches + CLS
 
 
 def emit(phase: str, **fields) -> None:
@@ -155,6 +192,10 @@ def kernel_kind(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
         return "k1_attention"
+    if "int8_gemm_kernel" in n:
+        return "k2_int8_gemm"
+    if "int8_matmul_kernel" in n:
+        return "k3_int8_matmul"
     if any(tag in n for tag in ("gemm", "nvjet", "xmma", "cutlass")):
         return "gemm"
     if "layer_norm" in n:
@@ -165,7 +206,7 @@ def kernel_kind(name: str) -> str:
 
 
 def device_profile(run) -> dict:
-    """Device time by kernel kind and the device's idle share over ``run()`` (torch.profiler)."""
+    """Device time by kernel kind and of the eight longest kernels, and the idle share, over ``run()``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -177,16 +218,18 @@ def device_profile(run) -> dict:
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     check(bool(spans), "the profiler saw no device activity")
-    kernel_ms = defaultdict(float)
+    kernel_ms, by_name = defaultdict(float), defaultdict(float)
     busy, (lo, hi) = 0.0, spans[0][:2]
     for start, end, name in spans:
         kernel_ms[kernel_kind(name)] += (end - start) / 1e3
+        by_name[name[:120]] += (end - start) / 1e3
         if start > hi:
             busy, lo = busy + hi - lo, start
         hi = max(hi, end)
     busy += hi - lo
+    largest = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3, "idle_share": 1 - busy / wall_us,
-            "kernel_ms": dict(kernel_ms)}
+            "kernel_ms": dict(kernel_ms), "top_kernels_ms": dict(largest)}
 
 
 def phase_k1(attn, MaskSpec) -> dict:
@@ -240,6 +283,130 @@ def phase_k1(attn, MaskSpec) -> dict:
                                           "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
     emit("k1_time", timings=timings)
     return {"max_abs_err": max_err, "timings": timings}
+
+
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest |got - want| in units of the bf16 ulp of the larger of the two."""
+    got, want = got.float(), want.float()
+    _, exp = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    ulp = torch.ldexp(torch.ones_like(got), (exp - 8).clamp(min=-133))  # 8 significant bits
+    return ((got - want).abs() / ulp).max().item()
+
+
+def interleaved_ms(**fns) -> dict:
+    """Each fn timed twice, in the order a, b, ..., ..., b, a; the mean of its two runs."""
+    names = list(fns)
+    times = {n: [] for n in names}
+    for n in names + names[::-1]:
+        times[n].append(cuda_ms(fns[n]))
+    return {n: sum(t) / 2 for n, t in times.items()}
+
+
+# K2's sites on the int8 path at batch 256: label -> (M, K, N, x dtype, act)
+K2_SITES = {
+    "conv1": (BATCH * (TOKENS - 1), 768, 768, torch.float32, "none"),
+    "qkv": (BATCH * TOKENS, 768, 2304, torch.bfloat16, "none"),
+    "attn_out": (BATCH * TOKENS, 768, 768, torch.bfloat16, "none"),
+    "fc": (BATCH * TOKENS, 768, 3072, torch.bfloat16, "quickgelu"),
+    "proj": (BATCH * TOKENS, 3072, 768, torch.bfloat16, "none"),
+    "final": (BATCH, 768, 512, torch.bfloat16, "none"),
+}
+
+
+def k2_inputs(m, k, n, dtype, gen, quant):
+    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+    wq, ws = quant.quantize_array(w)
+    bias = 0.02 * torch.randn(n, generator=gen, device="cuda")
+    a = x.float().abs().amax() * 1.05  # as calibrate_vit + quantize_packed's margin
+    return x, a, wq, ws, bias, wq.t().contiguous()
+
+
+def phase_k2(vi, quant) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cases = dict(K2_SITES)
+    for m in (1, 129, 1003):
+        for dtype in (torch.float32, torch.bfloat16):
+            cases[f"ragged_m{m}_{str(dtype).removeprefix('torch.')}"] = (m, 768, 2304, dtype, "quickgelu")
+    errors = {}
+    for label, (m, k, n, dtype, act) in cases.items():
+        x, a, wq, ws, bias, wq_t = k2_inputs(m, k, n, dtype, gen, quant)
+        got = vi.fused_int8_matmul(x, a, wq, ws, bias, act, wq_t=wq_t)
+        want = vi.fused_int8_matmul_reference(x, a, wq, ws, bias, act)
+        torch.cuda.synchronize()
+        check(got.dtype == torch.bfloat16 and got.shape == (m, n), f"K2 {label}: {got.dtype} {tuple(got.shape)}")
+        errors[label] = {"ulps": bf16_ulps(got, want), "max_abs_err": (got.float() - want.float()).abs().max().item()}
+
+    # ties: a = 127 makes x * 127/a = x, so x = k + 0.5 lands exactly half-way;
+    # an identity weight with unit scales reads the int8 values back
+    ties = torch.arange(-127, 127, device="cuda", dtype=torch.float32) + 0.5  # 254 ties
+    x = torch.cat([ties, torch.tensor([3.0, 127.0], device="cuda")]).repeat(64, 1)  # (64, 256)
+    eye = torch.eye(256, dtype=torch.int8, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        got = vi.fused_int8_matmul(x.to(dtype), torch.tensor(127.0, device="cuda"), eye,
+                                   torch.ones(1, 256, device="cuda"))
+        torch.cuda.synchronize()
+        check(torch.equal(got.float(), torch.round(x)),
+              f"K2 ties in {dtype}: {int((got.float() != torch.round(x)).sum())} of {x.numel()} not rounded half to even")
+    emit("k2_check", cases=len(cases), ties="round half to even, 2 x 16,256 ties",
+         max_bf16_ulps=max(e["ulps"] for e in errors.values()), errors=errors)
+    for label, e in errors.items():
+        check(e["ulps"] <= 1.0, f"K2 {label}: {e['ulps']} bf16 ulps from the plain version (bound 1)")
+
+    timings = {}
+    for label, (m, k, n, dtype, act) in K2_SITES.items():
+        x, a, wq, ws, bias, wq_t = k2_inputs(m, k, n, dtype, gen, quant)
+        w16 = quant.dequantize_array(wq, ws).bfloat16()
+
+        def bf16_site():
+            out = (x.bfloat16() @ w16).float() + bias
+            if act == "quickgelu":
+                out = out * torch.sigmoid(1.702 * out)
+            return out.bfloat16()
+
+        t = interleaved_ms(plain=lambda: vi.fused_int8_matmul_reference(x, a, wq, ws, bias, act),
+                           kernel=lambda: vi.fused_int8_matmul(x, a, wq, ws, bias, act, wq_t=wq_t),
+                           bf16=bf16_site)
+        timings[label] = {"shape": [m, k, n], "x": str(dtype).removeprefix("torch."), "act": act,
+                          "ms": t["kernel"], "plain_ms": t["plain"], "bf16_matmul_ms": t["bf16"],
+                          "tops": 2 * m * k * n / t["kernel"] / 1e9}
+    emit("k2_time", timings=timings)
+    return {"max_abs_err": max(e["max_abs_err"] for e in errors.values()),
+            "max_bf16_ulps": max(e["ulps"] for e in errors.values()), "timings": timings}
+
+
+# K3's shapes under quantize_weights at batch 256 (M, K, N); ragged M, N and K last
+K3_SHAPES = {"attn_768x768": (BATCH * TOKENS, 768, 768), "fc_768x3072": (BATCH * TOKENS, 768, 3072),
+             "proj_3072x768": (BATCH * TOKENS, 3072, 768), "ragged": (1003, 200, 130)}
+
+
+def phase_k3(quant) -> dict:
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    errors, timings = {}, {}
+    for label, (m, k, n) in K3_SHAPES.items():
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        q, s = quant.quantize_array(w)
+        for dtype in (torch.float32, torch.bfloat16):
+            name = f"{label}_{str(dtype).removeprefix('torch.')}"
+            x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+            got = quant.int8_matmul(x, q, s)
+            want = quant.int8_matmul_reference(x, q, s)
+            torch.cuda.synchronize()
+            check(got.dtype == dtype and got.shape == (m, n), f"K3 {name}: {got.dtype} {tuple(got.shape)}")
+            err = (got.float() - want.float()).abs().max().item()
+            errors[name] = {"max_abs_err": err, "rel_to_max": err / want.float().abs().max().item(),
+                            "bound": K3_F32_REL if dtype == torch.float32 else K3_BF16_REL}
+            if label != "ragged":
+                t = interleaved_ms(plain=lambda: quant.int8_matmul_reference(x, q, s),
+                                   kernel=lambda: quant.int8_matmul(x, q, s))
+                timings[name] = {"shape": [m, k, n], "ms": t["kernel"], "plain_ms": t["plain"],
+                                 "tflops": 2 * m * k * n / t["kernel"] / 1e9}
+    emit("k3_check", cases=len(errors), errors=errors)
+    for name, e in errors.items():
+        check(e["rel_to_max"] <= e["bound"], f"K3 {name}: error {e['rel_to_max']} of the largest output > {e['bound']}")
+    emit("k3_time", timings=timings)
+    return {"max_abs_err": max(e["max_abs_err"] for n, e in errors.items() if n.endswith("float32")),
+            "timings": timings}
 
 
 def phase_resize(preprocess) -> None:
@@ -311,6 +478,87 @@ def phase_slice(attn, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, label_grou
     return launches
 
 
+# slice_fast's engines: label -> ClipRewardEngine knobs.  fast_f32 pins float32
+# scores so that the card (K1's softmax is float32) and the CPU run one recipe.
+FAST_MODES = {
+    "fast_f32": dict(fast_encode=True, fast_score_bf16=False),
+    "fast_bf16": dict(fast_encode=True, compute_dtype=torch.bfloat16),
+    "fast_int8": dict(fast_int8=True),
+    "fast_int8_bf16_attn": dict(fast_int8=True, fast_int8_attn=False),
+    "quantize_weights_f32": dict(quantize_weights=True),
+}
+
+
+def launch_counts(counters) -> dict:
+    return {name: fn.launches for name, fn in counters.items()}
+
+
+def phase_slice_fast(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, label_group) -> dict:
+    """Labeling through the packed and int8 engines; returns each kernel's launches over their runs."""
+    cfg = CONFIGS["vit_b16"]
+    state = flax_to_torch(random_clip_variables(cfg, 224, SEED))
+    g_src = demo_group(512, 2, 256, SEED)
+    text = "the goal is to collect the coin."
+    rows = np.array([0, 1, 169, 170, 300, 340, 341, 511])
+    frames8 = np.asarray(g_src["ob"][rows, -1])
+
+    def engine(device, batch_size, **knobs):
+        model = CLIP(**cfg, image_size=224)
+        model.load_state_dict(state)
+        return ClipRewardEngine(model=model, batch_size=batch_size, device=device, **knobs)
+
+    def cosine(a, b):
+        return float(np.mean(np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))))
+
+    ref = engine("cuda", BATCH).encode_image_features(frames8)  # the f32 standard engine
+    totals = dict.fromkeys(counters, 0)
+    for label, knobs in FAST_MODES.items():
+        cpu = engine("cpu", 8, **knobs)
+        want = cpu.text_rewards(frames8, text)  # an int8 engine calibrates on these 8 frames
+        del cpu
+        eng = engine("cuda", BATCH, **knobs)
+        eng.text_rewards(frames8, text)  # the same first batch: 8 frames padded with the last one
+        feat_cos = cosine(eng.encode_image_features(frames8), ref)
+        g = MemoryGroup((k, g_src[k]) for k in ("ob", "act", "done"))
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        stats = label_group(g, text, eng, progress=False)
+        launches = launch_counts(counters)
+
+        reward = np.asarray(g["ob_clip_reward"])
+        mae = float(np.abs(reward[rows, -1] - want).mean())
+        cos_mae = F32_REWARD_MAE if label.endswith("f32") else (INT8_COS_MAE if "int8" in label else BF16_COS_MAE)
+        bound = cos_mae if label.endswith("f32") else cos_mae * eng.logit_scale
+        emit("slice_fast", mode=label, knobs={k: str(v) for k, v in knobs.items()}, frames=stats["frames"],
+             seconds=stats["seconds"], fps=stats["fps"], batch_size=BATCH, launches=launches,
+             reward_mae_vs_cpu=mae, mae_bound=bound, feature_cosine_vs_f32=feat_cos,
+             cosine_bound=MIN_COSINE[label], reward_mean=float(reward[:, -1].mean()),
+             reward_std=float(reward[:, -1].std()), recipe=eng.encode_recipe)
+        check(reward.shape == (512, 2) and np.isfinite(reward).all(), f"{label}: rewards {reward.shape}")
+        check(launches["flash_attn_fwd"] > 0, f"{label}: labeling never launched K1")
+        if "int8" in label:
+            check(launches["int8_gemm"] > 0, f"{label}: labeling never launched K2")
+        if label.startswith("quantize_weights"):
+            check(launches["int8_matmul"] > 0, f"{label}: labeling never launched K3")
+        check(mae <= bound, f"{label}: reward MAE vs the CPU engine {mae} > {bound}")
+        check(feat_cos >= MIN_COSINE[label], f"{label}: feature cosine {feat_cos} < {MIN_COSINE[label]}")
+        for name, n in launches.items():
+            totals[name] += n
+        g = MemoryGroup((k, g_src[k]) for k in ("ob", "act", "done"))
+        emit("profile", mode=label, frames=512, **device_profile(lambda: label_group(g, text, eng, progress=False)))
+        del eng
+        torch.cuda.empty_cache()
+    return totals
+
+
+def kernel_entry(name: str, launches: int, max_abs_err: float, timing: dict, **extra) -> dict:
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
+            "max_abs_err": max_abs_err, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "shape": timing["shape"], **extra}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke run needs an NVIDIA GPU",
@@ -320,7 +568,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from arp_tpu_torch.models.clip import CLIP, CONFIGS, flax_to_torch
-    from arp_tpu_torch.ops import _build, preprocess
+    from arp_tpu_torch.ops import _build, preprocess, quantization, vit_infer
     from arp_tpu_torch.ops import attention as attn
     from arp_tpu_torch.ops.masks import MaskSpec
     from arp_tpu_torch.reward.engine import ClipRewardEngine
@@ -334,21 +582,34 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
 
     t0 = time.perf_counter()
-    lib, log = _build.build("flash_attn_fwd")
-    attn.flash_attention_fwd.launches = 0
-    emit("build", kernel="flash_attn_fwd", seconds=time.perf_counter() - t0, library=str(lib),
-         ptxas=[line.strip() for line in log.splitlines() if "registers" in line or "spill" in line])
+    built = _build.build_all(tuple(KERNELS))
+    emit("build", seconds=time.perf_counter() - t0, kernels={
+        name: {"library": str(lib),
+               "ptxas": [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]}
+        for name, (lib, log) in built.items()})
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
+                "int8_matmul": quantization.int8_matmul}
 
     k1 = phase_k1(attn, MaskSpec)
+    k2 = phase_k2(vit_infer, quantization)
+    k3 = phase_k3(quantization)
     phase_resize(preprocess)
-    launches = phase_slice(attn, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, label_group)
+    launches = dict.fromkeys(KERNELS, 0)
+    launches["flash_attn_fwd"] = phase_slice(attn, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, label_group)
+    for name, n in phase_slice_fast(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, label_group).items():
+        launches[name] += n
+    for name, n in launches.items():
+        check(n > 0, f"the labeling runs never launched {name}")
 
-    vit = k1["timings"]["vit_b16_float32"]
-    print(json.dumps({"kernels": [{
-        "name": "flash_attn_fwd", "route": "cuda", "source": K1_SOURCE, "replaces": K1_REPLACES,
-        "launches": launches, "max_abs_err": k1["max_abs_err"]["float32"],
-        "ms": vit["ms"], "plain_ms": vit["plain_ms"], "shape": vit["shape"],
-    }]}), flush=True)
+    fc = k2["timings"]["fc"]
+    print(json.dumps({"kernels": [
+        kernel_entry("flash_attn_fwd", launches["flash_attn_fwd"], k1["max_abs_err"]["float32"],
+                     k1["timings"]["vit_b16_float32"]),
+        kernel_entry("int8_gemm", launches["int8_gemm"], k2["max_abs_err"], fc,
+                     bf16_matmul_ms=fc["bf16_matmul_ms"], max_bf16_ulps=k2["max_bf16_ulps"]),
+        kernel_entry("int8_matmul", launches["int8_matmul"], k3["max_abs_err"],
+                     k3["timings"]["fc_768x3072_float32"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

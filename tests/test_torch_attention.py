@@ -125,10 +125,10 @@ def test_reference_bf16_inputs_and_scores_match_xla():
 
 
 def test_cpu_dispatch_never_touches_the_kernel(monkeypatch):
-    def no_kernel():
-        raise AssertionError("the CPU path loaded the CUDA kernel")
+    def no_kernel(name):
+        raise AssertionError(f"the CPU path loaded the CUDA kernel {name}")
 
-    monkeypatch.setattr(_build, "flash_attn_lib", no_kernel)
+    monkeypatch.setattr(_build, "load", no_kernel)
     monkeypatch.setattr(tattn.flash_attention_fwd, "launches", 0)
     q, k, v = _inputs(8, 2, 77, 8, 64)
     _port(q, k, v, "causal", _padding(2, 77, 9))

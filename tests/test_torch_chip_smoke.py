@@ -71,3 +71,43 @@ def test_exits_nonzero_without_a_gpu(capsys):
         pytest.skip("a GPU is present")
     assert chip_smoke.main() != 0
     assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("name,kind", [
+    ("void (anonymous namespace)::flash_fwd_kernel<float, 64>(Params)", "k1_attention"),
+    ("void (anonymous namespace)::int8_gemm_kernel<__nv_bfloat16>(__nv_bfloat16 const*, float const*)",
+     "k2_int8_gemm"),
+    ("void (anonymous namespace)::int8_matmul_kernel<float>(float const*, signed char const*)", "k3_int8_matmul"),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN", "gemm"),
+    ("ampere_sgemm_128x64_nn", "gemm"),
+    ("void at::native::(anonymous namespace)::vectorized_layer_norm_kernel<float, float>", "layernorm"),
+    ("Memcpy HtoD (Pinned -> Device)", "copy"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::CUDAFunctor_add<float>>", "elementwise"),
+])
+def test_kernel_kind_names_each_kernel(name, kind):
+    assert chip_smoke.kernel_kind(name) == kind
+
+
+def test_kernels_line_lists_all_three_with_their_tpu_kernels():
+    """Each entry has the contract's fields; source and replaces point at real files and lines."""
+    import json
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    timing = {"ms": 1.0, "plain_ms": 2.0, "shape": [1, 2, 3]}
+    line = json.loads(json.dumps({"kernels": [chip_smoke.kernel_entry(name, 7, 0.5, timing)
+                                              for name in chip_smoke.KERNELS]}))
+    assert [k["name"] for k in line["kernels"]] == ["flash_attn_fwd", "int8_gemm", "int8_matmul"]
+    for entry in line["kernels"]:
+        assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms"} <= set(entry)
+        assert entry["route"] == "cuda" and os.path.isfile(os.path.join(repo, entry["source"]))
+        path, lineno = entry["replaces"].split(":")
+        with open(os.path.join(repo, path)) as f:
+            assert f.read().splitlines()[int(lineno) - 1].lstrip().startswith("def ")
+
+
+def test_bf16_ulps():
+    x = torch.tensor([1.0, 3.0, -100.0, 0.0])
+    up = torch.nextafter(x.bfloat16(), torch.full((4,), 1e9, dtype=torch.bfloat16))
+    assert chip_smoke.bf16_ulps(up, x) == 1.0
+    assert chip_smoke.bf16_ulps(x, x) == 0.0

@@ -1,4 +1,4 @@
-"""Cases of the PyTorch port that need an NVIDIA GPU: kernel K1, the resize on the card, the CUDA engine.
+"""Cases of the PyTorch port that need an NVIDIA GPU: kernels K1, K2 and K3, the resize on the card, the CUDA engines.
 
 Each is marked ``gpu`` and skips where ``torch.cuda.is_available()`` is
 False.  This file imports no JAX, so it also runs on a GPU machine without
@@ -7,8 +7,12 @@ JAX; tests/conftest.py does import JAX, so there run it as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Tolerances: K1 against the plain attention at 1e-4 in float32 (the two sum in
-other orders) and 2e-2 in bfloat16 (K1 rounds its output to bf16); the resize
-byte-exact; engine rewards against the CPU engine at MAE 1e-4.
+other orders) and 2e-2 in bfloat16 (K1 rounds its output to bf16); K2 within
+one bf16 ulp of its plain version (equal int8 values and int32 sums; only the
+quick-GELU's exp may differ) and ties rounded to even exactly; K3 within 1e-4
+of the largest output in float32 (sums in other orders), and in bf16 that
+plus one bf16 rounding of it (2^-7); the resize byte-exact; engine rewards against the CPU engine at MAE 1e-4
+in float32 and chip_smoke's bf16 / int8 bounds otherwise.
 """
 
 import numpy as np
@@ -18,7 +22,7 @@ import torch
 import chip_smoke
 from arp_tpu_torch.models.clip import CLIP, Char97Tokenizer, flax_to_torch
 from arp_tpu_torch.ops import attention as attn
-from arp_tpu_torch.ops import preprocess
+from arp_tpu_torch.ops import preprocess, quantization, vit_infer
 from arp_tpu_torch.ops.masks import MaskSpec
 from arp_tpu_torch.reward.engine import ClipRewardEngine
 
@@ -143,4 +147,122 @@ def test_chip_smoke_profile_sees_device_kernels(cuda):
     a = torch.randn(512, 512, device=cuda)
     report = chip_smoke.device_profile(lambda: [a @ a for _ in range(10)])
     assert report["kernel_ms"].get("gemm", 0) > 0
+    assert 0 < sum(report["top_kernels_ms"].values()) <= sum(report["kernel_ms"].values()) + 1e-9
     assert 0 < report["device_busy_ms"] <= report["wall_ms"]
+
+
+def _k2_inputs(cuda, m, k, n, dtype, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return chip_smoke.k2_inputs(m, k, n, dtype, gen, quantization)
+
+
+@pytest.mark.parametrize("act", ["none", "quickgelu"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(768, 2304), (768, 768), (768, 3072), (3072, 768), (768, 512), (64, 8)])
+def test_k2_matches_plain(cuda, k, n, dtype, act):
+    x, a, wq, ws, bias, wq_t = _k2_inputs(cuda, 1003, k, n, dtype)  # M = 1003: ragged
+    launches = vit_infer.fused_int8_matmul.launches
+    got = vit_infer.fused_int8_matmul(x, a, wq, ws, bias, act, wq_t=wq_t)
+    assert vit_infer.fused_int8_matmul.launches == launches + 1
+    want = vit_infer.fused_int8_matmul_reference(x, a, wq, ws, bias, act)
+    assert got.dtype == torch.bfloat16 and got.shape == (1003, n)
+    assert chip_smoke.bf16_ulps(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("m", [1, 16, 127, 129, 50432])
+def test_k2_ragged_m_and_no_bias(cuda, m):
+    x, a, wq, ws, _, _ = _k2_inputs(cuda, m, 768, 2304, torch.bfloat16, seed=m)
+    got = vit_infer.fused_int8_matmul(x, a, wq, ws)  # no bias, K-major copy made by the wrapper
+    assert chip_smoke.bf16_ulps(got, vit_infer.fused_int8_matmul_reference(x, a, wq, ws)) <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k2_rounds_ties_to_even(cuda, dtype):
+    ties = torch.arange(-127, 127, device=cuda, dtype=torch.float32) + 0.5
+    x = torch.cat([ties, torch.tensor([3.0, 127.0], device=cuda)]).repeat(3, 1)
+    eye = torch.eye(256, dtype=torch.int8, device=cuda)
+    got = vit_infer.fused_int8_matmul(x.to(dtype), torch.tensor(127.0, device=cuda), eye,
+                                      torch.ones(1, 256, device=cuda))
+    assert torch.equal(got.float(), torch.round(x))
+    assert got[0, 126:130].tolist() == [0.0, 0.0, 2.0, 2.0]  # -0.5, 0.5, 1.5, 2.5
+
+
+def test_k2_refuses_what_it_does_not_take(cuda):
+    x, a, wq, ws, bias, _ = _k2_inputs(cuda, 64, 768, 768, torch.bfloat16)
+    with pytest.raises(ValueError, match="K % 32"):
+        vit_infer.fused_int8_matmul(x[:, :760].contiguous(), a, wq[:760], ws, bias)
+    with pytest.raises(ValueError, match="N % 8"):
+        vit_infer.fused_int8_matmul(x, a, wq[:, :764].contiguous(), ws[:, :764].contiguous(), bias[:764])
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        vit_infer.fused_int8_matmul(x.half(), a, wq, ws, bias)
+    with pytest.raises(ValueError, match="one device"):
+        vit_infer.fused_int8_matmul(x, a, wq, ws.cpu(), bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        vit_infer.fused_int8_matmul(x.t().contiguous().t(), a, wq, ws, bias)
+    with pytest.raises(ValueError, match="act"):
+        vit_infer.fused_int8_matmul(x, a, wq, ws, bias, act="gelu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(1003, 768, 3072), (517, 3072, 768), (1003, 200, 130), (1, 64, 1)])
+def test_k3_matches_plain(cuda, m, k, n, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    q, s = quantization.quantize_array(torch.randn(k, n, generator=gen, device=cuda) * k ** -0.5)
+    x = torch.randn(m, k, generator=gen, device=cuda).to(dtype)
+    launches = quantization.int8_matmul.launches
+    got = quantization.int8_matmul(x, q, s)
+    assert quantization.int8_matmul.launches == launches + 1
+    want = quantization.int8_matmul_reference(x, q, s)
+    assert got.dtype == dtype and got.shape == (m, n)
+    rel = chip_smoke.K3_F32_REL if dtype == torch.float32 else chip_smoke.K3_BF16_REL
+    assert (got.float() - want.float()).abs().max() <= rel * want.float().abs().max()
+
+
+def test_k3_reads_strided_rows(cuda):
+    x = torch.randn(64, 2, 256, device=cuda)[:, 0]  # row stride 512
+    q, s = quantization.quantize_array(torch.randn(256, 96, device=cuda))
+    want = quantization.int8_matmul_reference(x, q, s)
+    assert (quantization.int8_matmul(x, q, s) - want).abs().max() <= chip_smoke.K3_F32_REL * want.abs().max()
+
+
+def test_k3_refuses_what_it_does_not_take(cuda):
+    q, s = quantization.quantize_array(torch.randn(64, 32, device=cuda))
+    x = torch.randn(8, 64, device=cuda)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        quantization.int8_matmul(x.half(), q, s)
+    with pytest.raises(ValueError, match="int8"):
+        quantization.int8_matmul(x, q.float(), s)
+    with pytest.raises(ValueError, match="one device"):
+        quantization.int8_matmul(x, q.cpu(), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        quantization.int8_matmul(x.t().contiguous().t(), q, s)
+    with pytest.raises(ValueError, match=r"\(M, K\)"):
+        quantization.int8_matmul(x[:, :60], q, s)
+
+
+@pytest.mark.parametrize("mode", list(chip_smoke.FAST_MODES))
+def test_cuda_fast_engines_match_cpu_engine(cuda, mode):
+    knobs = chip_smoke.FAST_MODES[mode]
+    state = flax_to_torch(chip_smoke.random_clip_variables(TINY, 32, seed=3))
+
+    def engine(device):
+        model = CLIP(**TINY, image_size=32)
+        model.load_state_dict(state)
+        return ClipRewardEngine(model=model, batch_size=8, tokenizer=Char97Tokenizer(), device=device, **knobs)
+
+    frames = np.random.default_rng(4).integers(0, 256, size=(13, 48, 48, 3), dtype=np.uint8)
+    want = engine("cpu").text_rewards(frames, "collect the coin.")
+    counters = (attn.flash_attention_fwd, vit_infer.fused_int8_matmul, quantization.int8_matmul)
+    for fn in counters:
+        fn.launches = 0
+    eng = engine(cuda)
+    got = eng.text_rewards(frames, "collect the coin.")
+    k1, k2, k3 = (fn.launches for fn in counters)
+    assert k1 > 0
+    assert (k2 > 0) == ("int8" in mode) and (k3 > 0) == mode.startswith("quantize_weights")
+    mae = np.abs(got - want).mean()
+    if mode.endswith("f32"):
+        assert mae <= chip_smoke.F32_REWARD_MAE, mae
+    else:
+        cos_mae = chip_smoke.INT8_COS_MAE if "int8" in mode else chip_smoke.BF16_COS_MAE
+        assert mae <= cos_mae * eng.logit_scale, mae

@@ -99,8 +99,7 @@ def test_provenance(jax_engine, port_engine):
 
 
 @pytest.mark.parametrize("option", [
-    dict(resize_mode="host"), dict(resize_mode="fast"), dict(use_crop=True),
-    dict(quantize_weights=True), dict(fast_encode=True), dict(fast_int8=True), dict(mesh=object()),
+    dict(resize_mode="host"), dict(resize_mode="fast"), dict(use_crop=True), dict(mesh=object()),
 ], ids=lambda o: next(iter(o)) + ("_" + o["resize_mode"] if "resize_mode" in o else ""))
 def test_unported_options_raise(jax_engine, option):
     with pytest.raises(NotImplementedError):
