@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and includes no PyTorch
 header, so it compiles in seconds into ``build/arp_tpu_torch/`` at the root of
-the checkout.  The library's file name carries a hash of the source and the
-flags, so an edited source is rebuilt.  Importing this module needs no
+the checkout.  The library's file name carries a hash of the source, of the
+headers beside it (``csrc/*.cuh``) and of the flags, so an edited source is
+rebuilt.  Importing this module needs no
 ``nvcc`` and no GPU; a missing ``nvcc`` or a failed build raises with the
 compiler's output, and nothing falls back.
 """
@@ -49,7 +50,8 @@ def build(name: str) -> tuple[Path, str]:
     compiled, and is empty when the library was already on disk.
     """
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     lib = BUILD_DIR / f"lib{name}-{digest}.so"
     if lib.exists():
         return lib, ""

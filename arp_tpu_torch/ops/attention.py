@@ -8,7 +8,9 @@ Two implementations behind one API, :func:`dot_product_attention`:
     filled with -1e30, then softmax.  Tensors on the CPU take it.
   * :func:`flash_attention_fwd` — kernel K1 (``csrc/flash_attn_fwd.cu``), the
     Hopper counterpart of the Pallas kernel ``_flash_kernel``.  CUDA tensors
-    take it; what it does not support raises.
+    take it; what it does not support raises.  bfloat16 inputs run on the
+    tensor cores (bf16 products, float32 sums and softmax, P rounded to bf16
+    as the plain version rounds it); float32 inputs keep float32 products.
 
 Both take q, k, v as (batch, seq, heads, head_dim).  A query row whose keys
 are all masked gets the mean of V over all n keys in both.

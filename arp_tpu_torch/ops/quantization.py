@@ -12,6 +12,13 @@ weight-only int8 matmul behind ``ClipRewardEngine(quantize_weights=True)``:
 counterpart of the Pallas ``_int8_matmul_kernel``) on CUDA tensors and its
 plain version, :func:`int8_matmul_reference`, on CPU tensors.  Kernels stay in
 the JAX package's (K, N) layout.
+
+K3 multiplies on the tensor cores with bf16 operands that hold x and q
+exactly: a float32 x is split into three bf16 pieces (:func:`split_bf16x3`),
+q is exact in bf16, and the scale is applied to the float32 sums.
+:func:`int8_matmul_split_reference` is the plain version of that arithmetic;
+it differs from :func:`int8_matmul_reference` only in where the float32
+roundings fall.
 """
 
 from __future__ import annotations
@@ -59,6 +66,43 @@ def int8_matmul_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor)
     dequantized weight to x's dtype first.
     """
     return (x.float() @ dequantize_array(q, scale)).to(x.dtype)
+
+
+def split_bf16x3(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A float32 tensor as three bfloat16 pieces with ``hi + mid + lo == x`` exactly.
+
+    ``hi = bf16(x)``, ``mid = bf16(x - hi)``, ``lo = bf16(x - hi - mid)``, each
+    rounded to nearest even.  Both differences are exact in float32, and 3 x 8
+    significant bits cover float32's 24, so nothing is left over, for every
+    x that rounds to a finite bf16 (|x| < 3.39e38) and whose smallest piece is
+    not subnormal (|x| >= 2^-102).  A piece times an int8 weight has at most
+    15 significant bits: exact in float32.
+    """
+    x = x.float()
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.float()
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+def int8_matmul_split_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Plain version of the arithmetic K3 runs on the card: ``(sum_k x q) * scale[n]``.
+
+    A float32 x goes as its three bf16 pieces, smallest first, each times
+    ``q.f32`` in float32; a bfloat16 x as it is.  The scale multiplies the
+    float32 sum once per output, where :func:`int8_matmul_reference` (the TPU
+    kernel's formula) multiplies every weight.  Every product is exact in
+    both; they differ by the order and the rounding of the float32 sums.
+    Tests use this; nothing on the labeling path does.
+    """
+    qf = q.float()
+    if x.dtype == torch.float32:
+        hi, mid, lo = split_bf16x3(x)
+        acc = lo.float() @ qf + mid.float() @ qf + hi.float() @ qf
+    else:
+        acc = x.float() @ qf
+    return (acc * scale).to(x.dtype)
 
 
 def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -10,13 +10,15 @@ Phases, each printing one JSON line:
                (int8_gemm.cu), K3 (int8_matmul.cu); ptxas's register lines.
   3. k1      — K1 against the plain attention on the card, float32 and bfloat16,
                over the slice's shapes, the masks, ragged N and a fully masked
-               row; K1 and the plain version timed with CUDA events.
+               row; K1, the plain version and one scaled_dot_product_attention
+               call (the library yardstick) timed with CUDA events.
   4. k2      — K2 against its plain version at the six ViT-B/16 int8 sites at
                batch 256, a ragged M and round-half-to-even ties, within one
-               bf16 ulp; K2, the plain version and a bf16 torch.matmul with the
-               same epilogue timed.
+               bf16 ulp; K2, the plain version, a bf16 torch.matmul with the
+               same epilogue and torch._int_mm (the product alone) timed.
   5. k3      — K3 against its plain version at the MLP and attention shapes at
-               batch 256 in float32 and bf16, and a ragged M, N and K; both timed.
+               batch 256 in float32 and bf16, and a ragged M, N and K; K3, the
+               plain version and one matmul on the dequantized weight timed.
   6. resize  — the packed bit-exact resize on the card against the numpy
                fixed-point reference, byte for byte.
   7. slice   — reward labeling at full CLIP ViT-B/16 width (random weights from
@@ -32,6 +34,9 @@ Phases, each printing one JSON line:
                engine of the same mode on the 8 rows, and its mean feature
                cosine against the f32 standard engine; then one profiled
                labeling pass of each engine.
+Each timed shape of k1, k2 and k3 also carries ``bound_ms``: the least time the
+card could take, the larger of the bytes the function must move over the memory
+rate and its operations over the peak rate of their type (PEAK below).
 Then the kernel table and, last, ``{"ok": true, "device": {...}}``.  Any
 failure raises and exits non-zero; without CUDA it exits non-zero at once.
 """
@@ -77,13 +82,25 @@ LOGIT_SCALE = 100.0  # exp(logit_scale) of trained CLIP
 MIN_COSINE = {"fast_f32": 0.995, "fast_bf16": 0.995, "fast_int8": 0.97, "fast_int8_bf16_attn": 0.98,
               "quantize_weights_f32": 0.99}
 # K3 against its plain version, relative to the largest output: both sum K
-# float32 products in other orders, ~K * 2^-24 of it at worst, held to 1e-4;
-# with bf16 x, add one bf16 rounding of the largest output (2^-7): an output
-# near zero can round to another bf16 value by many of its own ulps.
+# exact products in float32 in other orders (K3 scales the sum, the plain
+# version every weight; the tensor cores' float32 adds may truncate where an
+# FMA rounds), ~K * 2^-24 of it at worst, held to 1e-4; with bf16 x, add one
+# bf16 rounding of the largest output (2^-7): an output near zero can round
+# to another bf16 value by many of its own ulps.
 K3_F32_REL = 1e-4
 K3_BF16_REL = K3_F32_REL + 2.0 ** -7
 BATCH = 256
 TOKENS = 197  # ViT-B/16 at 224 px: 196 patches + CLS
+# Published peaks of one H100 SXM at its full 700 W limit (NVIDIA's data sheet,
+# dense rates): device memory in bytes/s, operations/s by operand type.
+PEAK = {"bytes": 3.35e12, "bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+
+
+def bound(nbytes: float, ops: float, kind: str) -> dict:
+    """The least time for ``nbytes`` moved once and ``ops`` operations of type ``kind``, in ms."""
+    by_bytes, by_ops = nbytes / PEAK["bytes"] * 1e3, ops / PEAK[kind] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes_ms": by_bytes, "operations_ms": by_ops, "operations_at": kind}
 
 
 def emit(phase: str, **fields) -> None:
@@ -232,7 +249,7 @@ def device_profile(run) -> dict:
             "kernel_ms": dict(kernel_ms), "top_kernels_ms": dict(largest)}
 
 
-def phase_k1(attn, MaskSpec) -> dict:
+def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def inputs(b, n, h, d, dtype):
@@ -272,15 +289,27 @@ def phase_k1(attn, MaskSpec) -> dict:
 
     timings = {}
     for label, (b, n, h, d, spec, pad) in (("vit_b16", vit), ("text", text)):
+        # what this mask lets through: the products and exponentials that must be made
+        allowed = materialize_mask(spec, n, device="cuda")[None].expand(b, n, n)
+        if pad is not None:
+            allowed = allowed & ~pad[:, None, :]
+        pairs = int(allowed.sum().item()) * h
+        sdpa_mask = None if spec.kind == "none" and pad is None else allowed[:, None]
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = inputs(b, n, h, d, dtype)
-            kernel = lambda: attn.flash_attention_fwd(q, k, v, spec, pad)  # noqa: E731
-            plain = lambda: attn.reference_attention(q, k, v, spec, pad)  # noqa: E731
-            # interleaved: plain, kernel, kernel, plain
-            p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, N, D) views
+            # the library yardstick; timed here, used nowhere in the port
+            t = interleaved_ms(
+                plain=lambda: attn.reference_attention(q, k, v, spec, pad),
+                kernel=lambda: attn.flash_attention_fwd(q, k, v, spec, pad),
+                library=lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=sdpa_mask))
             name = str(dtype).removeprefix("torch.")
-            timings[f"{label}_{name}"] = {"shape": [b, n, h, d], "mask": spec.kind,
-                                          "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+            # q, k, v read once, o written once; 2 D flops a pair for q k^T and 2 D for p v.
+            # float32 inputs need float32 products (K1_ATOL): the SIMT peak.
+            timings[f"{label}_{name}"] = {
+                "shape": [b, n, h, d], "mask": spec.kind, "ms": t["kernel"], "plain_ms": t["plain"],
+                "library_ms": t["library"], "library": "scaled_dot_product_attention",
+                **bound(4 * q.numel() * q.element_size(), 4 * d * pairs, "bf16" if dtype == torch.bfloat16 else "f32")}
     emit("k1_time", timings=timings)
     return {"max_abs_err": max_err, "timings": timings}
 
@@ -364,12 +393,24 @@ def phase_k2(vi, quant) -> dict:
                 out = out * torch.sigmoid(1.702 * out)
             return out.bfloat16()
 
-        t = interleaved_ms(plain=lambda: vi.fused_int8_matmul_reference(x, a, wq, ws, bias, act),
-                           kernel=lambda: vi.fused_int8_matmul(x, a, wq, ws, bias, act, wq_t=wq_t),
-                           bf16=bf16_site)
+        fns = dict(plain=lambda: vi.fused_int8_matmul_reference(x, a, wq, ws, bias, act),
+                   kernel=lambda: vi.fused_int8_matmul(x, a, wq, ws, bias, act, wq_t=wq_t),
+                   bf16=bf16_site)
+        # The library yardstick is the int8 product alone, on operands quantized
+        # beforehand: no prologue (quantizing x) and no epilogue (scales, bias, GELU, cast).
+        int_mm = getattr(torch, "_int_mm", None)
+        library_note = "this torch has no torch._int_mm"
+        if int_mm is not None:
+            library_note = "torch._int_mm: the int8 product alone, no prologue or epilogue"
+            x8 = torch.clamp(torch.round(x.float() * (127.0 / a)), -127, 127).to(torch.int8)
+            fns["library"] = lambda: int_mm(x8, wq)
+        t = interleaved_ms(**fns)
+        # x read once, the int8 weight, its scales and the bias once, bf16 out written once
+        nbytes = x.numel() * x.element_size() + k * n + 8 * n + 2 * m * n
         timings[label] = {"shape": [m, k, n], "x": str(dtype).removeprefix("torch."), "act": act,
                           "ms": t["kernel"], "plain_ms": t["plain"], "bf16_matmul_ms": t["bf16"],
-                          "tops": 2 * m * k * n / t["kernel"] / 1e9}
+                          "library_ms": t.get("library"), "library": library_note,
+                          "tops": 2 * m * k * n / t["kernel"] / 1e9, **bound(nbytes, 2 * m * k * n, "int8")}
     emit("k2_time", timings=timings)
     return {"max_abs_err": max(e["max_abs_err"] for e in errors.values()),
             "max_bf16_ulps": max(e["ulps"] for e in errors.values()), "timings": timings}
@@ -396,11 +437,30 @@ def phase_k3(quant) -> dict:
             err = (got.float() - want.float()).abs().max().item()
             errors[name] = {"max_abs_err": err, "rel_to_max": err / want.float().abs().max().item(),
                             "bound": K3_F32_REL if dtype == torch.float32 else K3_BF16_REL}
+            split = quant.int8_matmul_split_reference(x, q, s)  # the same arithmetic, other summation order
+            errors[name]["rel_to_split_reference"] = ((got.float() - split.float()).abs().max()
+                                                      / split.float().abs().max()).item()
             if label != "ragged":
-                t = interleaved_ms(plain=lambda: quant.int8_matmul_reference(x, q, s),
-                                   kernel=lambda: quant.int8_matmul(x, q, s))
+                # The library yardstick: one matmul on the weight dequantized beforehand
+                # (the plain version less its dequantize pass).
+                w32 = quant.dequantize_array(q, s)
+                fns = dict(plain=lambda: quant.int8_matmul_reference(x, q, s),
+                           kernel=lambda: quant.int8_matmul(x, q, s),
+                           library=lambda: x.float() @ w32)
+                if dtype == torch.bfloat16:  # other numbers: it rounds the weight to bf16
+                    w16 = w32.to(torch.bfloat16)
+                    fns["library_bf16"] = lambda: x @ w16
+                t = interleaved_ms(**fns)
+                # x read once, int8 q and its scales once, out written once.  Operations: the
+                # exact bf16 products on the tensor cores, one pass for bf16 x and three for the
+                # three pieces of a float32 x (no float32 rate of the card holds K3's time back).
+                passes = 1 if dtype == torch.bfloat16 else 3
+                nbytes = x.numel() * x.element_size() + k * n + 4 * n + m * n * x.element_size()
                 timings[name] = {"shape": [m, k, n], "ms": t["kernel"], "plain_ms": t["plain"],
-                                 "tflops": 2 * m * k * n / t["kernel"] / 1e9}
+                                 "library_ms": t["library"], "library": "x.float() @ dequantized weight (cuBLAS)",
+                                 "library_bf16_weight_ms": t.get("library_bf16"),
+                                 "tflops": 2 * m * k * n / t["kernel"] / 1e9, "bf16_passes": passes,
+                                 **bound(nbytes, passes * 2 * m * k * n, "bf16")}
     emit("k3_check", cases=len(errors), errors=errors)
     for name, e in errors.items():
         check(e["rel_to_max"] <= e["bound"], f"K3 {name}: error {e['rel_to_max']} of the largest output > {e['bound']}")
@@ -556,6 +616,7 @@ def kernel_entry(name: str, launches: int, max_abs_err: float, timing: dict, **e
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
             "max_abs_err": max_abs_err, "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
             "shape": timing["shape"], **extra}
 
 
@@ -570,7 +631,7 @@ def main() -> int:
     from arp_tpu_torch.models.clip import CLIP, CONFIGS, flax_to_torch
     from arp_tpu_torch.ops import _build, preprocess, quantization, vit_infer
     from arp_tpu_torch.ops import attention as attn
-    from arp_tpu_torch.ops.masks import MaskSpec
+    from arp_tpu_torch.ops.masks import MaskSpec, materialize_mask
     from arp_tpu_torch.reward.engine import ClipRewardEngine
     from arp_tpu_torch.reward.labeler import label_group
 
@@ -585,12 +646,13 @@ def main() -> int:
     built = _build.build_all(tuple(KERNELS))
     emit("build", seconds=time.perf_counter() - t0, kernels={
         name: {"library": str(lib),
-               "ptxas": [line.strip() for line in log.splitlines() if "registers" in line or "spill" in line]}
+               "ptxas": [line.strip() for line in log.splitlines()
+                         if "registers" in line or "spill" in line or "Performance Loss" in line]}
         for name, (lib, log) in built.items()})
     counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
                 "int8_matmul": quantization.int8_matmul}
 
-    k1 = phase_k1(attn, MaskSpec)
+    k1 = phase_k1(attn, MaskSpec, materialize_mask)
     k2 = phase_k2(vit_infer, quantization)
     k3 = phase_k3(quantization)
     phase_resize(preprocess)
@@ -602,13 +664,16 @@ def main() -> int:
         check(n > 0, f"the labeling runs never launched {name}")
 
     fc = k2["timings"]["fc"]
+    k1_f32 = k1["timings"]["vit_b16_float32"]
     print(json.dumps({"kernels": [
-        kernel_entry("flash_attn_fwd", launches["flash_attn_fwd"], k1["max_abs_err"]["float32"],
-                     k1["timings"]["vit_b16_float32"]),
+        kernel_entry("flash_attn_fwd", launches["flash_attn_fwd"], k1["max_abs_err"]["bfloat16"],
+                     k1["timings"]["vit_b16_bfloat16"], dtype="bfloat16",
+                     float32={"max_abs_err": k1["max_abs_err"]["float32"],
+                              **{key: k1_f32[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}),
         kernel_entry("int8_gemm", launches["int8_gemm"], k2["max_abs_err"], fc,
                      bf16_matmul_ms=fc["bf16_matmul_ms"], max_bf16_ulps=k2["max_bf16_ulps"]),
         kernel_entry("int8_matmul", launches["int8_matmul"], k3["max_abs_err"],
-                     k3["timings"]["fc_768x3072_float32"]),
+                     k3["timings"]["fc_768x3072_float32"], dtype="float32"),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -75,6 +75,8 @@ def test_exits_nonzero_without_a_gpu(capsys):
 
 @pytest.mark.parametrize("name,kind", [
     ("void (anonymous namespace)::flash_fwd_kernel<float, 64>(Params)", "k1_attention"),
+    ("void (anonymous namespace)::flash_fwd_wgmma_kernel<64>((anonymous namespace)::Params, int)", "k1_attention"),
+    ("void (anonymous namespace)::flash_fwd_simt_kernel<128>((anonymous namespace)::Params, int)", "k1_attention"),
     ("void (anonymous namespace)::int8_gemm_kernel<__nv_bfloat16>(__nv_bfloat16 const*, float const*)",
      "k2_int8_gemm"),
     ("void (anonymous namespace)::int8_matmul_kernel<float>(float const*, signed char const*)", "k3_int8_matmul"),
@@ -94,16 +96,31 @@ def test_kernels_line_lists_all_three_with_their_tpu_kernels():
     import os
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    timing = {"ms": 1.0, "plain_ms": 2.0, "shape": [1, 2, 3]}
+    timing = {"ms": 1.0, "plain_ms": 2.0, "shape": [1, 2, 3], "library_ms": None,
+              **chip_smoke.bound(3.35e9, 989e9, "bf16")}
     line = json.loads(json.dumps({"kernels": [chip_smoke.kernel_entry(name, 7, 0.5, timing)
                                               for name in chip_smoke.KERNELS]}))
     assert [k["name"] for k in line["kernels"]] == ["flash_attn_fwd", "int8_gemm", "int8_matmul"]
     for entry in line["kernels"]:
-        assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms"} <= set(entry)
+        assert {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms"} <= set(entry)
+        assert entry["bound_ms"] == 1.0 and entry["bound_by"] == "bytes" and entry["library_ms"] is None
         assert entry["route"] == "cuda" and os.path.isfile(os.path.join(repo, entry["source"]))
         path, lineno = entry["replaces"].split(":")
         with open(os.path.join(repo, path)) as f:
             assert f.read().splitlines()[int(lineno) - 1].lstrip().startswith("def ")
+
+
+@pytest.mark.parametrize("nbytes,ops,kind,ms,by", [
+    (3.35e9, 989e9, "bf16", 1.0, "bytes"),  # a tie goes to bytes
+    (3.35e9, 4 * 989e9, "bf16", 4.0, "operations"),
+    (2 * 3.35e9, 1979e9, "int8", 2.0, "bytes"),
+    (0.0, 67e9, "f32", 1.0, "operations"),
+])
+def test_bound_is_the_larger_of_bytes_and_operations(nbytes, ops, kind, ms, by):
+    b = chip_smoke.bound(nbytes, ops, kind)
+    assert b["bound_ms"] == pytest.approx(ms) and b["bound_by"] == by
+    assert b["bound_ms"] == max(b["bytes_ms"], b["operations_ms"]) and b["operations_at"] == kind
 
 
 def test_bf16_ulps():

@@ -7,11 +7,18 @@ JAX; tests/conftest.py does import JAX, so there run it as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Tolerances: K1 against the plain attention at 1e-4 in float32 (the two sum in
-other orders) and 2e-2 in bfloat16 (K1 rounds its output to bf16); K2 within
+other orders) and 2e-2 in bfloat16 (K1 multiplies bf16 operands on the tensor
+cores with float32 sums, rounds P to bf16 as the plain version does, and
+rounds its output to bf16); K2 within
 one bf16 ulp of its plain version (equal int8 values and int32 sums; only the
 quick-GELU's exp may differ) and ties rounded to even exactly; K3 within 1e-4
 of the largest output in float32 (sums in other orders), and in bf16 that
-plus one bf16 rounding of it (2^-7); the resize byte-exact; engine rewards against the CPU engine at MAE 1e-4
+plus one bf16 rounding of it (2^-7); K3 in float32 against the plain version
+of its own arithmetic (``int8_matmul_split_reference``) at K / 4 units of
+2^-23 of the largest output: every product is exact in both, each of K3's
+3 K / 16 wgmma steps may drop up to one unit in the last place of the running
+sum where a float32 add rounds, and the plain version's own roundings take
+the rest (measured ~10x below); the resize byte-exact; engine rewards against the CPU engine at MAE 1e-4
 in float32 and chip_smoke's bf16 / int8 bounds otherwise.
 """
 
@@ -72,6 +79,32 @@ def test_kernel_matches_plain_attention(cuda, kind, dtype):
 def test_kernel_head_dims_and_ragged_n(cuda, head_dim, n):
     q, k, v = _qkv(1, (2, n, 2, head_dim), cuda)
     _check_k1(q, k, v, MaskSpec("causal"), _padding(2, n, cuda))
+
+
+@pytest.mark.parametrize("head_dim", [32, 128])
+@pytest.mark.parametrize("n", [1, 65, 129, 257])
+def test_kernel_bf16_head_dims_and_ragged_n(cuda, head_dim, n):
+    q, k, v = _qkv(1, (2, n, 2, head_dim), cuda, torch.bfloat16)
+    _check_k1(q, k, v, MaskSpec("causal"), _padding(2, n, cuda))
+    _check_k1(q, k, v, MaskSpec("none"), None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+@pytest.mark.parametrize("kind", ["causal", "dt"])
+def test_kernel_n_beyond_the_shared_memory_ring(cuda, kind, head_dim, dtype):
+    """513 keys are nine key tiles: the ring of K/V stages wraps, and causal and dt exit early."""
+    q, k, v = _qkv(5, (2, 513, 2, head_dim), cuda, dtype)
+    _check_k1(q, k, v, MaskSpec(kind, 2, 4), None)
+    _check_k1(q, k, v, MaskSpec(kind, 2, 4), _padding(2, 513, cuda))
+
+
+def test_kernel_bf16_reads_rows_off_16_byte_boundaries(cuda):
+    """A head slice that starts 4 bytes into a row: the copies go element by element."""
+    qkv = torch.randn(2, 77, 3, 8, 68, device=cuda).to(torch.bfloat16)[..., 2:66]
+    q, k, v = qkv.unbind(2)
+    assert q.data_ptr() % 16 != 0 and q.stride(-1) == 1
+    _check_k1(q, k, v, MaskSpec("causal"), _padding(2, 77, cuda))
 
 
 def test_kernel_reads_strided_heads(cuda):
@@ -216,6 +249,44 @@ def test_k3_matches_plain(cuda, m, k, n, dtype):
     assert got.dtype == dtype and got.shape == (m, n)
     rel = chip_smoke.K3_F32_REL if dtype == torch.float32 else chip_smoke.K3_BF16_REL
     assert (got.float() - want.float()).abs().max() <= rel * want.float().abs().max()
+
+
+def _k3_inputs(cuda, m, k, n, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    q, s = quantization.quantize_array(torch.randn(k, n, generator=gen, device=cuda) * k ** -0.5)
+    return torch.randn(m, k, generator=gen, device=cuda).to(dtype), q, s
+
+
+@pytest.mark.parametrize("m,k,n", [(1003, 768, 3072), (517, 3072, 768), (300, 100, 264), (1003, 200, 130)])
+def test_k3_f32_matches_the_plain_version_of_its_arithmetic(cuda, m, k, n):
+    x, q, s = _k3_inputs(cuda, m, k, n, torch.float32)
+    want = quantization.int8_matmul_split_reference(x, q, s)
+    got = quantization.int8_matmul(x, q, s)
+    assert (got - want).abs().max() <= k / 4 * 2.0 ** -23 * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(64, 100, 256), (300, 33, 8), (129, 200, 520), (70, 1, 16), (5, 2049, 40)])
+def test_k3_k_is_no_multiple_of_the_k_tile(cuda, m, k, n, dtype):
+    """K tiles are 32 (float32 x) or 64 (bf16 x) deep: the last one is zero-filled past K."""
+    x, q, s = _k3_inputs(cuda, m, k, n, dtype)
+    want = quantization.int8_matmul_reference(x, q, s)
+    got = quantization.int8_matmul(x, q, s)
+    rel = chip_smoke.K3_F32_REL if dtype == torch.float32 else chip_smoke.K3_BF16_REL
+    assert (got.float() - want.float()).abs().max() <= rel * want.float().abs().max()
+
+
+def test_k3_reads_rows_off_16_byte_boundaries(cuda):
+    """x rows 4 bytes off and an N that is no multiple of 16: element-wise loads and stores."""
+    x = torch.randn(70, 131, device=cuda)[:, 1:129]
+    q, s = quantization.quantize_array(torch.randn(128, 50, device=cuda))
+    assert x.data_ptr() % 16 != 0
+    for xx in (x, x.to(torch.bfloat16)[:, 1:]):
+        qq = q[: xx.shape[1]].contiguous()
+        want = quantization.int8_matmul_reference(xx, qq, s)
+        got = quantization.int8_matmul(xx, qq, s)
+        rel = chip_smoke.K3_F32_REL if xx.dtype == torch.float32 else chip_smoke.K3_BF16_REL
+        assert (got.float() - want.float()).abs().max() <= rel * want.float().abs().max()
 
 
 def test_k3_reads_strided_rows(cuda):

@@ -50,3 +50,19 @@ def test_chip_smoke_imports_without_jax_or_the_jax_package():
         [sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_port_names_no_library_kernel():
+    """The library yardsticks live in chip_smoke.py alone: no file of the port names one."""
+    banned = ("scaled_dot_product_attention", "_int_mm", "torch.compile")
+    hits = []
+    for root, _, files in os.walk(os.path.join(REPO, "arp_tpu_torch")):
+        if "__pycache__" in root:
+            continue
+        for name in files:
+            if not name.endswith((".py", ".cu", ".cuh", ".md")):
+                continue
+            with open(os.path.join(root, name), encoding="utf-8") as f:
+                text = f.read()
+            hits += [(os.path.join(root, name), word) for word in banned if word in text]
+    assert not hits, hits

@@ -8,6 +8,17 @@ to JAX ``int8_matmul`` run through its Pallas kernel in interpret mode: atol
 port's ``quantize_linears`` must quantize exactly ``quantize_tree``'s leaves,
 and the quantized port CLIP must give the Flax CLIP's features on the
 dequantized tree at atol 1e-5.
+
+Kernel K3 on the card computes ``(sum_k x q) * scale`` with x as three exact
+bf16 pieces; ``split_bf16x3`` and ``int8_matmul_split_reference`` are that
+arithmetic in plain PyTorch.  The split must be exact bit for bit and every
+piece x weight product exact in float32; the split reference is held to
+``int8_matmul_reference`` and to the Pallas kernel at 1e-5 of the largest
+output: every product is exact in both, so they differ only by where the
+float32 roundings of K sums fall (~sqrt(K) * 2^-24 of the largest, 2e-6 at
+K = 768).  With bf16 x both round the float32 sum to bf16 once, and sums that
+differ in their last float32 bits can round to neighbouring bf16 values: one
+bf16 rounding of the largest output (2^-8) is added.
 """
 
 import jax
@@ -159,3 +170,91 @@ def test_quant_linear_keeps_float32_scales_when_cast():
     x = torch.randn(5, 7, 64, dtype=torch.bfloat16)
     out = ql(x)
     assert out.shape == (5, 7, 32) and out.dtype == torch.bfloat16
+
+
+SPLIT_REL = 1e-5  # of the largest output: float32 rounding order only (module docstring)
+BF16_ROUNDING = 2.0 ** -8  # one bf16 rounding of the largest output
+
+
+def _split_inputs():
+    rng = np.random.default_rng(5)
+    ties = (np.arange(1, 257, dtype=np.float32) + 256.0) * np.float32(2.0 ** -8)  # 1 + j/256: odd j are bf16 ties
+    return {
+        "normal": rng.standard_normal(4096).astype(np.float32),
+        "bf16_ties": np.concatenate([ties, -ties, ties * np.float32(2.0 ** 40), ties * np.float32(2.0 ** -40)]),
+        "zero": np.array([0.0], np.float32),
+        "large": (rng.standard_normal(1024) * 1e30).astype(np.float32),
+        "small": (rng.standard_normal(1024) * 1e-25).astype(np.float32),  # above 2^-102: no subnormal piece
+        "all_mantissa_bits": np.array([16777215.0, -16777215.0, 1.9999999, 1.0000001, 3.0e38], np.float32),
+    }
+
+
+@pytest.mark.parametrize("case", list(_split_inputs()))
+def test_split_bf16x3_is_exact(case):
+    x = torch.from_numpy(_split_inputs()[case])
+    hi, mid, lo = tq.split_bf16x3(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    total = hi.float() + mid.float() + lo.float()  # both partial sums are exact in float32
+    np.testing.assert_array_equal(_bits(total.numpy()), _bits(x.numpy()))
+    np.testing.assert_array_equal(hi.float().numpy(), x.to(torch.bfloat16).float().numpy())
+
+
+@pytest.mark.parametrize("case", ["normal", "bf16_ties", "large", "small", "all_mantissa_bits"])
+def test_split_pieces_times_int8_are_exact_in_float32(case):
+    """8 significant bits x 7 bits: the float32 product equals the float64 product."""
+    x = torch.from_numpy(_split_inputs()[case])
+    if case == "large":
+        x = x / 256  # |x| * 127 must stay finite in float32
+    if case == "all_mantissa_bits":
+        x = x[:4]
+    q = torch.arange(-127, 128, dtype=torch.int8)
+    for piece in tq.split_bf16x3(x):
+        prod32 = piece.float()[:, None] * q.float()[None, :]
+        prod64 = piece.double()[:, None] * q.double()[None, :]
+        assert torch.isfinite(prod32).all()
+        assert torch.equal(prod32.double(), prod64)
+
+
+def test_split_bf16x3_of_minus_zero_is_zero():
+    """-0.0 comes back as +0.0 (hi = -0, the other pieces +0): equal in value, which is all a product needs."""
+    pieces = tq.split_bf16x3(torch.tensor([-0.0]))
+    assert all(float(p) == 0.0 for p in pieces)
+
+
+def _split_case(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * k ** -0.5).astype(np.float32)
+    q, s = tq.quantize_array(torch.from_numpy(w))
+    return x, q, s
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,k,n", [(64, 768, 3072), (64, 3072, 768), (70, 128, 130), (5, 33, 8)])
+def test_split_reference_matches_plain_reference(m, k, n, dtype):
+    x, q, s = _split_case(m, k, n, seed=m + k + n)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = tq.int8_matmul_reference(tx, q, s).float()
+    got = tq.int8_matmul_split_reference(tx, q, s)
+    assert got.dtype == tx.dtype and got.shape == (m, n)
+    rel = SPLIT_REL + (BF16_ROUNDING if dtype == "bfloat16" else 0.0)
+    assert (got.float() - want).abs().max() <= rel * want.abs().max()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_split_reference_matches_the_pallas_kernel(pallas_int8_matmul, dtype):
+    x, q, s = _split_case(70, 128, 130, seed=6)  # ragged M and N
+    want = np.asarray(pallas_int8_matmul(jnp.asarray(x, getattr(jnp, dtype)), jnp.asarray(q.numpy()),
+                                         jnp.asarray(s.numpy())).astype(jnp.float32))
+    got = tq.int8_matmul_split_reference(torch.from_numpy(x).to(getattr(torch, dtype)), q, s).float().numpy()
+    rel = SPLIT_REL + (BF16_ROUNDING if dtype == "bfloat16" else 0.0)
+    assert np.abs(got - want).max() <= rel * np.abs(want).max()
+
+
+def test_split_reference_scales_the_sum_once():
+    """One column with a scale that is no power of two: the scale multiplies the float32 sum, not each weight."""
+    x = torch.tensor([[1.0, 2.0, 3.0]])
+    q = torch.tensor([[3], [5], [7]], dtype=torch.int8)
+    scale = torch.tensor([[0.1]])
+    want = (torch.tensor(1.0 * 3 + 2.0 * 5 + 3.0 * 7) * scale[0, 0]).item()
+    assert tq.int8_matmul_split_reference(x, q, scale).item() == want
