@@ -336,6 +336,38 @@ def fused_int8_matmul_reference(x, a_scale, wq, w_scale, bias=None, act: str = "
     return out.to(torch.bfloat16)
 
 
+# Kernel K2's tiles (csrc/int8_gemm.cu): a block owns 128 rows, a column tile is
+# 256 wide, a K tile 64 deep; up to 12 K tiles of quantized x stay in shared memory.
+K2_BLOCK_M, K2_BLOCK_N, K2_BLOCK_K, K2_RESIDENT_K_TILES = 128, 256, 64, 12
+
+
+def k2_plan(m: int, k: int, n: int, x_bytes: int, sms: int = 132) -> dict:
+    """The route kernel K2 takes for an (m, k) x (k, n) call on a card of ``sms`` SMs, as ``make_plan`` in csrc/int8_gemm.cu.
+
+    ``route`` "resident" (k <= 768): the quantized x tiles of a unit of work
+    all stay in shared memory, so a block quantizes its 128 rows once and
+    walks ``n_per_unit`` column tiles with only the weight streaming: all of
+    them when there are more row panels than SMs, fewer when that is needed
+    to give every SM a unit.  "streaming": a unit is one 128 x 256 tile and
+    x is read and quantized again for each column tile.  ``groups`` is the
+    number of units a row panel is cut into, ``units`` what the persistent
+    blocks share, and ``l2_bytes`` what the route moves from L2 into shared
+    memory (x once a unit, ``x_bytes`` a value; the int8 weight once a row
+    panel), from the tile shapes; zero-filled edges are not counted.
+    """
+    panels = -(-m // K2_BLOCK_M)
+    n_tiles = -(-n // K2_BLOCK_N)
+    resident = -(-k // K2_BLOCK_K) <= K2_RESIDENT_K_TILES
+    if resident:
+        wanted = min(max(sms // panels, 1), n_tiles)
+        n_per_unit = -(-n_tiles // wanted)
+    else:
+        n_per_unit = 1
+    groups = -(-n_tiles // n_per_unit)
+    return {"route": "resident" if resident else "streaming", "n_per_unit": n_per_unit, "groups": groups,
+            "units": panels * groups, "l2_bytes": m * k * x_bytes * groups + n * k * panels}
+
+
 def fused_int8_matmul(x, a_scale, wq, w_scale, bias=None, act: str = "none",
                       wq_t: Optional[torch.Tensor] = None):
     """Quantize-on-the-fly int8 matmul with a fused epilogue; (M, N) bf16.

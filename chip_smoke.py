@@ -13,9 +13,12 @@ Phases, each printing one JSON line:
                row; K1, the plain version and one scaled_dot_product_attention
                call (the library yardstick) timed with CUDA events.
   4. k2      — K2 against its plain version at the six ViT-B/16 int8 sites at
-               batch 256, a ragged M and round-half-to-even ties, within one
-               bf16 ulp; K2, the plain version, a bf16 torch.matmul with the
-               same epilogue and torch._int_mm (the product alone) timed.
+               batch 256, ragged M, N and K, a strided and an offset x, no
+               bias, values beyond the scale and round-half-to-even ties,
+               within one bf16 ulp; K2, the plain version, a bf16 torch.matmul
+               with the same epilogue and torch._int_mm (the product alone)
+               timed, each site with its share of the bound and the bytes its
+               route moves from L2 into shared memory.
   5. k3      — K3 against its plain version at the MLP and attention shapes at
                batch 256 in float32 and bf16, and a ragged M, N and K; K3, the
                plain version and one matmul on the dequantized weight timed.
@@ -44,6 +47,7 @@ failure raises and exits non-zero; without CUDA it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -205,6 +209,13 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(stop) / iters
 
 
+def ptxas_faults(log: str) -> list:
+    """ptxas's lines that a kernel of the port must not have: serialized wgmma
+    (C7515), an ignored setmaxnreg (C7508), registers spilled to local memory."""
+    return [line.strip() for line in log.splitlines()
+            if "C7515" in line or "C7508" in line or re.search(r"\b[1-9]\d* bytes spill", line)]
+
+
 def kernel_kind(name: str) -> str:
     n = name.lower()
     if "flash_fwd" in n:
@@ -342,25 +353,58 @@ K2_SITES = {
 }
 
 
-def k2_inputs(m, k, n, dtype, gen, quant):
-    x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
-    w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+def k2_inputs(m, k, n, dtype, gen, quant, layout="dense", margin=1.05):
+    """x (m, k), its scale, the int8 weight with scales, a bias, the (n, k) weight.
+
+    ``layout``: "dense"; "strided", a column slice of a wider tensor (row
+    stride k + 64); "offset", a base 16 but not 128 bytes aligned.
+    ``margin`` < 1 puts values beyond the scale, so that the clamp works.
+    """
+    if layout == "strided":
+        x = torch.randn(m, k + 64, generator=gen, device=gen.device).to(dtype)[:, 32:32 + k]
+    elif layout == "offset":
+        flat = torch.randn(m * k + 64, generator=gen, device=gen.device).to(dtype)
+        x = flat[16 // flat.element_size():][:m * k].view(m, k)
+    else:
+        x = torch.randn(m, k, generator=gen, device=gen.device).to(dtype)
+    w = torch.randn(k, n, generator=gen, device=gen.device) * k ** -0.5
     wq, ws = quant.quantize_array(w)
-    bias = 0.02 * torch.randn(n, generator=gen, device="cuda")
-    a = x.float().abs().amax() * 1.05  # as calibrate_vit + quantize_packed's margin
+    bias = 0.02 * torch.randn(n, generator=gen, device=gen.device)
+    a = x.float().abs().amax() * margin  # 1.05: as calibrate_vit + quantize_packed's margin
     return x, a, wq, ws, bias, wq.t().contiguous()
+
+
+# K2 beyond the sites: label -> (M, K, N, x dtype, act, layout, margin, bias).  Shapes that
+# break a tiled design: M, N and K off the 128 x 256 x 64 tiles, one tile, one row.
+K2_RAGGED = {
+    "m1_k32_n8": (1, 32, 8, torch.bfloat16, "none", "dense", 1.05, True),
+    "m63_k96_n264": (63, 96, 264, torch.float32, "quickgelu", "dense", 1.05, True),
+    "m64_k800_n520": (64, 800, 520, torch.bfloat16, "quickgelu", "dense", 1.05, True),
+    "m127_k800_n264_no_bias": (127, 800, 264, torch.bfloat16, "none", "dense", 1.05, False),
+    "m129_k96_n520_strided": (129, 96, 520, torch.bfloat16, "quickgelu", "strided", 1.05, True),
+    "m129_k3072_n264_strided_f32": (129, 3072, 264, torch.float32, "none", "strided", 1.05, True),
+    "m1003_k768_n768_offset": (1003, 768, 768, torch.bfloat16, "none", "offset", 1.05, True),
+    "m1003_k768_n768_offset_f32": (1003, 768, 768, torch.float32, "quickgelu", "offset", 1.05, False),
+    "m1003_k768_n2304_clamped": (1003, 768, 2304, torch.bfloat16, "quickgelu", "dense", 0.4, True),
+    "m1003_k3072_n768_clamped_f32": (1003, 3072, 768, torch.float32, "none", "dense", 0.4, True),
+    "m4099_k768_n3072": (4099, 768, 3072, torch.bfloat16, "quickgelu", "dense", 1.05, True),
+}
 
 
 def phase_k2(vi, quant) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = dict(K2_SITES)
+    cases = {label: (*site, "dense", 1.05, True) for label, site in K2_SITES.items()}
     for m in (1, 129, 1003):
         for dtype in (torch.float32, torch.bfloat16):
-            cases[f"ragged_m{m}_{str(dtype).removeprefix('torch.')}"] = (m, 768, 2304, dtype, "quickgelu")
+            cases[f"ragged_m{m}_{str(dtype).removeprefix('torch.')}"] = (m, 768, 2304, dtype, "quickgelu", "dense", 1.05, True)
+    cases.update(K2_RAGGED)
     errors = {}
-    for label, (m, k, n, dtype, act) in cases.items():
-        x, a, wq, ws, bias, wq_t = k2_inputs(m, k, n, dtype, gen, quant)
+    for label, (m, k, n, dtype, act, layout, margin, with_bias) in cases.items():
+        x, a, wq, ws, bias, wq_t = k2_inputs(m, k, n, dtype, gen, quant, layout, margin)
+        bias = bias if with_bias else None
+        before = vi.fused_int8_matmul.launches
         got = vi.fused_int8_matmul(x, a, wq, ws, bias, act, wq_t=wq_t)
+        check(vi.fused_int8_matmul.launches == before + 1, f"K2 {label}: not one launch a call")
         want = vi.fused_int8_matmul_reference(x, a, wq, ws, bias, act)
         torch.cuda.synchronize()
         check(got.dtype == torch.bfloat16 and got.shape == (m, n), f"K2 {label}: {got.dtype} {tuple(got.shape)}")
@@ -383,6 +427,7 @@ def phase_k2(vi, quant) -> dict:
         check(e["ulps"] <= 1.0, f"K2 {label}: {e['ulps']} bf16 ulps from the plain version (bound 1)")
 
     timings = {}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for label, (m, k, n, dtype, act) in K2_SITES.items():
         x, a, wq, ws, bias, wq_t = k2_inputs(m, k, n, dtype, gen, quant)
         w16 = quant.dequantize_array(wq, ws).bfloat16()
@@ -396,22 +441,31 @@ def phase_k2(vi, quant) -> dict:
         fns = dict(plain=lambda: vi.fused_int8_matmul_reference(x, a, wq, ws, bias, act),
                    kernel=lambda: vi.fused_int8_matmul(x, a, wq, ws, bias, act, wq_t=wq_t),
                    bf16=bf16_site)
-        # The library yardstick is the int8 product alone, on operands quantized
-        # beforehand: no prologue (quantizing x) and no epilogue (scales, bias, GELU, cast).
+        # The library yardstick is the int8 product alone, on the int8 values K2 makes,
+        # quantized beforehand: no prologue (quantizing x) and no epilogue (scales, bias, GELU, cast).
         int_mm = getattr(torch, "_int_mm", None)
         library_note = "this torch has no torch._int_mm"
         if int_mm is not None:
             library_note = "torch._int_mm: the int8 product alone, no prologue or epilogue"
-            x8 = torch.clamp(torch.round(x.float() * (127.0 / a)), -127, 127).to(torch.int8)
+            x8 = vi._quantize_x(x, a).to(torch.int8)
             fns["library"] = lambda: int_mm(x8, wq)
         t = interleaved_ms(**fns)
         # x read once, the int8 weight, its scales and the bias once, bf16 out written once
         nbytes = x.numel() * x.element_size() + k * n + 8 * n + 2 * m * n
+        limit = bound(nbytes, 2 * m * k * n, "int8")
+        plan = vi.k2_plan(m, k, n, x.element_size(), sms)
         timings[label] = {"shape": [m, k, n], "x": str(dtype).removeprefix("torch."), "act": act,
                           "ms": t["kernel"], "plain_ms": t["plain"], "bf16_matmul_ms": t["bf16"],
                           "library_ms": t.get("library"), "library": library_note,
-                          "tops": 2 * m * k * n / t["kernel"] / 1e9, **bound(nbytes, 2 * m * k * n, "int8")}
-    emit("k2_time", timings=timings)
+                          "tops": 2 * m * k * n / t["kernel"] / 1e9, **limit,
+                          "share_of_bound": limit["bound_ms"] / t["kernel"],
+                          "route": plan["route"], "units": plan["units"], "l2_to_smem_bytes": plan["l2_bytes"],
+                          "l2_to_smem_tb_s": plan["l2_bytes"] / t["kernel"] / 1e9}
+    emit("k2_time", sms=sms, timings=timings)
+    for label in ("fc", "proj", "qkv", "attn_out"):
+        check(timings[label]["ms"] < timings[label]["bf16_matmul_ms"],
+              f"K2 {label}: {timings[label]['ms']} ms is not faster than the bf16 matmul with the same "
+              f"epilogue, {timings[label]['bf16_matmul_ms']} ms")
     return {"max_abs_err": max(e["max_abs_err"] for e in errors.values()),
             "max_bf16_ulps": max(e["ulps"] for e in errors.values()), "timings": timings}
 
@@ -647,8 +701,11 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0, kernels={
         name: {"library": str(lib),
                "ptxas": [line.strip() for line in log.splitlines()
-                         if "registers" in line or "spill" in line or "Performance Loss" in line]}
+                         if "registers" in line or "spill" in line or "Performance Loss" in line
+                         or "C75" in line]}
         for name, (lib, log) in built.items()})
+    for name, (_, log) in built.items():
+        check(not ptxas_faults(log), f"ptxas on {name}: {ptxas_faults(log)}")
     counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
                 "int8_matmul": quantization.int8_matmul}
 

@@ -79,6 +79,8 @@ def test_exits_nonzero_without_a_gpu(capsys):
     ("void (anonymous namespace)::flash_fwd_simt_kernel<128>((anonymous namespace)::Params, int)", "k1_attention"),
     ("void (anonymous namespace)::int8_gemm_kernel<__nv_bfloat16>(__nv_bfloat16 const*, float const*)",
      "k2_int8_gemm"),
+    ("void (anonymous namespace)::int8_gemm_kernel<__nv_bfloat16>(CUtensorMap_st, CUtensorMap_st, float const*, "
+     "float const*, float const*, __nv_bfloat16*, int, int, int, int, (anonymous namespace)::Plan)", "k2_int8_gemm"),
     ("void (anonymous namespace)::int8_matmul_kernel<float>(float const*, signed char const*)", "k3_int8_matmul"),
     ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NTN", "gemm"),
     ("ampere_sgemm_128x64_nn", "gemm"),
@@ -128,3 +130,55 @@ def test_bf16_ulps():
     up = torch.nextafter(x.bfloat16(), torch.full((4,), 1e9, dtype=torch.bfloat16))
     assert chip_smoke.bf16_ulps(up, x) == 1.0
     assert chip_smoke.bf16_ulps(x, x) == 0.0
+
+
+@pytest.mark.parametrize("log,faults", [
+    ("ptxas info    : Used 168 registers, used 16 barriers\n"
+     "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n", 0),
+    ("    8 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads\n", 1),
+    ("    16 bytes stack frame, 0 bytes spill stores, 12 bytes spill loads\n", 1),
+    ("ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async instructions are serialized due to "
+     "insufficient register resources for the wgmma pipeline in function 'f'\n", 1),
+    ("ptxas info    : (C7508) Potential Performance Loss: 'setmaxnreg' ignored to maintain minimum register "
+     "requirements in function 'f'\n"
+     "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n", 2),
+    ("", 0),
+])
+def test_ptxas_faults_finds_serialized_wgmma_ignored_setmaxnreg_and_spills(log, faults):
+    assert len(chip_smoke.ptxas_faults(log)) == faults
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["dense", "strided", "offset"])
+def test_k2_inputs_layouts_are_what_k2_takes(layout, dtype):
+    """A strided x is a column slice (row stride > K), an offset x starts 16 bytes into its allocation
+    (on the card, where allocations start on 512 bytes: 16 bytes into a 128-byte line); both keep
+    16-byte aligned rows, which is all that K2's wrapper asks."""
+    from arp_tpu_torch.ops import quantization
+
+    gen = torch.Generator().manual_seed(0)
+    x, a, wq, ws, bias, wq_t = chip_smoke.k2_inputs(37, 96, 40, dtype, gen, quantization, layout)
+    assert x.shape == (37, 96) and x.dtype == dtype and x.stride(1) == 1
+    assert x.data_ptr() % 16 == 0 and (x.stride(0) * x.element_size()) % 16 == 0
+    assert (x.stride(0) > 96) == (layout == "strided")
+    if layout == "offset":
+        assert x.storage_offset() * x.element_size() == 16
+    assert wq.shape == (96, 40) and wq_t.shape == (40, 96) and wq_t.is_contiguous()
+    assert float(a) == pytest.approx(1.05 * float(x.float().abs().max()))
+
+
+@pytest.mark.parametrize("label", list(chip_smoke.K2_RAGGED))
+def test_k2_ragged_cases_are_shapes_k2_takes(label):
+    """Every extra case of chip_smoke's k2 phase keeps K % 32 == 0 and N % 8 == 0, and runs through
+    the wrapper's plain version on the CPU at a tenth of its rows."""
+    from arp_tpu_torch.ops import quantization, vit_infer
+
+    m, k, n, dtype, act, layout, margin, with_bias = chip_smoke.K2_RAGGED[label]
+    assert k % 32 == 0 and n % 8 == 0
+    m = max(1, m // 10)
+    gen = torch.Generator().manual_seed(1)
+    x, a, wq, ws, bias, wq_t = chip_smoke.k2_inputs(m, k, n, dtype, gen, quantization, layout, margin)
+    out = vit_infer.fused_int8_matmul(x, a, wq, ws, bias if with_bias else None, act, wq_t=wq_t)
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
+    clamped = (x.float().abs() > a).any().item()
+    assert clamped == (margin < 1.0)

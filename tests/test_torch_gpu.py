@@ -209,6 +209,69 @@ def test_k2_ragged_m_and_no_bias(cuda, m):
     assert chip_smoke.bf16_ulps(got, vit_infer.fused_int8_matmul_reference(x, a, wq, ws)) <= 1.0
 
 
+def _check_k2(cuda, m, k, n, dtype, act, layout="dense", margin=1.05, with_bias=True):
+    gen = torch.Generator(device=cuda).manual_seed(m + 7 * k + 13 * n)
+    x, a, wq, ws, bias, wq_t = chip_smoke.k2_inputs(m, k, n, dtype, gen, quantization, layout, margin)
+    bias = bias if with_bias else None
+    launches = vit_infer.fused_int8_matmul.launches
+    got = vit_infer.fused_int8_matmul(x, a, wq, ws, bias, act, wq_t=wq_t)
+    assert vit_infer.fused_int8_matmul.launches == launches + 1  # one launch a call
+    want = vit_infer.fused_int8_matmul_reference(x, a, wq, ws, bias, act)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert chip_smoke.bf16_ulps(got, want) <= 1.0
+
+
+# Shapes off the kernel's 128 x 256 x 64 tiles in every direction, on both routes (K <= 768 and beyond).
+@pytest.mark.parametrize("dtype,act", [(torch.bfloat16, "quickgelu"), (torch.float32, "none")])
+@pytest.mark.parametrize("k", [32, 96, 800])
+@pytest.mark.parametrize("n", [8, 264, 520])
+@pytest.mark.parametrize("m", [1, 63, 64, 127, 129])
+def test_k2_ragged_m_n_k(cuda, m, n, k, dtype, act):
+    _check_k2(cuda, m, k, n, dtype, act)
+
+
+@pytest.mark.parametrize("dtype,act", [(torch.bfloat16, "none"), (torch.float32, "quickgelu")])
+@pytest.mark.parametrize("k,n", [(96, 264), (800, 520)])
+def test_k2_all_rows_of_a_batch_ragged_n_k(cuda, k, n, dtype, act):
+    _check_k2(cuda, 50432, k, n, dtype, act)
+
+
+@pytest.mark.parametrize("with_bias", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["strided", "offset"])
+@pytest.mark.parametrize("m,k,n", [(129, 96, 520), (1003, 768, 768), (300, 3072, 264)])
+def test_k2_reads_strided_and_offset_x(cuda, m, k, n, layout, dtype, with_bias):
+    """x as a column slice of a wider tensor (lda > K), and from a base 16 but not 128 bytes aligned."""
+    _check_k2(cuda, m, k, n, dtype, "quickgelu", layout=layout, with_bias=with_bias)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,n", [(768, 2304), (3072, 768)])
+def test_k2_clamps_values_beyond_the_scale(cuda, k, n, dtype):
+    _check_k2(cuda, 1003, k, n, dtype, "none", margin=0.4)
+
+
+@pytest.mark.parametrize("m,n", [(300, 3072), (8192, 3072), (20000, 768)])
+def test_k2_units_of_work_when_panels_are_fewer_than_sms(cuda, m, n):
+    """Fewer row panels than SMs: a panel's column tiles are cut into several units of work."""
+    _check_k2(cuda, m, 768, n, torch.bfloat16, "quickgelu")
+
+
+def test_k2_quick_gelu_far_from_zero(cuda):
+    """Pre-activations from -120 to 120: exp(-1.702 v) overflows, the result must not."""
+    n = 256
+    v = torch.linspace(-120.0, 120.0, 4 * n, device=cuda).reshape(4, n)
+    x = torch.ones(64, 32, device=cuda)
+    a = torch.tensor(127.0, device=cuda)
+    wq = torch.ones(32, n, dtype=torch.int8, device=cuda)
+    zero = torch.zeros(1, n, device=cuda)  # a zero weight scale: the bias alone is the pre-activation
+    for bias in v:
+        got = vit_infer.fused_int8_matmul(x, a, wq, zero, bias.contiguous(), "quickgelu")
+        want = vit_infer.fused_int8_matmul_reference(x, a, wq, zero, bias.contiguous(), "quickgelu")
+        assert torch.isfinite(got.float()).all()
+        assert chip_smoke.bf16_ulps(got, want) <= 1.0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k2_rounds_ties_to_even(cuda, dtype):
     ties = torch.arange(-127, 127, device=cuda, dtype=torch.float32) + 0.5

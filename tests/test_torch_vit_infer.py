@@ -263,3 +263,44 @@ def test_fused_int8_matmul_refuses_other_devices_and_acts():
         tv.fused_int8_matmul(x, *args, act="gelu")
     with pytest.raises(ValueError, match="device"):
         tv.fused_int8_matmul(x.to("meta"), *args)
+
+
+# --- the route kernel K2 takes, by shape (mirrors make_plan in csrc/int8_gemm.cu) -------------
+
+@pytest.mark.parametrize("m,k,n,x_bytes,want", [
+    # ViT-B/16 at batch 256: more row panels (394) than SMs, so a unit is a whole panel
+    (50432, 768, 3072, 2, dict(route="resident", n_per_unit=12, groups=1, units=394)),
+    (50432, 768, 2304, 2, dict(route="resident", n_per_unit=9, groups=1, units=394)),
+    (50432, 768, 768, 2, dict(route="resident", n_per_unit=3, groups=1, units=394)),
+    (50176, 768, 768, 4, dict(route="resident", n_per_unit=3, groups=1, units=392)),
+    # K beyond twelve 64-deep tiles: one 128 x 256 tile a unit
+    (50432, 3072, 768, 2, dict(route="streaming", n_per_unit=1, groups=3, units=1182)),
+    (50432, 832, 768, 2, dict(route="streaming", n_per_unit=1, groups=3, units=1182)),
+    # few panels: the column tiles are cut so that the SMs have work
+    (256, 768, 512, 2, dict(route="resident", n_per_unit=1, groups=2, units=4)),
+    (8192, 768, 3072, 2, dict(route="resident", n_per_unit=6, groups=2, units=128)),
+    (5000, 768, 3072, 2, dict(route="resident", n_per_unit=4, groups=3, units=120)),
+    # ragged shapes round up
+    (1, 32, 8, 2, dict(route="resident", n_per_unit=1, groups=1, units=1)),
+    (129, 96, 264, 4, dict(route="resident", n_per_unit=1, groups=2, units=4)),
+    (129, 800, 520, 2, dict(route="streaming", n_per_unit=1, groups=3, units=6)),
+])
+def test_k2_plan_routes_by_shape(m, k, n, x_bytes, want):
+    plan = tv.k2_plan(m, k, n, x_bytes, sms=132)
+    assert {key: plan[key] for key in want} == want
+    panels = -(-m // 128)
+    assert plan["units"] == panels * plan["groups"]
+    assert plan["groups"] * plan["n_per_unit"] >= -(-n // 256) > (plan["groups"] - 1) * plan["n_per_unit"]
+    # x once a unit of a panel, the weight once a panel
+    assert plan["l2_bytes"] == m * k * x_bytes * plan["groups"] + n * k * panels
+
+
+def test_k2_plan_cuts_a_panel_only_to_give_idle_sms_work():
+    for sms in (1, 8, 132, 1000):
+        for m in (1, 128, 1000, 20000):
+            plan = tv.k2_plan(m, 768, 3072, 2, sms=sms)
+            panels = -(-m // 128)
+            if panels >= sms:
+                assert plan["groups"] == 1  # x is quantized once
+            else:
+                assert panels < plan["units"] <= sms
