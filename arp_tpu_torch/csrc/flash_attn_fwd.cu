@@ -295,17 +295,19 @@ constexpr int kTcBlockK = 64;   // keys a tile
 constexpr int kTcStages = 3;    // K/V tiles in the ring
 
 // Shared-memory geometry of an (R rows x D bf16) tile: panels of at most 64
-// columns, each R rows of kRow bytes, swizzled (wgmma.cuh).
+// columns, each R rows of kRow bytes, swizzled (wgmma.cuh).  D = 16 (the
+// policy blocks: 128 wide, 8 heads) has 32-byte rows: one k16 step in Q K^T
+// and an n16 tile in P V.
 template <int D>
 struct TcGeom {
   static constexpr int kRow = D * 2 < 128 ? D * 2 : 128;
-  static constexpr uint32_t kLayout = kRow == 128 ? kLayoutSw128 : kLayoutSw64;
+  static constexpr uint32_t kLayout = kRow == 128 ? kLayoutSw128 : kRow == 64 ? kLayoutSw64 : kLayoutSw32;
   static constexpr int kAtom = 8 * kRow;  // eight rows: the descriptors' stride byte offset
   static constexpr int kQBytes = kTcBlockQ * D * 2;
   static constexpr int kKvBytes = kTcBlockK * D * 2;  // one of K, V
   static constexpr int kSmem = kQBytes + kTcStages * 2 * kKvBytes + 1024;  // + room to align to 1024
   static __device__ __forceinline__ uint32_t swz(uint32_t off) {
-    return kRow == 128 ? swizzle128(off) : swizzle64(off);
+    return kRow == 128 ? swizzle128(off) : kRow == 64 ? swizzle64(off) : swizzle32(off);
   }
 };
 
@@ -609,6 +611,7 @@ template <typename T>
 cudaError_t dispatch_head_dim(const Params& p, int head_dim, int batch_heads, cudaStream_t stream) {
   constexpr bool kF32 = sizeof(T) == 4;
   switch (head_dim) {
+    case 16: return kF32 ? launch_simt<16>(p, batch_heads, stream) : launch_wgmma<16>(p, batch_heads, stream);
     case 32: return kF32 ? launch_simt<32>(p, batch_heads, stream) : launch_wgmma<32>(p, batch_heads, stream);
     case 64: return kF32 ? launch_simt<64>(p, batch_heads, stream) : launch_wgmma<64>(p, batch_heads, stream);
     case 128: return kF32 ? launch_simt<128>(p, batch_heads, stream) : launch_wgmma<128>(p, batch_heads, stream);

@@ -70,7 +70,8 @@
 // rounded one at a time in JAX's order (__fmul_rn / __fadd_rn, no FMA
 // contraction).  So the int8 values and int32 sums equal the plain version's
 // bit for bit; only the exponential and the reciprocal of the quick-GELU
-// (quick_gelu below) can move the result, by at most one bf16 ulp.
+// (quick_gelu below) can move the result, by at most one bf16 ulp, and the
+// tanh-GELU (tanh_gelu below) where its 1 + tanh cancels.
 //
 // Plain C entry point (bound with ctypes): arp_int8_gemm returns the
 // cudaError_t of the launch.  The tensor maps come from libcuda's
@@ -170,6 +171,17 @@ __device__ __forceinline__ float quick_gelu(float v) {
   return v * (v >= 0.f ? r : t * r);
 }
 
+// The tanh approximation of GELU, 0.5 v (1 + tanh(sqrt(2/pi) (v + 0.044715 v^3))),
+// in the operation order of jax.nn.gelu(approximate=True) and of the plain
+// version, each product and sum rounded on its own, with the accurate tanhf
+// (not tanh.approx): where 1 + tanh cancels (v below about -4) the result
+// hangs on tanh's last bit, and the plain version is the reference there too.
+__device__ __forceinline__ float tanh_gelu(float v) {
+  const float cube = __fmul_rn(__fmul_rn(v, v), v);
+  const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(v, __fmul_rn(0.044715f, cube)));
+  return __fmul_rn(__fmul_rn(0.5f, v), __fadd_rn(1.0f, tanhf(inner)));
+}
+
 // The ring position after one more use: the stage, and the parity of its use count.
 __device__ __forceinline__ void advance(int& stage, int& parity, int stages) {
   if (++stage == stages) {
@@ -192,7 +204,9 @@ __device__ unsigned long long k2_trace[kTraceBlocks][2][kTraceTiles][3];
 #define K2_STAMP(slot)
 #endif
 
-template <typename T>
+// TANH: the epilogue is the tanh-GELU (act 2), compiled apart, so that its 128 inlined tanhf
+// do not sit in the code of the other epilogues (act 0 and 1, chosen at run time).
+template <typename T, bool TANH>
 __global__ void __launch_bounds__(kThreads, 1)
 int8_gemm_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
                  const float* __restrict__ a_scale, const float* __restrict__ ws,
@@ -446,7 +460,10 @@ int8_gemm_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constant
             for (int h = 0; h < 2; ++h) {
               float v0 = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h]), c4.x), c4.y);
               float v1 = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * h + 1]), c4.z), c4.w);
-              if (act == 1) {
+              if constexpr (TANH) {
+                v0 = tanh_gelu(v0);
+                v1 = tanh_gelu(v1);
+              } else if (act == 1) {
                 v0 = quick_gelu(v0);
                 v1 = quick_gelu(v1);
               }
@@ -554,11 +571,11 @@ cudaError_t sm_count(int* count) {
   return err;
 }
 
-template <typename T>
+template <typename T, bool TANH>
 cudaError_t launch(const void* x, const float* a_scale, const int8_t* wt, const float* ws,
                    const float* bias, __nv_bfloat16* out, int M, int N, int K, long long lda,
                    int act, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(int8_gemm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(int8_gemm_kernel<T, TANH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          kSmemBytes);
   if (err != cudaSuccess) return err;
   int sms = 0;
@@ -577,7 +594,7 @@ cudaError_t launch(const void* x, const float* a_scale, const int8_t* wt, const 
     return cudaErrorInvalidValue;
 
   const int grid = (int)(units < sms ? units : sms);
-  int8_gemm_kernel<T><<<grid, kThreads, kSmemBytes, stream>>>(
+  int8_gemm_kernel<T, TANH><<<grid, kThreads, kSmemBytes, stream>>>(
       tm_x, tm_w, a_scale, ws, bias, out, M, N, K, act, plan);
   return cudaGetLastError();
 }
@@ -599,14 +616,14 @@ extern "C" int arp_int8_gemm_trace(void* dst) {
 // dtype: 0 = float32, 1 = bfloat16 x.  x is (M, K) with row stride lda
 // elements (16-byte aligned rows); a_scale points at one float32 on the
 // device; wt is the (N, K) int8 weight, contiguous; ws (N) float32; bias (N)
-// float32 or null; out (M, N) bf16, contiguous.  act: 0 none, 1 quick-GELU.
+// float32 or null; out (M, N) bf16, contiguous.  act: 0 none, 1 quick-GELU, 2 tanh-GELU.
 // Needs K % 32 == 0 and N % 8 == 0.  Launches on `stream`, allocates nothing,
 // does not synchronise.  Returns the launch's cudaError_t.
 extern "C" int arp_int8_gemm(const void* x, const void* a_scale, const void* wt, const void* ws,
                              const void* bias, void* out, int dtype, int M, int N, int K,
                              long long lda, int act, void* stream) {
   if (M == 1) lda = K;  // one row: its stride means nothing, and a tensor map wants a valid one
-  if (M <= 0 || N <= 0 || K <= 0 || K % 32 != 0 || N % 8 != 0 || (act != 0 && act != 1) || lda < K)
+  if (M <= 0 || N <= 0 || K <= 0 || K % 32 != 0 || N % 8 != 0 || act < 0 || act > 2 || lda < K)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* ap = static_cast<const float*>(a_scale);
@@ -614,7 +631,11 @@ extern "C" int arp_int8_gemm(const void* x, const void* a_scale, const void* wt,
   const float* wsp = static_cast<const float*>(ws);
   const float* bp = static_cast<const float*>(bias);
   __nv_bfloat16* op = static_cast<__nv_bfloat16*>(out);
-  if (dtype == 0) return (int)launch<float>(x, ap, wp, wsp, bp, op, M, N, K, lda, act, s);
-  if (dtype == 1) return (int)launch<__nv_bfloat16>(x, ap, wp, wsp, bp, op, M, N, K, lda, act, s);
+  if (dtype == 0)
+    return (int)(act == 2 ? launch<float, true>(x, ap, wp, wsp, bp, op, M, N, K, lda, act, s)
+                          : launch<float, false>(x, ap, wp, wsp, bp, op, M, N, K, lda, act, s));
+  if (dtype == 1)
+    return (int)(act == 2 ? launch<__nv_bfloat16, true>(x, ap, wp, wsp, bp, op, M, N, K, lda, act, s)
+                          : launch<__nv_bfloat16, false>(x, ap, wp, wsp, bp, op, M, N, K, lda, act, s));
   return (int)cudaErrorInvalidValue;
 }

@@ -7,15 +7,15 @@
 //
 // Shared-memory operand layouts (PTX ISA, "Shared Memory Matrix Layout"; the
 // same canonical layouts CUTLASS names GMMA K-major / MN-major SW128, SW64):
-//   * a tile is stored as rows of 128 bytes (SW128) or 64 bytes (SW64); within
-//     each group of 8 rows the 16-byte chunk c of row r sits at chunk
-//     c ^ (r % 8) (SW128) or c ^ ((r / 2) % 4) (SW64).  Both are XORs of
-//     address bits, so swizzle128 / swizzle64 act on a byte offset from a
-//     1024-byte aligned base.
+//   * a tile is stored as rows of 128 bytes (SW128), 64 bytes (SW64) or 32
+//     bytes (SW32); within each group of 8 rows the 16-byte chunk c of row r
+//     sits at chunk c ^ (r % 8) (SW128), c ^ ((r / 2) % 4) (SW64) or
+//     c ^ ((r / 4) % 2) (SW32).  All are XORs of address bits, so swizzle128 /
+//     swizzle64 / swizzle32 act on a byte offset from a 1024-byte aligned base.
 //   * K-major operand (the contraction index runs along the row): the stride
 //     byte offset (SBO) is the distance between 8-row groups; a k16 step moves
 //     the start address 32 bytes along the row.
-//   * MN-major operand (the row holds 64 or 32 consecutive m/n of one k; used
+//   * MN-major operand (the row holds 64, 32 or 16 consecutive m/n of one k; used
 //     with trans-b = 1): SBO is the distance between groups of 8 k-rows, the
 //     leading byte offset (LBO) the distance between panels of 64 (32) n.
 #pragma once
@@ -27,6 +27,7 @@ namespace arp {
 
 constexpr uint32_t kLayoutSw128 = 1;  // wgmma descriptor layout_type
 constexpr uint32_t kLayoutSw64 = 2;
+constexpr uint32_t kLayoutSw32 = 3;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -34,6 +35,7 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ uint32_t swizzle128(uint32_t off) { return off ^ ((off >> 3) & 0x70u); }
 __device__ __forceinline__ uint32_t swizzle64(uint32_t off) { return off ^ ((off >> 3) & 0x30u); }
+__device__ __forceinline__ uint32_t swizzle32(uint32_t off) { return off ^ ((off >> 3) & 0x10u); }
 
 // 64-bit wgmma matrix descriptor: start address, LBO and SBO in 16-byte units,
 // base offset 0 (tiles are aligned to their swizzle period), layout type.

@@ -69,9 +69,10 @@ class CLIPMLP(nn.Module):
 class CLIPAttention(nn.Module):
     """Self-attention with separate q/k/v/out Linears (the Flax layout)."""
 
-    def __init__(self, features: int, num_heads: int):
+    def __init__(self, features: int, num_heads: int, score_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.num_heads = num_heads
+        self.score_dtype = score_dtype  # of the plain attention's scores and softmax (None: float32)
         self.query = nn.Linear(features, features)
         self.key = nn.Linear(features, features)
         self.value = nn.Linear(features, features)
@@ -82,16 +83,16 @@ class CLIPAttention(nn.Module):
         split = lambda t: t.view(b, n, self.num_heads, d // self.num_heads)  # noqa: E731
         out = dot_product_attention(
             split(self.query(x)), split(self.key(x)), split(self.value(x)),
-            spec=mask_spec, kv_padding=kv_padding,
+            spec=mask_spec, kv_padding=kv_padding, score_dtype=self.score_dtype or torch.float32,
         )
         return self.out(out.reshape(b, n, d))
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, features: int, num_heads: int):
+    def __init__(self, features: int, num_heads: int, score_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.ln_1 = LayerNorm(features)
-        self.attn = CLIPAttention(features, num_heads)
+        self.attn = CLIPAttention(features, num_heads, score_dtype)
         self.ln_2 = LayerNorm(features)
         self.mlp = CLIPMLP(features)
 
@@ -101,10 +102,11 @@ class ResidualAttentionBlock(nn.Module):
 
 
 class CLIPTransformer(nn.Module):
-    def __init__(self, features: int, num_layers: int, num_heads: int):
+    def __init__(self, features: int, num_layers: int, num_heads: int,
+                 score_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.resblocks = nn.ModuleList(
-            ResidualAttentionBlock(features, num_heads) for _ in range(num_layers)
+            ResidualAttentionBlock(features, num_heads, score_dtype) for _ in range(num_layers)
         )
 
     def forward(self, x, mask_spec=MaskSpec("none"), kv_padding=None):
@@ -117,7 +119,8 @@ class VisionTransformer(nn.Module):
     """ViT image tower over patch vectors (B, N, P*P*C) or images (B, H, W, C)."""
 
     def __init__(self, patch_size: int, features: int, num_layers: int, num_heads: int,
-                 out_features: int, image_size: int, channels: int = 3):
+                 out_features: int, image_size: int, channels: int = 3,
+                 score_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.patch_size = patch_size
         num_patches = (image_size // patch_size) ** 2
@@ -126,7 +129,7 @@ class VisionTransformer(nn.Module):
         self.class_embedding = nn.Parameter(scale * torch.randn(features))
         self.positional_embedding = nn.Parameter(scale * torch.randn(num_patches + 1, features))
         self.ln_pre = LayerNorm(features)
-        self.transformer = CLIPTransformer(features, num_layers, num_heads)
+        self.transformer = CLIPTransformer(features, num_layers, num_heads, score_dtype)
         self.ln_post = LayerNorm(features)
         self.proj = nn.Linear(features, out_features, bias=False)
 
@@ -148,11 +151,12 @@ class VisionTransformer(nn.Module):
 
 class TextEncoder(nn.Module):
     def __init__(self, vocab_size: int, features: int, num_layers: int, num_heads: int,
-                 out_features: int, context_length: int = MAX_TEXT_LENGTH):
+                 out_features: int, context_length: int = MAX_TEXT_LENGTH,
+                 score_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.token_embedding = nn.Embedding(vocab_size, features)
         self.positional_embedding = nn.Parameter(torch.zeros(context_length, features))
-        self.transformer = CLIPTransformer(features, num_layers, num_heads)
+        self.transformer = CLIPTransformer(features, num_layers, num_heads, score_dtype)
         self.ln_final = LayerNorm(features)
         self.text_projection = nn.Linear(features, out_features, bias=False)
 
@@ -171,7 +175,8 @@ class CLIP(nn.Module):
 
     def __init__(self, vocab_size: int, embed_dim: int, text_features: int, text_num_layers: int,
                  text_num_heads: int, vision_features: int, vision_num_layers: int,
-                 vision_patch_size: int, image_size: int = 224):
+                 vision_patch_size: int, image_size: int = 224,
+                 score_dtype: Optional[torch.dtype] = None):
         super().__init__()
         if not isinstance(vision_num_layers, int):
             raise NotImplementedError("the ModifiedResNet image towers are not ported yet")
@@ -185,6 +190,7 @@ class CLIP(nn.Module):
             num_heads=vision_features // 64,
             out_features=embed_dim,
             image_size=image_size,
+            score_dtype=score_dtype,
         )
         self.text = TextEncoder(
             vocab_size=vocab_size,
@@ -192,6 +198,7 @@ class CLIP(nn.Module):
             num_layers=text_num_layers,
             num_heads=text_num_heads,
             out_features=embed_dim,
+            score_dtype=score_dtype,
         )
         self.logit_scale = nn.Parameter(torch.zeros(()))
 

@@ -28,7 +28,7 @@ from .masks import MaskSpec, combine_padding, materialize_mask
 _BIG_NEG = -1e30
 _MASK_KINDS = {"none": 0, "causal": 1, "dt": 2}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_HEAD_DIMS = (16, 32, 64, 128)
 
 
 def reference_attention(
@@ -124,7 +124,9 @@ def dot_product_attention(
     CPU tensors take :func:`reference_attention`; CUDA tensors take kernel K1
     (:func:`flash_attention_fwd`), whose softmax is always float32 and so
     ignores ``score_dtype``, and which takes no dense ``bias`` (as the Pallas
-    kernel takes none): a bias on CUDA raises.
+    kernel takes none): a bias on CUDA raises.  A caller with a bias (ALiBi)
+    calls :func:`reference_attention` itself, as the JAX package sends a bias
+    to its XLA path (models/layers.py::Attention).
     """
     if q.ndim != 4:
         raise ValueError(f"expected (b, n, h, d), got {tuple(q.shape)}")
@@ -134,6 +136,6 @@ def dot_product_attention(
         raise ValueError(f"no attention implementation for device {q.device}")
     if bias is not None:
         raise NotImplementedError(
-            "kernel K1 takes no dense bias (ALiBi); it is added with the slice that needs it"
+            "kernel K1 takes no dense bias (ALiBi); call reference_attention for it, as models/layers.py does"
         )
     return flash_attention_fwd(q, k, v, spec, kv_padding)

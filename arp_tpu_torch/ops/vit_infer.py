@@ -21,8 +21,8 @@ is the serving path the reward engine takes under ``fast_encode`` and
     its plain version on the CPU.
 
 Left out: the layer-loop ``unroll``, the ``impl``/``interpret`` switches and
-the ``fuse_quant=True`` body (TPU scheduling A/Bs), and ``_ln_quant``, which
-comes with the M3AE tower, its other user.
+this tower's ``fuse_quant=True`` body (TPU scheduling A/Bs).  ``_ln_quant``
+is here for the M3AE tower's ``fuse_quant`` body (ops/m3ae_infer.py).
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ from .quantization import quantize_array, true_divide
 LN_EPS = 1e-5  # torch CLIP LayerNorm epsilon
 INT8_ATTN_MAX_TOKENS = 1040  # N * 127^2 < 2^24: the float32 P @ V sums stay exact
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_ACTS = {"none": 0, "quickgelu": 1}
+_ACTS = {"none": 0, "quickgelu": 1, "gelu_tanh": 2}
 _SITES = (("qkv", "wqkv"), ("attn_out", "wout"), ("fc", "wfc"), ("proj", "wproj"))
 # quick-GELU's 1.702 rounded to the compute dtype, as JAX's jnp.float32(1.702).astype(cd);
 # a Python float, so that no call makes a tensor on the device
@@ -51,6 +51,22 @@ def _ln(x, scale, bias, out_dtype, eps=LN_EPS):
     var = torch.square(xf - mu).mean(-1, keepdim=True)
     y = (xf - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(out_dtype)
+
+
+def _ln_quant(x, scale, bias, a_scale, eps=LN_EPS):
+    """LayerNorm with the int8 activation quantization folded into its affine: int8 out.
+
+    ``round((y * s + b) * inv)`` computed as ``y * (s * inv) + b * inv`` with
+    ``inv = 127 / max(a_scale, 1e-12)``, in JAX's operation order, rounded
+    half to even and clipped to +-127.
+    """
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = torch.square(xf - mu).mean(-1, keepdim=True)
+    inv = _inv_scale(a_scale)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    q = y * (scale.float() * inv) + bias.float() * inv
+    return torch.clamp(torch.round(q), -127, 127).to(torch.int8)
 
 
 def pack_vit_params(visual, dtype=torch.bfloat16) -> dict:
@@ -333,6 +349,8 @@ def fused_int8_matmul_reference(x, a_scale, wq, w_scale, bias=None, act: str = "
     out = _qmatmul(x, a_scale, wq, w_scale, torch.zeros_like(w_scale) if bias is None else bias.reshape(1, -1))
     if act == "quickgelu":
         out = out * torch.sigmoid(1.702 * out)
+    elif act == "gelu_tanh":  # jax.nn.gelu(approximate=True), in float32
+        out = torch.nn.functional.gelu(out, approximate="tanh")
     return out.to(torch.bfloat16)
 
 
@@ -374,7 +392,8 @@ def fused_int8_matmul(x, a_scale, wq, w_scale, bias=None, act: str = "none",
 
     x: (M, K) float32 or bf16; a_scale: () float32 static activation scale;
     wq: (K, N) int8 with per-column scales w_scale (1, N) float32; bias (N,)
-    or (1, N) float32 or None; act: "none" | "quickgelu".  ``wq_t``: the same
+    or (1, N) float32 or None; act: "none" | "quickgelu" | "gelu_tanh" (the tanh
+    approximation, the M3AE tower's).  ``wq_t``: the same
     weight in (N, K) layout, K contiguous, as kernel K2 reads it (made from
     ``wq`` when not given).
 

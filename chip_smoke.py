@@ -26,7 +26,7 @@ Phases, each printing one JSON line:
                fixed-point reference, byte for byte.
   7. slice   — reward labeling at full CLIP ViT-B/16 width (random weights from
                a seed, in arp_tpu's Flax layout, through the weight bridge) on an
-               in-memory demo group, in float32 and bfloat16; K1 must have been
+               in-memory demo group of 256 frames, in float32 and bfloat16; K1 must have been
                launched; 8 rows recomputed by a CPU engine on the same weights.
                Then one more labeling pass per dtype under torch.profiler:
                device time by kernel kind and the device's idle share.
@@ -37,6 +37,23 @@ Phases, each printing one JSON line:
                engine of the same mode on the 8 rows, and its mean feature
                cosine against the f32 standard engine; then one profiled
                labeling pass of each engine.
+  9. m3ae    — the frozen M3AE tower of the policy at full width (768 / 12 layers /
+               12 heads, patch 16 on 256 px: 257 tokens a frame; BERT vocabulary;
+               random weights from a seed in the Flax layout, through the bridge) on
+               512 frames: the module in float32 and in the frozen_bf16 recipe, the
+               packed forward in float32 and bf16, the int8 forward with and without
+               int8 attention (calibrated on the first 8 frames); image-only, with
+               padded text, and goal-joint (513 tokens).  Each against the port's CPU
+               run of the same mode on 8 frames; K1's and K2's launches a call.
+ 10. policy  — ARPDT at the flagship configuration (jobs/train_procgen.sh: vit_base,
+               m3ae_vit_b16, adapter, window 4, 15 actions) at batch 128 x window 4,
+               with float32 towers, frozen_bf16 and frozen_int8: action_pred against
+               the CPU run of its first two sequences, K1 at head_dim 16 under the dt mask, ms
+               a forward, and one profiled forward of each mode.
+ 11. serve   — the policy server (frozen_int8, max_batch 8, window 4) behind its HTTP
+               front on 127.0.0.1: warmup, 8 sessions x 6 /v1/act requests from 8
+               client threads, every action against the direct greedy_action on that
+               session's window, batching, a checkpoint save + /v1/reload, latencies.
 Each timed shape of k1, k2 and k3 also carries ``bound_ms``: the least time the
 card could take, the larger of the bytes the function must move over the memory
 rate and its operations over the peak rate of their type (PEAK below).
@@ -95,6 +112,25 @@ K3_F32_REL = 1e-4
 K3_BF16_REL = K3_F32_REL + 2.0 ** -7
 BATCH = 256
 TOKENS = 197  # ViT-B/16 at 224 px: 196 patches + CLS
+LABEL_FRAMES = 256  # the labeling phases' demo group: one batch (three trajectories)
+LABEL_ROWS = np.array([0, 1, 84, 85, 150, 169, 170, 255])  # recomputed by a CPU engine: the trajectories' ends too
+# The policy path: M3AE base at patch 16 on 256 px, BERT vocabulary, 512 frames a forward
+M3AE_DIMS = dict(emb_dim=768, depth=12, num_heads=12, mlp_ratio=4)  # M3AE base
+M3AE_CFG = dict(model_type=None, **M3AE_DIMS)
+M3AE_TOKENS = 257
+M3AE_FRAMES = 512
+TEXT_LEN = 16
+BERT_VOCAB = 30522
+CPU_FRAMES = 8  # what the CPU run of a mode recomputes
+# The tower and the policy on the card against the port's CPU run of the same mode.
+# float32: both sum in float32 in other orders through 12 layers.  The others by cosine,
+# with the JAX package's own bounds for each recipe against float32
+# (tests/test_frozen_bf16.py:143; tests/test_m3ae_infer.py:120, :152, :179; tests/test_frozen_bf16.py:195;
+# tests/test_frozen_int8.py:106): the card rounds bf16 where the CPU does not (K1's
+# softmax is float32 whatever score_dtype says), and that moves int8 values one step.
+F32_ATOL = 1e-4
+TOWER_MIN_COSINE = {"module_bf16": 0.99, "packed_bf16": 0.995, "int8": 0.98, "int8_attn": 0.97}
+POLICY_MIN_COSINE = {"frozen_bf16": 0.98, "frozen_int8": 0.95}
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA's data sheet,
 # dense rates): device memory in bytes/s, operations/s by operand type.
 PEAK = {"bytes": 3.35e12, "bf16": 989e12, "int8": 1979e12, "f32": 67e12}
@@ -280,6 +316,18 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
     for kind in ("none", "causal"):
         cases[f"fully_masked_{kind}"] = (2, 150, 2, 64, MaskSpec(kind), dead)
     cases["fully_masked_dt"] = (2, 150, 2, 64, MaskSpec("dt", 2, 4), dead)
+    # the policy blocks (128 wide, 8 heads: head_dim 16) while a session's window grows 1 -> 4,
+    # ARPDT's three tokens a step: ragged, tiny, under one tile
+    for n in (3, 6, 9, 12):
+        cases[f"policy_d16_dt_n{n}"] = (128, n, 8, 16, MaskSpec("dt", 1, 3), None)
+        cases[f"policy_d16_causal_n{n}"] = (128, n, 8, 16, MaskSpec("causal"), None)
+    # the M3AE tower at the 512 frames the policy path sends: image-only, image + 16 text tokens
+    # (padded keys, every text length 0..16; row 0's text is padding throughout), goal-joint
+    text_pad = torch.zeros(M3AE_FRAMES, M3AE_TOKENS + TEXT_LEN, dtype=torch.bool, device="cuda")
+    text_pad[:, M3AE_TOKENS:] = pad_from_lengths(TEXT_LEN, [i % (TEXT_LEN + 1) for i in range(M3AE_FRAMES)])
+    cases["m3ae_n257"] = (M3AE_FRAMES, M3AE_TOKENS, 12, 64, MaskSpec("none"), None)
+    cases["m3ae_text_n273_pad"] = (M3AE_FRAMES, M3AE_TOKENS + TEXT_LEN, 12, 64, MaskSpec("none"), text_pad)
+    cases["m3ae_goal_n513"] = (M3AE_FRAMES, 2 * M3AE_TOKENS - 1, 12, 64, MaskSpec("none"), None)
 
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -291,6 +339,7 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
             torch.cuda.synchronize()
             check(got.dtype == dtype and got.shape == want.shape, f"K1 {label} {name}: {got.dtype} {got.shape}")
             errors[(label, dtype)] = (got.float() - want).abs().max().item()
+            del q, k, v, got, want
     max_err = {str(dt).removeprefix("torch."): max(e for (_, d), e in errors.items() if d == dt)
                for dt in K1_ATOL}
     emit("k1_check", cases=len(cases), atol={str(k).removeprefix("torch."): v for k, v in K1_ATOL.items()},
@@ -298,15 +347,18 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
     for (label, dtype), err in errors.items():
         check(err <= K1_ATOL[dtype], f"K1 {label} {dtype}: max abs err {err} > {K1_ATOL[dtype]}")
 
-    timings = {}
-    for label, (b, n, h, d, spec, pad) in (("vit_b16", vit), ("text", text)):
+    timings = {}  # every timed shape is one of the checked cases
+    timed = {"vit_b16": (vit, K1_ATOL), "text": (text, K1_ATOL), "m3ae_n257": (cases["m3ae_n257"], K1_ATOL),
+             "m3ae_goal_n513": (cases["m3ae_goal_n513"], (torch.bfloat16,)),
+             "policy_d16_dt_n12": (cases["policy_d16_dt_n12"], K1_ATOL)}
+    for label, ((b, n, h, d, spec, pad), dtypes) in timed.items():
         # what this mask lets through: the products and exponentials that must be made
         allowed = materialize_mask(spec, n, device="cuda")[None].expand(b, n, n)
         if pad is not None:
             allowed = allowed & ~pad[:, None, :]
         pairs = int(allowed.sum().item()) * h
         sdpa_mask = None if spec.kind == "none" and pad is None else allowed[:, None]
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             q, k, v = inputs(b, n, h, d, dtype)
             qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, N, D) views
             # the library yardstick; timed here, used nowhere in the port
@@ -325,12 +377,19 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
     return {"max_abs_err": max_err, "timings": timings}
 
 
-def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
-    """Largest |got - want| in units of the bf16 ulp of the larger of the two."""
+def bf16_ulps(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
+    """Largest |got - want| in units of the bf16 ulp of the larger of the two, the unit no smaller than ``floor``."""
     got, want = got.float(), want.float()
     _, exp = torch.frexp(torch.maximum(got.abs(), want.abs()))
     ulp = torch.ldexp(torch.ones_like(got), (exp - 8).clamp(min=-133))  # 8 significant bits
-    return ((got - want).abs() / ulp).max().item()
+    return ((got - want).abs() / ulp.clamp(min=floor)).max().item()
+
+
+# The tanh-GELU below v = -4: 0.5 v (1 + tanh) with 1 + tanh a few multiples of 2^-24, so a
+# tanh argument that differs in its last bit (the plain version's own kernel may contract an
+# FMA) moves the result by 0.5 |v| 2^-24 <= 2^-22, many bf16 ulps of so small a number.
+# There the unit of K2's one-ulp bound is 2^-20 instead.
+TANH_GELU_TAIL_UNIT = 2.0 ** -20
 
 
 def interleaved_ms(**fns) -> dict:
@@ -350,6 +409,18 @@ K2_SITES = {
     "fc": (BATCH * TOKENS, 768, 3072, torch.bfloat16, "quickgelu"),
     "proj": (BATCH * TOKENS, 3072, 768, torch.bfloat16, "none"),
     "final": (BATCH, 768, 512, torch.bfloat16, "none"),
+}
+
+
+# K2's sites in the M3AE tower at 512 frames (M = 512 * 257): the image embedding reads float32
+# patches, the fc site has the tanh-GELU epilogue; each also checked with the other epilogue
+M3AE_M = M3AE_FRAMES * M3AE_TOKENS
+K2_M3AE_SITES = {
+    "m3ae_img": (M3AE_FRAMES * (M3AE_TOKENS - 1), 768, 768, torch.float32, "none"),
+    "m3ae_qkv": (M3AE_M, 768, 2304, torch.bfloat16, "none"),
+    "m3ae_attn_out": (M3AE_M, 768, 768, torch.bfloat16, "none"),
+    "m3ae_fc": (M3AE_M, 768, 3072, torch.bfloat16, "gelu_tanh"),
+    "m3ae_proj": (M3AE_M, 3072, 768, torch.bfloat16, "none"),
 }
 
 
@@ -398,6 +469,13 @@ def phase_k2(vi, quant) -> dict:
         for dtype in (torch.float32, torch.bfloat16):
             cases[f"ragged_m{m}_{str(dtype).removeprefix('torch.')}"] = (m, 768, 2304, dtype, "quickgelu", "dense", 1.05, True)
     cases.update(K2_RAGGED)
+    for label, (m, k, n, dtype, act) in K2_M3AE_SITES.items():
+        cases[label] = (m, k, n, dtype, act, "dense", 1.05, True)
+        other = "none" if act == "gelu_tanh" else "gelu_tanh"
+        cases[f"{label}_{other}"] = (m, k, n, dtype, other, "dense", 1.05, True)
+    for m in (1, 129, 1003):  # the tanh-GELU over ragged rows, and beyond the scale
+        cases[f"ragged_m{m}_gelu_tanh"] = (m, 768, 3072, torch.bfloat16, "gelu_tanh", "dense", 1.05, True)
+    cases["m1003_k768_n3072_gelu_tanh_clamped_f32"] = (1003, 768, 3072, torch.float32, "gelu_tanh", "dense", 0.4, True)
     errors = {}
     for label, (m, k, n, dtype, act, layout, margin, with_bias) in cases.items():
         x, a, wq, ws, bias, wq_t = k2_inputs(m, k, n, dtype, gen, quant, layout, margin)
@@ -408,7 +486,9 @@ def phase_k2(vi, quant) -> dict:
         want = vi.fused_int8_matmul_reference(x, a, wq, ws, bias, act)
         torch.cuda.synchronize()
         check(got.dtype == torch.bfloat16 and got.shape == (m, n), f"K2 {label}: {got.dtype} {tuple(got.shape)}")
-        errors[label] = {"ulps": bf16_ulps(got, want), "max_abs_err": (got.float() - want.float()).abs().max().item()}
+        errors[label] = {"ulps": bf16_ulps(got, want, TANH_GELU_TAIL_UNIT if act == "gelu_tanh" else 0.0),
+                         "max_abs_err": (got.float() - want.float()).abs().max().item()}
+        del x, got, want
 
     # ties: a = 127 makes x * 127/a = x, so x = k + 0.5 lands exactly half-way;
     # an identity weight with unit scales reads the int8 values back
@@ -428,7 +508,7 @@ def phase_k2(vi, quant) -> dict:
 
     timings = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, (m, k, n, dtype, act) in K2_SITES.items():
+    for label, (m, k, n, dtype, act) in {**K2_SITES, **K2_M3AE_SITES}.items():
         x, a, wq, ws, bias, wq_t = k2_inputs(m, k, n, dtype, gen, quant)
         w16 = quant.dequantize_array(wq, ws).bfloat16()
 
@@ -436,6 +516,8 @@ def phase_k2(vi, quant) -> dict:
             out = (x.bfloat16() @ w16).float() + bias
             if act == "quickgelu":
                 out = out * torch.sigmoid(1.702 * out)
+            elif act == "gelu_tanh":
+                out = torch.nn.functional.gelu(out, approximate="tanh")
             return out.bfloat16()
 
         fns = dict(plain=lambda: vi.fused_int8_matmul_reference(x, a, wq, ws, bias, act),
@@ -542,7 +624,7 @@ def phase_slice(attn, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, label_grou
     t0 = time.perf_counter()
     variables = random_clip_variables(cfg, 224, SEED)
     state = flax_to_torch(variables)
-    g_src = demo_group(512, 2, 256, SEED)
+    g_src = demo_group(LABEL_FRAMES, 2, 256, SEED)
     text = "the goal is to collect the coin."
     emit("slice_setup", model="vit_b16", config=cfg, params=int(sum(t.numel() for t in state.values())),
          ob=list(g_src["ob"].shape), seconds=time.perf_counter() - t0)
@@ -552,7 +634,7 @@ def phase_slice(attn, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, label_grou
         model.load_state_dict(state)
         return ClipRewardEngine(model=model, batch_size=batch_size, compute_dtype=dtype, device=device)
 
-    rows = np.array([0, 1, 169, 170, 300, 340, 341, 511])
+    rows = LABEL_ROWS
     cpu = engine("cpu", torch.float32, 8)
     want = cpu.text_rewards(np.asarray(g_src["ob"][rows, -1]), text)
     check(np.isfinite(want).all(), "CPU engine rewards are not finite")
@@ -577,17 +659,19 @@ def phase_slice(attn, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, label_grou
              reward_mean=float(reward[:, -1].mean()), reward_std=float(reward[:, -1].std()),
              recipe=eng.encode_recipe)
         check(run_launches > 0, f"labeling in {name} never launched K1")
-        check(reward.shape == (512, 2) and rtg.shape == (512, 2), f"{name}: dataset shapes {reward.shape} {rtg.shape}")
+        check(reward.shape == (LABEL_FRAMES, 2) and rtg.shape == (LABEL_FRAMES, 2),
+              f"{name}: dataset shapes {reward.shape} {rtg.shape}")
         check(np.isfinite(reward).all() and np.isfinite(rtg).all(), f"{name}: non-finite rewards")
         check(g["ob_clip_reward"].attrs["encode_recipe"].startswith("torch;"), "encode_recipe lacks the torch; prefix")
-        for lo, hi in ((0, 170), (170, 341), (341, 512)):
+        third = LABEL_FRAMES // 3  # demo_group's three trajectories
+        for lo, hi in ((0, third), (third, 2 * LABEL_FRAMES // 3), (2 * LABEL_FRAMES // 3, LABEL_FRAMES)):
             r = reward[lo:hi, -1]
             check(np.allclose(rtg[lo:hi, -1], np.cumsum(r[::-1])[::-1], rtol=1e-4, atol=1e-3),
                   f"{name}: return-to-go of rows [{lo}, {hi}) is not the suffix sum of its rewards")
         check(mae <= bound, f"{name} reward MAE vs the CPU engine {mae} > {bound}")
         launches += run_launches
         g = MemoryGroup((k, g_src[k]) for k in ("ob", "act", "done"))
-        emit("profile", dtype=name, frames=512,
+        emit("profile", dtype=name, frames=LABEL_FRAMES,
              **device_profile(lambda: label_group(g, text, eng, progress=False)))
     return launches
 
@@ -611,9 +695,9 @@ def phase_slice_fast(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, l
     """Labeling through the packed and int8 engines; returns each kernel's launches over their runs."""
     cfg = CONFIGS["vit_b16"]
     state = flax_to_torch(random_clip_variables(cfg, 224, SEED))
-    g_src = demo_group(512, 2, 256, SEED)
+    g_src = demo_group(LABEL_FRAMES, 2, 256, SEED)
     text = "the goal is to collect the coin."
-    rows = np.array([0, 1, 169, 170, 300, 340, 341, 511])
+    rows = LABEL_ROWS
     frames8 = np.asarray(g_src["ob"][rows, -1])
 
     def engine(device, batch_size, **knobs):
@@ -649,7 +733,7 @@ def phase_slice_fast(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, l
              reward_mae_vs_cpu=mae, mae_bound=bound, feature_cosine_vs_f32=feat_cos,
              cosine_bound=MIN_COSINE[label], reward_mean=float(reward[:, -1].mean()),
              reward_std=float(reward[:, -1].std()), recipe=eng.encode_recipe)
-        check(reward.shape == (512, 2) and np.isfinite(reward).all(), f"{label}: rewards {reward.shape}")
+        check(reward.shape == (LABEL_FRAMES, 2) and np.isfinite(reward).all(), f"{label}: rewards {reward.shape}")
         check(launches["flash_attn_fwd"] > 0, f"{label}: labeling never launched K1")
         if "int8" in label:
             check(launches["int8_gemm"] > 0, f"{label}: labeling never launched K2")
@@ -660,10 +744,418 @@ def phase_slice_fast(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, l
         for name, n in launches.items():
             totals[name] += n
         g = MemoryGroup((k, g_src[k]) for k in ("ob", "act", "done"))
-        emit("profile", mode=label, frames=512, **device_profile(lambda: label_group(g, text, eng, progress=False)))
+        emit("profile", mode=label, frames=LABEL_FRAMES, **device_profile(lambda: label_group(g, text, eng, progress=False)))
         del eng
         torch.cuda.empty_cache()
     return totals
+
+
+def random_m3ae_variables(cfg: dict, patch_dim: int, vocab: int, seed: int) -> dict:
+    """Random M3AE encoder weights in arp_tpu's Flax variable layout, from a numpy seed.
+
+    ``cfg`` holds emb_dim, depth, mlp_ratio.  Dense kernels ~ N(0, 1/fan_in), the fused
+    ``qkv/kernel`` (emb_dim, 3 emb_dim), LayerNorm scales ~ 1, small biases, text
+    embedding ~ N(0, 1) as Flax initializes it, cls token and type embeddings ~ N(0, 0.02).
+    """
+    rng = np.random.default_rng(seed)
+    normal = lambda shape, std: (std * rng.standard_normal(shape, dtype=np.float32))  # noqa: E731
+    e, hidden = cfg["emb_dim"], cfg["emb_dim"] * cfg["mlp_ratio"]
+
+    def dense(n_in, n_out):
+        return {"kernel": normal((n_in, n_out), n_in ** -0.5), "bias": normal((n_out,), 0.02)}
+
+    def layer_norm():
+        return {"scale": 1.0 + normal((e,), 0.02), "bias": normal((e,), 0.02)}
+
+    encoder = {"norm": layer_norm()}
+    for i in range(cfg["depth"]):
+        encoder[f"blocks_{i}"] = {
+            "norm1": layer_norm(), "attn": {"qkv": dense(e, 3 * e), "attn_out": dense(e, e)},
+            "norm2": layer_norm(), "mlp": {"fc1": dense(e, hidden), "fc2": dense(hidden, e)},
+        }
+    return {"params": {
+        "text_embedding": {"embedding": normal((vocab, e), 1.0)},
+        "image_embedding": dense(patch_dim * patch_dim * 3, e),
+        "encoder_image_type_embedding": normal((1, 1, e), 0.02),
+        "encoder_text_type_embedding": normal((1, 1, e), 0.02),
+        "cls_token": normal((1, 1, e), 0.02),
+        "encoder": encoder,
+    }}
+
+
+def cosine(a, b) -> float:
+    a, b = a.detach().float().cpu().flatten().double(), b.detach().float().cpu().flatten().double()
+    return float(a @ b / (a.norm() * b.norm() + 1e-12))
+
+
+class K1Recorder:
+    """Stands in for ``attention.flash_attention_fwd`` while in place, and notes (mask kind, N,
+    heads, head_dim, dtype, padding) of every K1 launch; the launch count stays the wrapper's own."""
+
+    def __init__(self, attn):
+        self.attn, self.real, self.shapes = attn, attn.flash_attention_fwd, []
+
+    def __call__(self, q, k, v, spec, kv_padding=None):
+        self.shapes.append((spec.kind, q.shape[1], q.shape[2], q.shape[3], str(q.dtype).removeprefix("torch."),
+                            kv_padding is not None))
+        return self.real(q, k, v, spec, kv_padding)
+
+    launches = property(lambda self: self.real.launches,  # the wrapper counts through its module's name
+                        lambda self, n: setattr(self.real, "launches", n))
+
+    def __enter__(self):
+        self.attn.flash_attention_fwd = self
+        return self
+
+    def __exit__(self, *exc):
+        self.attn.flash_attention_fwd = self.real
+
+    def counts(self) -> dict:
+        out = defaultdict(int)
+        for shape in self.shapes:
+            out["{} n={} h={} d={} {}{}".format(*shape[:5], " padded" if shape[5] else "")] += 1
+        return dict(out)
+
+
+DEVICE = "cuda"  # where the policy path's phases run (a CPU rehearsal of their control flow sets "cpu")
+
+
+def sync() -> None:
+    if DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def host_ms(fn, iters: int = 3) -> float:
+    """Mean wall time of ``fn`` in ms, each run ended by a synchronize, after a warm-up."""
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+        sync()
+    return (time.perf_counter() - t0) * 1e3 / iters
+
+
+def m3ae_inputs(frames: int, seed: int):
+    """Normalized-frame patches, goal patches, BERT ids and their padding (row 0 all padding), on the CPU."""
+    rng = np.random.default_rng(seed)
+    patch = rng.standard_normal((frames, M3AE_TOKENS - 1, 768), dtype=np.float32)
+    goal = rng.standard_normal((frames, M3AE_TOKENS - 1, 768), dtype=np.float32)
+    ids = rng.integers(0, BERT_VOCAB, size=(frames, TEXT_LEN))
+    lengths = rng.integers(1, TEXT_LEN + 1, size=frames)
+    lengths[0] = 0
+    pad = (np.arange(TEXT_LEN)[None, :] >= lengths[:, None]).astype(np.float32)
+    return tuple(torch.from_numpy(x) for x in (patch, goal, ids, pad))
+
+
+def phase_m3ae(counters, attn, m3ae_lib, m3ae_infer, flax_m3ae_to_torch) -> dict:
+    """The frozen tower at full width in six modes over three token streams; returns each kernel's launches."""
+    depth, heads, width = M3AE_DIMS["depth"], M3AE_DIMS["num_heads"], M3AE_DIMS["emb_dim"]
+    t0 = time.perf_counter()
+    variables = random_m3ae_variables(M3AE_DIMS, 16, BERT_VOCAB, SEED)
+    state = flax_m3ae_to_torch(variables)
+    patch, goal, ids, pad = m3ae_inputs(M3AE_FRAMES, SEED)
+    emit("m3ae_setup", config=dict(M3AE_CFG, patch=16, image=256, vocab=BERT_VOCAB), params=int(sum(t.numel() for t in state.values())),
+         frames=M3AE_FRAMES, tokens=M3AE_TOKENS, seconds=time.perf_counter() - t0)
+    bf16_cfg = dict(M3AE_CFG, compute_dtype="bfloat16", ln_dtype="bfloat16", score_dtype="bfloat16")
+
+    def module(cfg, dtype, device):
+        m = m3ae_lib.MaskedMultimodalAutoencoder(cfg, text_vocab_size=BERT_VOCAB)
+        m.load_state_dict(state)
+        return m.requires_grad_(False).to(device=device, dtype=dtype).eval()
+
+    def tower(mode, device):
+        """``run(patch, **stream)`` -> float32 tokens of one mode on ``device``; int8 packs calibrate per stream."""
+        if mode in ("module_f32", "module_bf16"):
+            m = module(M3AE_CFG if mode == "module_f32" else bf16_cfg,
+                       torch.float32 if mode == "module_f32" else torch.bfloat16, device)
+
+            def run(p, text_ids=None, text_padding_mask=None, goal_patch=None):
+                if goal_patch is not None:
+                    return m.forward_gc_representations(p, goal_patch, deterministic=True).float()
+                return m.forward_representation(p, text_ids, text_padding_mask, deterministic=True).float()
+            return run
+        on = {k: v.to(device) for k, v in state.items()}
+        if mode in ("packed_f32", "packed_bf16"):
+            dt = torch.float32 if mode == "packed_f32" else torch.bfloat16
+            packed = m3ae_infer.pack_m3ae_params(on, depth, dtype=dt)
+            return lambda p, **kw: m3ae_infer.m3ae_encode(packed, p, heads, compute_dtype=dt, **kw)
+        packs = {}
+
+        def run(p, **kw):
+            key = tuple(sorted(kw))
+            if key not in packs:  # calibrated on the first 8 frames of this stream
+                packs[key] = m3ae_infer.build_m3ae_qpack(on, depth, heads, p[:CPU_FRAMES],
+                                                         **{k: v[:CPU_FRAMES] for k, v in kw.items()})
+            # the JAX tests' recipes: float32 scores, and bf16 scores under int8 attention
+            return m3ae_infer.m3ae_encode_int8(packs[key], p, heads, int8_attn=mode == "int8_attn",
+                                               score_dtype=torch.bfloat16 if mode == "int8_attn" else torch.float32, **kw)
+        return run
+
+    streams = {"image": {}, "text": dict(text_ids=ids, text_padding_mask=pad), "goal": dict(goal_patch=goal)}
+    k2_a_call = {"image": 1 + 4 * depth, "text": 1 + 4 * depth, "goal": 2 + 4 * depth}
+    totals = dict.fromkeys(counters, 0)
+    for mode in ("module_f32", "module_bf16", "packed_f32", "packed_bf16", "int8", "int8_attn"):
+        cpu_run, gpu_run = tower(mode, "cpu"), tower(mode, DEVICE)
+        for stream, kw in streams.items():
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                want = cpu_run(patch[:CPU_FRAMES], **{k: v[:CPU_FRAMES] for k, v in kw.items()})
+            cpu_seconds = time.perf_counter() - t0
+            on_card = {k: v.to(DEVICE) for k, v in kw.items()}
+            p = patch.to(DEVICE)
+            with torch.no_grad():
+                gpu_run(p[:CPU_FRAMES], **{k: v[:CPU_FRAMES] for k, v in on_card.items()})  # builds; calibrates an int8 pack
+                sync()
+                for fn in counters.values():
+                    fn.launches = 0
+                with K1Recorder(attn) as rec:
+                    got = gpu_run(p, **on_card)
+                sync()
+                launches = launch_counts(counters)
+                ms = host_ms(lambda: gpu_run(p, **on_card))
+            tokens = M3AE_TOKENS + (TEXT_LEN if stream == "text" else M3AE_TOKENS - 1 if stream == "goal" else 0)
+            check(got.shape == (M3AE_FRAMES, tokens, width) and got.dtype == torch.float32, f"m3ae {mode} {stream}: {got.shape}")
+            check(bool(torch.isfinite(got).all()), f"m3ae {mode} {stream}: non-finite tokens")
+            err = (got[:CPU_FRAMES].cpu() - want).abs().max().item()
+            cos = cosine(got[:CPU_FRAMES], want)
+            emit("m3ae", mode=mode, stream=stream, frames=M3AE_FRAMES, tokens=tokens, ms=ms, fps=M3AE_FRAMES / ms * 1e3,
+                 launches=launches, k1_shapes=rec.counts(), max_abs_err_vs_cpu=err, cosine_vs_cpu=cos,
+                 bound=F32_ATOL if mode.endswith("f32") else TOWER_MIN_COSINE[mode], cpu_seconds=cpu_seconds)
+            if mode.endswith("f32"):
+                check(err <= F32_ATOL, f"m3ae {mode} {stream}: max abs err vs the CPU run {err} > {F32_ATOL}")
+            else:
+                check(cos >= TOWER_MIN_COSINE[mode], f"m3ae {mode} {stream}: cosine vs the CPU run {cos} < {TOWER_MIN_COSINE[mode]}")
+            want_k1 = 0 if mode == "int8_attn" else depth
+            want_k2 = k2_a_call[stream] if mode.startswith("int8") else 0
+            check(launches["flash_attn_fwd"] == want_k1 and launches["int8_gemm"] == want_k2,
+                  f"m3ae {mode} {stream}: launches {launches}, expected K1 {want_k1} and K2 {want_k2} a call")
+            for name, n in launches.items():
+                totals[name] += n
+            del got, p, on_card
+        del cpu_run, gpu_run
+        torch.cuda.empty_cache()
+    return totals
+
+
+POLICY_BATCH, POLICY_WINDOW = 128, 4
+SERVE_SESSIONS, SERVE_STEPS = 8, 6  # 48 /v1/act requests from 8 client threads
+POLICY_CFG = dict(model_type="vit_base", transfer_type="m3ae_vit_b16", use_adapter=True, use_discrete_action=True,
+                  emb_dim=128, depth=2, num_heads=8)
+POLICY_MODES = {"float32": {}, "frozen_bf16": dict(frozen_bf16=True), "frozen_int8": dict(frozen_int8=True)}
+
+
+def policy_batch(batch: int, window: int, seed: int) -> tuple[dict, dict]:
+    """(raw uint8 batch, the same through the eval transform as float32 numpy) in the trainer's layout."""
+    from arp_tpu_torch.ops.augment import make_eval_transform
+
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 256, size=(batch, window, 256, 256, 3), dtype=np.uint8)
+    raw = {"image": {"ob": frames}, "rtg": {"ob": rng.uniform(0, 1, size=(batch, window, 1)).astype(np.float32)},
+           "action": rng.integers(0, 15, size=(batch, window)).astype(np.int32), "instruct": None,
+           "text_padding_mask": None}
+    transform = make_eval_transform(image_size=256, device=DEVICE)
+    image = torch.cat([transform(frames[i:i + 16].reshape(-1, 256, 256, 3)).cpu() for i in range(0, batch, 16)])
+    return raw, dict(raw, image={"ob": image.reshape(batch, window, 256, 256, 3).numpy()})
+
+
+def head_batch(batch: dict, n: int) -> dict:
+    return {k: ({kk: vv[:n] for kk, vv in v.items()} if isinstance(v, dict) else None if v is None else v[:n])
+            for k, v in batch.items()}
+
+
+def phase_policy(counters, attn, policy_lib, flax_m3ae_to_torch) -> tuple[dict, dict]:
+    """ARPDT at the flagship configuration in three tower modes; returns (launches, what the serve phase reuses)."""
+    pt = flax_m3ae_to_torch(random_m3ae_variables(M3AE_DIMS, 16, BERT_VOCAB, SEED))
+    raw, batch = policy_batch(POLICY_BATCH, POLICY_WINDOW, SEED)
+    small = head_batch(batch, CPU_FRAMES // POLICY_WINDOW)  # two sequences: 8 frames, the CPU run's share
+    on_card = {k: ({kk: torch.from_numpy(vv).to(DEVICE) for kk, vv in v.items()} if isinstance(v, dict)
+                   else None if v is None else torch.from_numpy(v).to(DEVICE)) for k, v in batch.items()}
+    frames = POLICY_BATCH * POLICY_WINDOW
+    totals, outputs, trained, keep = dict.fromkeys(counters, 0), {}, None, {}
+    for mode, over in POLICY_MODES.items():
+        cfg = dict(POLICY_CFG, m3ae=M3AE_CFG, **over)
+        qpack = {"cpu": None, DEVICE: None}
+        if mode == "frozen_int8":  # calibrated on the raw frames of the first two sequences
+            for device in qpack:
+                qpack[device] = policy_lib.build_frozen_qpack(cfg, head_batch(raw, 2), 16, image_size=256,
+                                                              m3ae_loader=lambda name: pt, device=device)
+
+        def build(device):
+            torch.manual_seed(SEED)
+            model = policy_lib.ARPDT(cfg, num_actions=15, patch_dim=16, pt_variables=pt,
+                                     frozen_qpack=qpack[device]).to(device).eval()
+            with torch.no_grad():
+                model(small, deterministic=True)  # the lazy layers take their shapes; on the card: builds
+                if trained is not None:
+                    model.load_trained_state_dict(trained)
+            return model
+
+        cpu_model = build("cpu")
+        if trained is None:
+            trained = cpu_model.trained_state_dict()  # one set of trained weights for every mode and device
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            want = cpu_model(small, deterministic=True)["action_pred"]
+        cpu_seconds = time.perf_counter() - t0
+        del cpu_model
+        model = build(DEVICE)
+        with torch.inference_mode():
+            model(on_card, deterministic=True)
+            sync()
+            for fn in counters.values():
+                fn.launches = 0
+            with K1Recorder(attn) as rec:
+                out = model(on_card, deterministic=True)
+            sync()
+            launches = launch_counts(counters)
+            ms = host_ms(lambda: model(on_card, deterministic=True))
+        pred = out["action_pred"]
+        outputs[mode] = pred
+        check(pred.shape == (POLICY_BATCH, POLICY_WINDOW, 15) and bool(torch.isfinite(pred).all()), f"policy {mode}: {pred.shape}")
+        check(all(bool(torch.isfinite(out[k]).all()) for k in ("return_pred", "loss", "acc", "trans_loss", "return_loss")),
+              f"policy {mode}: a non-finite output")
+        few = pred[:want.shape[0]]  # the counted batch-128 forward's own rows against the CPU run of them
+        err, cos = (few.cpu() - want).abs().max().item(), cosine(few, want)
+        info = dict(mode=mode, batch=POLICY_BATCH, window=POLICY_WINDOW, frames=frames, ms=ms, fps=frames / ms * 1e3,
+                    launches=launches, k1_shapes=rec.counts(), max_abs_err_vs_cpu=err, cosine_vs_cpu=cos, cpu_seconds=cpu_seconds)
+        if mode == "float32":
+            check(err <= F32_ATOL, f"policy float32: action_pred max abs err vs the CPU run {err} > {F32_ATOL}")
+        else:
+            check(cos >= POLICY_MIN_COSINE[mode], f"policy {mode}: cosine vs the CPU run {cos} < {POLICY_MIN_COSINE[mode]}")
+            against = "float32" if mode == "frozen_bf16" else "frozen_bf16"
+            info[f"cosine_vs_{against}"] = cosine(pred, outputs[against])
+            check(info[f"cosine_vs_{against}"] >= POLICY_MIN_COSINE[mode],
+                  f"policy {mode}: cosine vs {against} on the card {info[f'cosine_vs_{against}']} < {POLICY_MIN_COSINE[mode]}")
+        emit("policy", **info)
+        d16 = sum(n for shape, n in rec.counts().items() if shape.startswith("dt n=12 h=8 d=16 float32"))
+        check(d16 == POLICY_CFG["depth"], f"policy {mode}: K1 at head_dim 16 under the dt mask launched {d16} times a forward")
+        tower_k1 = 0 if mode == "frozen_int8" else M3AE_DIMS["depth"]  # frozen_int8_attn "auto": the int8 attention is not K1
+        check(launches["flash_attn_fwd"] == tower_k1 + POLICY_CFG["depth"]
+              and launches["int8_gemm"] == (1 + 4 * M3AE_DIMS["depth"] if mode == "frozen_int8" else 0),
+              f"policy {mode}: launches {launches}")
+        for name, n in launches.items():
+            totals[name] += n
+        with torch.inference_mode():
+            emit("profile", mode=f"policy_{mode}", frames=frames,
+                 **device_profile(lambda: model(on_card, deterministic=True)))
+        if mode == "frozen_int8":
+            keep = dict(model=model, cfg=cfg, pt=pt, qpack=qpack[DEVICE])
+        else:
+            del model
+        torch.cuda.empty_cache()
+    return totals, keep
+
+
+def phase_serve(counters, keep, policy_lib, serve) -> dict:
+    """The policy server with the frozen_int8 policy behind real HTTP; returns each kernel's launches over the requests."""
+    import tempfile
+    import threading
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from arp_tpu_torch.ops.augment import make_eval_transform
+
+    sessions, steps, window = SERVE_SESSIONS, SERVE_STEPS, POLICY_WINDOW
+
+    def post(url, payload):
+        req = urllib.request.Request(url, data=json.dumps(payload).encode(), headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read())
+
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        model = keep["model"]
+        policy_fn, load_latest = serve.reloadable_policy(model, ckpt_dir)
+        transform = make_eval_transform(image_size=256, device=DEVICE)
+        server = serve.PolicyServer(policy_fn=policy_fn, transform_obs_fn=transform, window_size=window, max_batch=8,
+                                    batch_wait_ms=20.0, reload_fn=load_latest)
+        httpd = server.make_http_server("127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            t0 = time.perf_counter()
+            warmed = server.warmup(transform(np.zeros((256, 256, 3), np.uint8)))
+            sync()
+            emit("serve_warmup", shapes=len(warmed), seconds=time.perf_counter() - t0)
+            check(warmed == [(w, b) for w in range(1, window + 1) for b in (1, 2, 4, 8)], f"warmup covered {warmed}")
+
+            rng = np.random.default_rng(SEED)
+            frames = rng.integers(0, 256, size=(sessions, steps, 256, 256, 3), dtype=np.uint8)
+            rewards = rng.uniform(0, 1, size=(sessions, steps))
+            barrier = threading.Barrier(sessions)
+            for fn in counters.values():
+                fn.launches = 0
+
+            def episode(s):
+                """One client: its requests, and a shadow of the session's window for the direct forward."""
+                sid = post(url + "/v1/session", {"return_to_go": 10.0, "scale": 10.0})["session_id"]
+                shadow = serve.PolicySession(window, 10.0, 10.0)
+                log = []
+                for t in range(steps):
+                    reward = float(rewards[s, t]) if t else None
+                    body = json.dumps({"session_id": sid, "observation": frames[s, t].tolist(), "reward": reward}).encode()
+                    barrier.wait()  # the sessions' step-t requests leave together
+                    t1 = time.perf_counter()
+                    req = urllib.request.Request(url + "/v1/act", data=body, headers={"Content-Type": "application/json"})
+                    with urllib.request.urlopen(req, timeout=300) as resp:
+                        out = json.loads(resp.read())
+                    latency = time.perf_counter() - t1
+                    shadow.push(transform(frames[s, t]).cpu().numpy(), reward)
+                    log.append((shadow.inputs(), out["action"], latency, out["rtg"], shadow.rtg * shadow.scale))
+                    shadow.record_action(out["action"])
+                post(url + "/v1/session/close", {"session_id": sid})
+                return log
+
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(sessions) as pool:
+                logs = list(pool.map(episode, range(sessions)))
+            seconds = time.perf_counter() - t0
+            launches = launch_counts(counters)
+            health = json.loads(urllib.request.urlopen(url + "/v1/health", timeout=60).read())
+            wrong = 0
+            for log in logs:
+                for inputs, action, _, rtg, shadow_rtg in log:
+                    wrong += int(policy_fn(inputs)[0]) != action or abs(rtg - shadow_rtg) > 1e-4
+            latencies = sorted(lat for log in logs for _, _, lat, _, _ in log)
+            emit("serve", requests=sessions * steps, sessions=sessions, client_threads=sessions, seconds=seconds,
+                 requests_per_s=sessions * steps / seconds, latency_ms_median=latencies[len(latencies) // 2] * 1e3,
+                 latency_ms_max=latencies[-1] * 1e3, actions_differing_from_direct_forward=wrong, launches=launches,
+                 batching=health["batching"], payload="a 256 x 256 x 3 frame as nested JSON lists, about 0.7 MB a request")
+            check(wrong == 0, f"{wrong} served actions differ from the direct greedy_action on the session's window")
+            check(health["batching"]["mean_batch_occupancy"] > 1 and health["batching"]["batched_requests"] == sessions * steps,
+                  f"no batching: {health['batching']}")
+            check(launches["flash_attn_fwd"] > 0 and launches["int8_gemm"] > 0, f"the requests launched {launches}")
+            check(health["sessions"] == 0 and "checkpoint" not in health, f"health after the episodes: {health}")
+
+            # other weights, saved as a checkpoint, reloaded while the server runs
+            first = [log[0][0] for log in logs]
+            old_actions = [log[0][1] for log in logs]
+            for seed in range(SEED + 1, SEED + 6):  # seeded weights whose actions differ from the served ones
+                torch.manual_seed(seed)
+                other = policy_lib.ARPDT(keep["cfg"], num_actions=15, patch_dim=16, pt_variables=keep["pt"],
+                                         frozen_qpack=keep["qpack"]).to(DEVICE).eval()
+                with torch.inference_mode():
+                    new_actions = [int(other.greedy_action(inputs)[0]) for inputs in first]
+                if new_actions != old_actions:
+                    break
+            serve.save_policy_state(ckpt_dir, 7, other)
+            reloaded = post(url + "/v1/reload", {})
+            served = []
+            for s in range(sessions):
+                sid = post(url + "/v1/session", {"return_to_go": 10.0, "scale": 10.0})["session_id"]
+                served.append(post(url + "/v1/act", {"session_id": sid, "observation": frames[s, 0].tolist()})["action"])
+            health = json.loads(urllib.request.urlopen(url + "/v1/health", timeout=60).read())
+            emit("serve_reload", reloaded=reloaded, health_step=health.get("checkpoint", {}).get("step"),
+                 actions_before=old_actions, actions_after=served, actions_of_the_new_weights=new_actions)
+            check(reloaded == {"status": "reloaded", "step": 7} and health["checkpoint"]["step"] == 7, f"reload: {reloaded} {health}")
+            check(served == new_actions, f"after the reload the server gives {served}, the new weights {new_actions}")
+            check(served != old_actions, "the reload changed no action")
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+    return launches
 
 
 def kernel_entry(name: str, launches: int, max_abs_err: float, timing: dict, **extra) -> dict:
@@ -682,8 +1174,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from arp_tpu_torch import serve
+    from arp_tpu_torch.models import m3ae as m3ae_lib
+    from arp_tpu_torch.models import policy as policy_lib
     from arp_tpu_torch.models.clip import CLIP, CONFIGS, flax_to_torch
-    from arp_tpu_torch.ops import _build, preprocess, quantization, vit_infer
+    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+    from arp_tpu_torch.ops import _build, m3ae_infer, preprocess, quantization, vit_infer
     from arp_tpu_torch.ops import attention as attn
     from arp_tpu_torch.ops.masks import MaskSpec, materialize_mask
     from arp_tpu_torch.reward.engine import ClipRewardEngine
@@ -719,6 +1215,20 @@ def main() -> int:
         launches[name] += n
     for name, n in launches.items():
         check(n > 0, f"the labeling runs never launched {name}")
+    # the policy's serving path: the tower alone, the policy, the server; each run's launches
+    # are counted from 0 just before it
+    path_launches = {"m3ae": phase_m3ae(counters, attn, m3ae_lib, m3ae_infer, flax_m3ae_to_torch)}
+    path_launches["policy"], keep = phase_policy(counters, attn, policy_lib, flax_m3ae_to_torch)
+    path_launches["serve"] = phase_serve(counters, keep, policy_lib, serve)
+    del keep
+    for path, counts in path_launches.items():
+        for name in ("flash_attn_fwd", "int8_gemm"):
+            check(counts[name] > 0, f"the {path} runs never launched {name}")
+            launches[name] += counts[name]
+
+    def shapes(timings, labels):
+        keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return {label: {key: timings[label][key] for key in keys} for label in labels}
 
     fc = k2["timings"]["fc"]
     k1_f32 = k1["timings"]["vit_b16_float32"]
@@ -726,9 +1236,16 @@ def main() -> int:
         kernel_entry("flash_attn_fwd", launches["flash_attn_fwd"], k1["max_abs_err"]["bfloat16"],
                      k1["timings"]["vit_b16_bfloat16"], dtype="bfloat16",
                      float32={"max_abs_err": k1["max_abs_err"]["float32"],
-                              **{key: k1_f32[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}}),
+                              **{key: k1_f32[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}},
+                     launches_by_path={"labeling": launches["flash_attn_fwd"] - sum(c["flash_attn_fwd"] for c in path_launches.values()),
+                                       **{path: c["flash_attn_fwd"] for path, c in path_launches.items()}},
+                     policy_path=shapes(k1["timings"], ("m3ae_n257_bfloat16", "m3ae_n257_float32", "m3ae_goal_n513_bfloat16",
+                                                        "policy_d16_dt_n12_float32", "policy_d16_dt_n12_bfloat16"))),
         kernel_entry("int8_gemm", launches["int8_gemm"], k2["max_abs_err"], fc,
-                     bf16_matmul_ms=fc["bf16_matmul_ms"], max_bf16_ulps=k2["max_bf16_ulps"]),
+                     bf16_matmul_ms=fc["bf16_matmul_ms"], max_bf16_ulps=k2["max_bf16_ulps"],
+                     launches_by_path={"labeling": launches["int8_gemm"] - sum(c["int8_gemm"] for c in path_launches.values()),
+                                       **{path: c["int8_gemm"] for path, c in path_launches.items()}},
+                     policy_path=shapes(k2["timings"], tuple(K2_M3AE_SITES))),
         kernel_entry("int8_matmul", launches["int8_matmul"], k3["max_abs_err"],
                      k3["timings"]["fc_768x3072_float32"], dtype="float32"),
     ]}), flush=True)

@@ -130,6 +130,9 @@ def test_bf16_ulps():
     up = torch.nextafter(x.bfloat16(), torch.full((4,), 1e9, dtype=torch.bfloat16))
     assert chip_smoke.bf16_ulps(up, x) == 1.0
     assert chip_smoke.bf16_ulps(x, x) == 0.0
+    tiny = torch.tensor([1e-7, -3e-7])
+    assert chip_smoke.bf16_ulps(tiny, 2 * tiny) > 100  # many bf16 ulps of so small a number
+    assert chip_smoke.bf16_ulps(tiny, 2 * tiny, floor=chip_smoke.TANH_GELU_TAIL_UNIT) < 0.5
 
 
 @pytest.mark.parametrize("log,faults", [
@@ -182,3 +185,100 @@ def test_k2_ragged_cases_are_shapes_k2_takes(label):
     assert out.shape == (m, n) and out.dtype == torch.bfloat16 and torch.isfinite(out.float()).all()
     clamped = (x.float().abs() > a).any().item()
     assert clamped == (margin < 1.0)
+
+
+# --- the policy path's phases ------------------------------------------------------------------
+
+TINY_M3AE = dict(emb_dim=32, depth=2, num_heads=4, mlp_ratio=2)
+
+
+def test_random_m3ae_weights_have_the_flax_layout():
+    """The encoder side of Flax's own init tree, name for name and shape for shape, and a strict load."""
+    from arp_tpu.models import m3ae as jm3ae
+    from arp_tpu_torch.models import m3ae as tm3ae
+    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+
+    cfg = dict(model_type=None, dec_emb_dim=16, dec_depth=1, dec_num_heads=2, **TINY_M3AE)
+    model = jm3ae.MaskedMultimodalAutoencoder(config_updates=cfg, text_vocab_size=101)
+    flax_vars = model.init({"params": jax.random.PRNGKey(0)}, jnp.zeros((1, 4, 768)), jnp.zeros((1, 5), jnp.int32),
+                           jnp.zeros((1, 5)), method=model.forward_representation, deterministic=True)
+    ours = chip_smoke.random_m3ae_variables(TINY_M3AE, 16, 101, seed=0)
+    want = {k: v for k, v in _shapes(flax_vars).items()
+            if not k[1].startswith("decoder") and not k[1].endswith("mask_embedding")}
+    assert _shapes(ours) == want
+    port = tm3ae.MaskedMultimodalAutoencoder(cfg, text_vocab_size=101)
+    port.load_state_dict(flax_m3ae_to_torch(ours))  # strict
+    again = chip_smoke.random_m3ae_variables(TINY_M3AE, 16, 101, seed=0)
+    np.testing.assert_array_equal(ours["params"]["cls_token"], again["params"]["cls_token"])
+
+
+def test_new_k2_sites_are_shapes_k2_takes_and_k1_cases_fit_the_tower():
+    for label, (m, k, n, dtype, act) in chip_smoke.K2_M3AE_SITES.items():
+        assert k % 32 == 0 and n % 8 == 0 and act in ("none", "gelu_tanh"), label
+        assert m == 512 * (256 if label == "m3ae_img" else 257)
+    assert chip_smoke.K2_M3AE_SITES["m3ae_fc"][4] == "gelu_tanh" and chip_smoke.K2_M3AE_SITES["m3ae_img"][3] == torch.float32
+    assert chip_smoke.LABEL_ROWS.max() < chip_smoke.LABEL_FRAMES
+    done = np.asarray(chip_smoke.demo_group(chip_smoke.LABEL_FRAMES, 2, 8, 0)["done"])[:, -1]
+    assert {84, 169, 255} == set(np.flatnonzero(done)) <= set(chip_smoke.LABEL_ROWS)
+
+
+def test_k1_recorder_notes_shapes_and_keeps_the_count():
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops.masks import MaskSpec
+
+    real = attn.flash_attention_fwd
+    calls = []
+    fake = lambda q, k, v, spec, pad=None: calls.append(1) or q  # noqa: E731
+    fake.launches = 5
+    attn.flash_attention_fwd = fake
+    try:
+        with chip_smoke.K1Recorder(attn) as rec:
+            q = torch.zeros(2, 12, 8, 16)
+            attn.flash_attention_fwd(q, q, q, MaskSpec("dt", 1, 3), None)
+            attn.flash_attention_fwd(q, q, q, MaskSpec("dt", 1, 3), torch.zeros(2, 12))
+            attn.flash_attention_fwd.launches += 1  # as the wrapper counts, through its module's name
+        assert attn.flash_attention_fwd is fake and fake.launches == 6 and len(calls) == 2
+        assert rec.counts() == {"dt n=12 h=8 d=16 float32": 1, "dt n=12 h=8 d=16 float32 padded": 1}
+    finally:
+        attn.flash_attention_fwd = real
+
+
+def test_policy_path_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """The m3ae, policy and serve phases end to end on the CPU at a tiny tower width and few frames:
+    their control flow, shapes and comparisons.  What only the card can show (a kernel's launches,
+    the profile) is left out."""
+    from arp_tpu_torch import serve
+    from arp_tpu_torch.models import m3ae as m3ae_lib
+    from arp_tpu_torch.models import policy as policy_lib
+    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import m3ae_infer, quantization, vit_infer
+
+    for name, value in dict(DEVICE="cpu", M3AE_DIMS=TINY_M3AE, M3AE_CFG=dict(model_type=None, **TINY_M3AE),
+                            M3AE_FRAMES=3, CPU_FRAMES=2, BERT_VOCAB=211, POLICY_BATCH=2, POLICY_WINDOW=2,
+                            SERVE_SESSIONS=3, SERVE_STEPS=3).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(policy_lib.models, "BERT_VOCAB_SIZE", 211)
+    monkeypatch.setattr(chip_smoke, "device_profile", lambda run: {"rehearsal": True})
+    real_check = chip_smoke.check
+    monkeypatch.setattr(chip_smoke, "check", lambda ok, what: real_check(ok or "launch" in what, what))
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
+                "int8_matmul": quantization.int8_matmul}
+
+    chip_smoke.phase_m3ae(counters, attn, m3ae_lib, m3ae_infer, flax_m3ae_to_torch)
+    _, keep = chip_smoke.phase_policy(counters, attn, policy_lib, flax_m3ae_to_torch)
+    chip_smoke.phase_serve(counters, keep, policy_lib, serve)
+    import json
+
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    by_phase = {}
+    for line in lines:
+        by_phase.setdefault(line["phase"], []).append(line)
+    assert len(by_phase["m3ae"]) == 18 and {(m["mode"], m["stream"]) for m in by_phase["m3ae"]} == {
+        (mode, stream) for mode in ("module_f32", "module_bf16", "packed_f32", "packed_bf16", "int8", "int8_attn")
+        for stream in ("image", "text", "goal")}
+    assert all(m["cosine_vs_cpu"] > 0.9999 for m in by_phase["m3ae"])  # the same device twice
+    assert [p["mode"] for p in by_phase["policy"]] == ["float32", "frozen_bf16", "frozen_int8"]
+    assert by_phase["policy"][1]["cosine_vs_float32"] > 0.98 and by_phase["policy"][2]["cosine_vs_frozen_bf16"] > 0.95
+    assert by_phase["serve"][0]["requests"] == 9 and by_phase["serve"][0]["actions_differing_from_direct_forward"] == 0
+    assert by_phase["serve_reload"][0]["health_step"] == 7

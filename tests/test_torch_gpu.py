@@ -11,7 +11,8 @@ other orders) and 2e-2 in bfloat16 (K1 multiplies bf16 operands on the tensor
 cores with float32 sums, rounds P to bf16 as the plain version does, and
 rounds its output to bf16); K2 within
 one bf16 ulp of its plain version (equal int8 values and int32 sums; only the
-quick-GELU's exp may differ) and ties rounded to even exactly; K3 within 1e-4
+quick-GELU's exp and the tanh-GELU's tanh may differ; below -4, where the tanh-GELU's
+1 + tanh cancels, in units of 2^-20) and ties rounded to even exactly; K3 within 1e-4
 of the largest output in float32 (sums in other orders), and in bf16 that
 plus one bf16 rounding of it (2^-7); K3 in float32 against the plain version
 of its own arithmetic (``int8_matmul_split_reference``) at K / 4 units of
@@ -189,7 +190,7 @@ def _k2_inputs(cuda, m, k, n, dtype, seed=0):
     return chip_smoke.k2_inputs(m, k, n, dtype, gen, quantization)
 
 
-@pytest.mark.parametrize("act", ["none", "quickgelu"])
+@pytest.mark.parametrize("act", ["none", "quickgelu", "gelu_tanh"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("k,n", [(768, 2304), (768, 768), (768, 3072), (3072, 768), (768, 512), (64, 8)])
 def test_k2_matches_plain(cuda, k, n, dtype, act):
@@ -199,7 +200,7 @@ def test_k2_matches_plain(cuda, k, n, dtype, act):
     assert vit_infer.fused_int8_matmul.launches == launches + 1
     want = vit_infer.fused_int8_matmul_reference(x, a, wq, ws, bias, act)
     assert got.dtype == torch.bfloat16 and got.shape == (1003, n)
-    assert chip_smoke.bf16_ulps(got, want) <= 1.0
+    assert chip_smoke.bf16_ulps(got, want, chip_smoke.TANH_GELU_TAIL_UNIT if act == "gelu_tanh" else 0.0) <= 1.0
 
 
 @pytest.mark.parametrize("m", [1, 16, 127, 129, 50432])
@@ -400,3 +401,151 @@ def test_cuda_fast_engines_match_cpu_engine(cuda, mode):
     else:
         cos_mae = chip_smoke.INT8_COS_MAE if "int8" in mode else chip_smoke.BF16_COS_MAE
         assert mae <= cos_mae * eng.logit_scale, mae
+
+
+# --- the policy path: K1 at head_dim 16 and under the dt mask, K2's tanh-GELU, tower and policy on the card ---
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spec", [MaskSpec("dt", 1, 3), MaskSpec("dt", 2, 4), MaskSpec("causal"), MaskSpec("none")],
+                         ids=["dt_1_3", "dt_2_4", "causal", "none"])
+@pytest.mark.parametrize("n", [3, 6, 9, 12, 65, 257])
+def test_kernel_head_dim_16(cuda, n, spec, dtype):
+    """The policy blocks (128 wide, 8 heads) while a session's window grows, and beyond one tile."""
+    q, k, v = _qkv(7, (5, n, 8, 16), cuda, dtype)
+    _check_k1(q, k, v, spec, _padding(5, n, cuda) if n > 12 else None)
+
+
+def test_kernel_head_dim_16_reads_the_fused_projection_through_strides(cuda):
+    x = torch.randn(4, 12, 3 * 128, generator=torch.Generator().manual_seed(8)).to(cuda)
+    q, k, v = (t.view(4, 12, 8, 16) for t in x.chunk(3, dim=-1))
+    _check_k1(q, k, v, MaskSpec("dt", 1, 3), None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,padded", [(257, False), (273, True), (513, False)])
+def test_kernel_m3ae_token_streams(cuda, n, padded, dtype):
+    q, k, v = _qkv(9, (4, n, 12, 64), cuda, dtype)
+    pad = None
+    if padded:  # the text keys of row 0 are padding throughout
+        pad = torch.zeros(4, n, dtype=torch.bool, device=cuda)
+        pad[0, 257:] = True
+        pad[2, 260:] = True
+    _check_k1(q, k, v, MaskSpec("none"), pad)
+
+
+@pytest.mark.parametrize("m", [1, 129, 4099])
+def test_k2_tanh_gelu_ragged_m_and_far_from_zero(cuda, m):
+    x, a, wq, ws, bias, wq_t = _k2_inputs(cuda, m, 768, 3072, torch.bfloat16)
+    bias = bias + torch.linspace(-12, 12, 3072, device=cuda)  # both tails: 0 and the identity
+    got = vit_infer.fused_int8_matmul(x, a, wq, ws, bias, "gelu_tanh", wq_t=wq_t)
+    want = vit_infer.fused_int8_matmul_reference(x, a, wq, ws, bias, "gelu_tanh")
+    assert torch.isfinite(got.float()).all()
+    assert chip_smoke.bf16_ulps(got, want, chip_smoke.TANH_GELU_TAIL_UNIT) <= 1.0
+    assert (got[:, :8].float() == 0).all() and torch.equal(got[:, -8:], want[:, -8:])  # v < -11: 0; v > 11: v
+
+
+def _tiny_tower(cuda):
+    from arp_tpu_torch.models import m3ae as m3ae_lib
+    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+
+    dims = dict(emb_dim=64, depth=2, num_heads=4, mlp_ratio=2)
+    state = flax_m3ae_to_torch(chip_smoke.random_m3ae_variables(dims, 16, 211, seed=3))
+    return dims, state, m3ae_lib
+
+
+@pytest.mark.parametrize("stream", ["image", "text", "goal"])
+def test_m3ae_tower_on_the_card_matches_the_cpu(cuda, stream):
+    """Module and packed float32 forwards within 1e-4 of the CPU run; the int8 forward (K2 at every
+    site, K1 attention) by cosine > 0.98 against its CPU run; K1 and K2 launched once a layer and site."""
+    from arp_tpu_torch.ops import m3ae_infer
+
+    dims, state, m3ae_lib = _tiny_tower(cuda)
+    rng = np.random.default_rng(4)
+    patch = torch.from_numpy(rng.standard_normal((6, 16, 768), dtype=np.float32))
+    kw = {}
+    if stream == "text":
+        pad = torch.zeros(6, 8)
+        pad[0] = 1.0
+        pad[3, 5:] = 1.0
+        kw = dict(text_ids=torch.from_numpy(rng.integers(0, 211, size=(6, 8))), text_padding_mask=pad)
+    if stream == "goal":
+        kw = dict(goal_patch=torch.from_numpy(rng.standard_normal((6, 16, 768), dtype=np.float32)))
+    on = lambda tree, dev: {k: v.to(dev) for k, v in tree.items()}  # noqa: E731
+    cfg = dict(model_type=None, **dims)
+
+    def module_run(dev):
+        m = m3ae_lib.MaskedMultimodalAutoencoder(cfg, text_vocab_size=211)
+        m.load_state_dict(state)
+        m = m.to(dev).eval()
+        with torch.no_grad():
+            if stream == "goal":
+                return m.forward_gc_representations(patch.to(dev), kw["goal_patch"].to(dev), deterministic=True)
+            return m.forward_representation(patch.to(dev), *(on(kw, dev).get(k) for k in ("text_ids", "text_padding_mask")),
+                                            deterministic=True)
+
+    torch.testing.assert_close(module_run(cuda).cpu(), module_run("cpu"), atol=1e-4, rtol=0)
+    outs = {}
+    for dev in ("cpu", cuda):
+        packed = m3ae_infer.pack_m3ae_params(on(state, dev), dims["depth"], dtype=torch.float32)
+        qpack = m3ae_infer.build_m3ae_qpack(on(state, dev), dims["depth"], dims["num_heads"], patch.to(dev), **on(kw, dev))
+        k1, k2 = attn.flash_attention_fwd.launches, vit_infer.fused_int8_matmul.launches
+        with torch.no_grad():
+            outs[dev] = (m3ae_infer.m3ae_encode(packed, patch.to(dev), dims["num_heads"], compute_dtype=torch.float32, **on(kw, dev)),
+                         m3ae_infer.m3ae_encode_int8(qpack, patch.to(dev), dims["num_heads"], **on(kw, dev)))
+        if dev != "cpu":
+            assert attn.flash_attention_fwd.launches - k1 == 2 * dims["depth"]
+            assert vit_infer.fused_int8_matmul.launches - k2 == 4 * dims["depth"] + (2 if stream == "goal" else 1)
+    torch.testing.assert_close(outs[cuda][0].cpu(), outs["cpu"][0], atol=1e-4, rtol=0)
+    assert chip_smoke.cosine(outs[cuda][1], outs["cpu"][1]) > 0.98
+
+
+@pytest.mark.parametrize("mode", ["float32", "frozen_bf16", "frozen_int8"])
+def test_policy_on_the_card_matches_the_cpu(cuda, mode):
+    """ARPDT with a tiny M3AE tower, 128-wide blocks with 8 heads (K1 at head_dim 16 under the dt mask)."""
+    from arp_tpu_torch.models import policy as policy_lib
+
+    dims = dict(emb_dim=64, depth=2, num_heads=4, mlp_ratio=2)
+    state = policy_lib.flax_m3ae_to_torch(chip_smoke.random_m3ae_variables(dims, 16, chip_smoke.BERT_VOCAB, seed=3))
+    cfg = dict(chip_smoke.POLICY_CFG, m3ae=dict(model_type=None, **dims), **chip_smoke.POLICY_MODES[mode])
+    rng = np.random.default_rng(5)
+    frames = rng.integers(0, 256, size=(3, 4, 64, 64, 3), dtype=np.uint8)
+    raw = {"image": {"ob": frames}, "rtg": {"ob": rng.uniform(0, 1, size=(3, 4, 1)).astype(np.float32)},
+           "action": rng.integers(0, 15, size=(3, 4)).astype(np.int32), "instruct": None, "text_padding_mask": None}
+    batch = dict(raw, image={"ob": (frames.astype(np.float32) / 255.0 - 0.5) / 0.3})
+    outs, trained = {}, None
+    for dev in ("cpu", cuda):
+        qpack = None
+        if mode == "frozen_int8":
+            qpack = policy_lib.build_frozen_qpack(cfg, raw, 16, image_size=64, m3ae_loader=lambda name: state, device=dev)
+        torch.manual_seed(0)
+        model = policy_lib.ARPDT(cfg, num_actions=15, patch_dim=16, pt_variables=state, frozen_qpack=qpack).to(dev).eval()
+        with torch.no_grad():
+            model(batch, deterministic=True)
+            if trained is None:
+                trained = model.trained_state_dict()
+            model.load_trained_state_dict(trained)
+            k1, k2 = attn.flash_attention_fwd.launches, vit_infer.fused_int8_matmul.launches
+            outs[dev] = model(batch, deterministic=True)["action_pred"]
+        if dev != "cpu":
+            tower_k1 = 0 if mode == "frozen_int8" else dims["depth"]
+            assert attn.flash_attention_fwd.launches - k1 == tower_k1 + 2
+            assert vit_infer.fused_int8_matmul.launches - k2 == (1 + 4 * dims["depth"] if mode == "frozen_int8" else 0)
+    if mode == "float32":
+        torch.testing.assert_close(outs[cuda].cpu(), outs["cpu"], atol=1e-4, rtol=0)
+    else:
+        assert chip_smoke.cosine(outs[cuda], outs["cpu"]) > chip_smoke.POLICY_MIN_COSINE[mode]
+
+
+def test_attention_with_alibi_bias_takes_the_plain_attention_on_the_card(cuda):
+    from arp_tpu_torch.models import layers
+
+    torch.manual_seed(0)
+    block = layers.Attention(32, 4, use_bias=True, alibi_bias=True).eval()
+    x = torch.randn(2, 12, 32)
+    k1 = attn.flash_attention_fwd.launches
+    with torch.no_grad():
+        want = block(x, True, MaskSpec("dt", 1, 3))
+        got = block.to(cuda)(x.to(cuda), True, MaskSpec("dt", 1, 3))
+    assert attn.flash_attention_fwd.launches == k1  # the bias branch is the plain attention, by design
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)

@@ -1,4 +1,5 @@
-"""The PyTorch port imports no JAX: every arp_tpu_torch module loads with jax/flax blocked."""
+"""The PyTorch port imports no JAX: every arp_tpu_torch module (the policy, its server and
+chip_smoke.py too) loads with jax, flax, ml_collections, orbax, optax and arp_tpu blocked."""
 
 import os
 import subprocess
@@ -11,9 +12,11 @@ _SCRIPT = textwrap.dedent(
     """
     import importlib, pkgutil, sys
 
+    BLOCKED = ("jax", "jaxlib", "flax", "ml_collections", "orbax", "optax", "arp_tpu")
+
     class Block:
         def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "flax", "arp_tpu"):
+            if name.split(".")[0] in BLOCKED:
                 raise ImportError(f"blocked import of {name}")
             return None
 
@@ -22,9 +25,9 @@ _SCRIPT = textwrap.dedent(
     names = [m.name for m in pkgutil.walk_packages(arp_tpu_torch.__path__, "arp_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "arp_tpu"))
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
     assert not bad, bad
-    print("IMPORTED", len(names))
+    print("IMPORTED", len(names), " ".join(names))
     """
 )
 
@@ -36,8 +39,11 @@ def test_port_imports_without_jax_or_flax():
         [sys.executable, "-c", _SCRIPT], cwd=REPO, env=env, capture_output=True, text=True, timeout=300
     )
     assert out.returncode == 0, out.stderr + out.stdout
-    n = int(out.stdout.split("IMPORTED")[1])
-    assert n >= 15, out.stdout  # every module of the package, not an empty walk
+    n, *names = out.stdout.split("IMPORTED")[1].split()
+    assert int(n) >= 27, out.stdout  # every module of the package, not an empty walk
+    for module in ("serve", "config", "utils", "models.layers", "models.m3ae", "models.impala", "models.policy.models",
+                   "models.policy.convert", "ops.m3ae_infer", "ops.augment"):
+        assert f"arp_tpu_torch.{module}" in names, module
 
 
 def test_chip_smoke_imports_without_jax_or_the_jax_package():
@@ -66,3 +72,27 @@ def test_port_names_no_library_kernel():
                 text = f.read()
             hits += [(os.path.join(root, name), word) for word in banned if word in text]
     assert not hits, hits
+
+
+def test_policy_and_server_run_without_jax_or_the_jax_package():
+    """Not only imports: a policy forward and a server action with the JAX stack blocked."""
+    script = _SCRIPT + textwrap.dedent(
+        """
+        import numpy as np, torch
+        from arp_tpu_torch.models.policy import ARPDT
+        from arp_tpu_torch.serve import PolicyServer
+        model = ARPDT(dict(model_type="vit_debug", emb_dim=32, depth=1, num_heads=4, use_discrete_action=True),
+                      num_actions=15, patch_dim=16).eval()
+        server = PolicyServer(policy_fn=lambda i: model.greedy_action(i), transform_obs_fn=lambda x: x / 255.0)
+        sid = server.create_session({})["session_id"]
+        with torch.no_grad():
+            out = server.act({"session_id": sid, "observation": np.zeros((32, 32, 3), np.uint8).tolist()})
+        assert 0 <= out["action"] < 15
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
