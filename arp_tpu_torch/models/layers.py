@@ -14,7 +14,10 @@ models/policy/convert.py for how the leaves map.  As in the Flax layers:
     output is rounded to ``ln_dtype``; GELU is the tanh approximation;
   * ``compute_dtype`` runs a block's matmuls in that dtype with float32
     layernorms and residual stream; ``ln_dtype`` (frozen towers only) keeps the
-    layernorm outputs and the residual stream in that dtype too.
+    layernorm outputs and the residual stream in that dtype too;
+  * every random draw (dropout masks, stochastic depth) comes from the
+    ``generator`` the caller passes down (Flax: the "dropout" and "drop_path"
+    rngs); without one, torch's global generator.
 
 Not ported: ``PipelinedTransformer`` and its stack/unstack helpers (several
 devices) and ``MLP`` (the M3AE decoder head).
@@ -60,6 +63,17 @@ def dense(x: torch.Tensor, linear: nn.Linear, dtype: Optional[torch.dtype] = Non
     return F.linear(x.to(dt), linear.weight.to(dt), bias)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep each entry with probability 1 - rate, scaled by 1 / (1 - rate)."""
+    if rate == 0.0:
+        return x
+    if rate == 1.0:
+        return torch.zeros_like(x)
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, device=x.device, generator=generator) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm, dtype: Optional[torch.dtype]) -> torch.Tensor:
     """Flax ``LayerNorm(dtype=dtype)``: float32 statistics and affine, output in ``dtype``
     (None: the common type of input and parameters)."""
@@ -83,13 +97,13 @@ class FeedForward(nn.Module):
             if use_bias:
                 nn.init.zeros_(fc.bias)
 
-    def forward(self, x, deterministic: bool = True):
+    def forward(self, x, deterministic: bool = True, generator: Optional[torch.Generator] = None):
         drop = 0.0 if deterministic else self.dropout
         x = dense(x, self.fc1, self.dtype)
         x = F.gelu(x, approximate="tanh") if self.activation == "gelu" else x * torch.sigmoid(1.702 * x)
-        x = F.dropout(x, drop, training=drop > 0)
+        x = dropout(x, drop, generator)
         x = dense(x, self.fc2, self.dtype)
-        return F.dropout(x, drop, training=drop > 0)
+        return dropout(x, drop, generator)
 
 
 class DenseQKV(nn.Module):
@@ -127,7 +141,8 @@ class Attention(nn.Module):
         if use_bias:
             nn.init.zeros_(self.attn_out.bias)
 
-    def forward(self, x, deterministic: bool = True, mask_spec: MaskSpec = MaskSpec("causal"), kv_padding=None):
+    def forward(self, x, deterministic: bool = True, mask_spec: MaskSpec = MaskSpec("causal"), kv_padding=None,
+                generator: Optional[torch.Generator] = None):
         b, n, _ = x.shape
         head_dim = self.dim // self.num_heads
         q, k, v = (t.view(b, n, self.num_heads, head_dim) for t in self.qkv(x))
@@ -147,7 +162,7 @@ class Attention(nn.Module):
                 s = s + bias
             mask = combine_padding(materialize_mask(mask_spec, n, device=x.device)[None, None], kv_padding)
             s = torch.where(mask, s, torch.tensor(torch.finfo(s.dtype).min, dtype=s.dtype, device=s.device))
-            p = F.dropout(torch.softmax(s, dim=-1), self.att_drop, training=True)
+            p = dropout(torch.softmax(s, dim=-1), self.att_drop, generator)
             out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
         elif bias is not None:
             # kernel K1 takes no dense bias, as the Pallas kernel takes none
@@ -155,8 +170,7 @@ class Attention(nn.Module):
         else:
             out = dot_product_attention(q, k, v, spec=mask_spec, kv_padding=kv_padding, score_dtype=score_dtype)
         out = dense(out.reshape(b, n, self.dim), self.attn_out, self.dtype)
-        drop = 0.0 if deterministic else self.proj_drop
-        return F.dropout(out, drop, training=drop > 0)
+        return dropout(out, 0.0 if deterministic else self.proj_drop, generator)
 
 
 class DropPath(nn.Module):
@@ -193,18 +207,41 @@ class Block(nn.Module):
                                dtype=compute_dtype)
         self.drop_path = DropPath(drop_path)
 
-    def forward(self, x, deterministic: bool = True, mask_spec: MaskSpec = MaskSpec("causal"), kv_padding=None):
+    def forward(self, x, deterministic: bool = True, mask_spec: MaskSpec = MaskSpec("causal"), kv_padding=None,
+                generator: Optional[torch.Generator] = None):
         y = layer_norm(x, self.norm1, self.ln_dtype or torch.float32)
         if self.compute_dtype is not None:
             y = y.to(self.compute_dtype)
-        y = self.drop_path(self.attn(y, deterministic, mask_spec, kv_padding), deterministic)
+        y = self.drop_path(self.attn(y, deterministic, mask_spec, kv_padding, generator), deterministic, generator)
         x = x + y.to(x.dtype)
 
         y = layer_norm(x, self.norm2, self.ln_dtype or torch.float32)
         if self.compute_dtype is not None:
             y = y.to(self.compute_dtype)
-        y = self.drop_path(self.mlp(y, deterministic), deterministic)
+        y = self.drop_path(self.mlp(y, deterministic, generator), deterministic, generator)
         return x + y.to(x.dtype)
+
+
+def _replaying(block: nn.Module, generator: Optional[torch.Generator]):
+    """``block`` for ``torch.utils.checkpoint``: its recomputation on the backward pass draws
+    the masks the forward drew from ``generator`` and leaves the generator as it found it
+    (the checkpoint replays torch's global generators itself)."""
+    if generator is None:
+        return block
+    start, calls = generator.get_state(), []
+
+    def run(*args):
+        if not calls:
+            calls.append(True)
+            return block(*args)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return block(*args)
+        finally:
+            generator.set_state(now)
+
+    return run
 
 
 class Transformer(nn.Module):
@@ -230,7 +267,7 @@ class Transformer(nn.Module):
         self.norm = nn.LayerNorm(emb_dim, eps=LN_EPS)
 
     def forward(self, x, deterministic: bool = True, mask_spec: MaskSpec = MaskSpec("causal"), kv_padding=None,
-                return_intermediates: bool = False):
+                return_intermediates: bool = False, generator: Optional[torch.Generator] = None):
         if self.ln_dtype is not None:
             x = x.to(self.ln_dtype)
         intermediates = []
@@ -239,9 +276,10 @@ class Transformer(nn.Module):
             if self.remat and torch.is_grad_enabled() and x.requires_grad:
                 from torch.utils.checkpoint import checkpoint
 
-                x = checkpoint(block, x, deterministic, mask_spec, kv_padding, use_reentrant=False)
+                x = checkpoint(_replaying(block, generator), x, deterministic, mask_spec, kv_padding, generator,
+                               use_reentrant=False)
             else:
-                x = block(x, deterministic, mask_spec, kv_padding)
+                x = block(x, deterministic, mask_spec, kv_padding, generator)
             if return_intermediates:
                 intermediates.append(x)
         out = layer_norm(x, self.norm, self.ln_dtype)

@@ -244,6 +244,7 @@ class BasePolicy(nn.Module):
         self.frozen_qpack = frozen_qpack
         self.config = cfg = self.get_default_config(config_updates)
         self.register_buffer("_anchor", torch.zeros(()), persistent=False)  # says where the module lives
+        self.needs_first_forward = True  # the lazy layers and the adapter take their shapes at the first forward
         if self.use_goal and not (cfg.transfer_type.startswith("m3ae") or cfg.transfer_type.endswith("_cached")):
             warnings.warn(
                 f"GCBC with transfer_type={cfg.transfer_type!r} does NOT consume the goal frame "
@@ -324,6 +325,10 @@ class BasePolicy(nn.Module):
     @staticmethod
     def get_default_config(updates=None) -> Config:
         return get_policy_default_config(updates)
+
+    def no_decay_list(self) -> list:
+        """Name parts whose parameters skip weight decay: none, so every parameter decays."""
+        return []
 
     # -- construction and state -------------------------------------------------
 
@@ -635,7 +640,8 @@ class BasePolicy(nn.Module):
 
     # -- forward --------------------------------------------------------------
 
-    def forward(self, batch, deterministic: bool = False):
+    def forward(self, batch, deterministic: bool = False, generator: Optional[torch.Generator] = None):
+        """``generator``: where the policy blocks' dropout draws its masks when not ``deterministic``."""
         cfg = self.config
         batch_size, num_timestep = np.shape(batch["action"])[:2]
 
@@ -659,7 +665,7 @@ class BasePolicy(nn.Module):
         else:
             mask_spec = MaskSpec("causal")
 
-        output_embed = self.policy(token_embed, deterministic=deterministic, mask_spec=mask_spec)
+        output_embed = self.policy(token_embed, deterministic=deterministic, mask_spec=mask_spec, generator=generator)
 
         # the token whose output predicts the action: the last one *before* the action slot
         action_pos = num_obs_token + extra - 2
@@ -675,6 +681,7 @@ class BasePolicy(nn.Module):
         else:
             loss, acc = self._compute_loss(action_pred, batch["action"])
             output.update(loss=loss, acc=acc)
+        self.needs_first_forward = False
         return output
 
     def _compute_loss(self, action_pred, action):

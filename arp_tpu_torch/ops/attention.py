@@ -14,6 +14,11 @@ Two implementations behind one API, :func:`dot_product_attention`:
 
 Both take q, k, v as (batch, seq, heads, head_dim).  A query row whose keys
 are all masked gets the mean of V over all n keys in both.
+
+Gradients: K1 is a forward kernel, as the Pallas kernel is (the JAX package
+trains through ``_xla_attention``).  Where autograd needs the gradient of a
+CUDA call, :class:`FlashAttention` runs K1 forward and recomputes the plain
+attention from the saved q, k and v for the backward.
 """
 
 from __future__ import annotations
@@ -45,10 +50,12 @@ def reference_attention(
     ``kv_padding``: optional (B, N), nonzero = PAD.  ``bias``: optional
     additive (1|B, H, N, N).  The scores are the float32 product of q and k
     cast to ``score_dtype`` (JAX's ``preferred_element_type``), and the
-    softmax runs in ``score_dtype``.
+    softmax runs in ``score_dtype``, rounded where JAX's is: the scale is a
+    ``score_dtype`` value, each elementwise step rounds to ``score_dtype``
+    and the row sum accumulates in float32 (``jax.nn.softmax``).
     """
     n = q.shape[1]
-    scale = q.shape[-1] ** -0.5
+    scale = float(torch.tensor(q.shape[-1] ** -0.5, dtype=score_dtype))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, H, N, D)
     s = torch.matmul(qt.float(), kt.float().transpose(-1, -2)).to(score_dtype) * scale
     if bias is not None:
@@ -56,7 +63,11 @@ def reference_attention(
     mask = materialize_mask(spec, n, device=q.device)[None, None]
     mask = combine_padding(mask, kv_padding)
     s = torch.where(mask, s, torch.tensor(_BIG_NEG, dtype=score_dtype, device=s.device))
-    p = torch.softmax(s, dim=-1)
+    if score_dtype == torch.float32:
+        p = torch.softmax(s, dim=-1)
+    else:  # torch's low-precision softmax rounds only its output
+        e = torch.exp(s - s.amax(-1, keepdim=True))
+        p = e / e.float().sum(-1, keepdim=True).to(score_dtype)
     return torch.matmul(p.to(v.dtype), vt).transpose(1, 2)
 
 
@@ -110,6 +121,41 @@ def flash_attention_fwd(
 flash_attention_fwd.launches = 0
 
 
+class FlashAttention(torch.autograd.Function):
+    """K1 forward with a plain PyTorch backward: the gradient of :func:`reference_attention`
+    (float32 scores and softmax, as K1's), recomputed from the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, spec, kv_padding):
+        ctx.spec = spec
+        ctx.save_for_backward(q, k, v, kv_padding)
+        return flash_attention_fwd(q, k, v, spec, kv_padding)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, kv_padding = ctx.saved_tensors
+        inputs = [x.detach().requires_grad_(need) for x, need in zip((q, k, v), ctx.needs_input_grad[:3])]
+        wanted = [x for x in inputs if x.requires_grad]
+        with torch.enable_grad():
+            out = reference_attention(*inputs, ctx.spec, kv_padding)
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (*(next(grads) if x.requires_grad else None for x in inputs), None, None)
+
+
+def attention_route(device_type: str, needs_grad: bool, bias: bool = False) -> str:
+    """Which implementation :func:`dot_product_attention` takes: "plain" on the CPU; on CUDA
+    "k1", or "k1+plain_backward" (:class:`FlashAttention`) where autograd needs a gradient."""
+    if device_type == "cpu":
+        return "plain"
+    if device_type != "cuda":
+        raise ValueError(f"no attention implementation for device {device_type}")
+    if bias:
+        raise NotImplementedError(
+            "kernel K1 takes no dense bias (ALiBi); call reference_attention for it, as models/layers.py does"
+        )
+    return "k1+plain_backward" if needs_grad else "k1"
+
+
 def dot_product_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -126,16 +172,16 @@ def dot_product_attention(
     ignores ``score_dtype``, and which takes no dense ``bias`` (as the Pallas
     kernel takes none): a bias on CUDA raises.  A caller with a bias (ALiBi)
     calls :func:`reference_attention` itself, as the JAX package sends a bias
-    to its XLA path (models/layers.py::Attention).
+    to its XLA path (models/layers.py::Attention).  With grad enabled and q, k
+    or v requiring it, a CUDA call goes through :class:`FlashAttention`
+    (:func:`attention_route`).
     """
     if q.ndim != 4:
         raise ValueError(f"expected (b, n, h, d), got {tuple(q.shape)}")
-    if q.device.type == "cpu":
+    needs_grad = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    route = attention_route(q.device.type, needs_grad, bias is not None)
+    if route == "plain":
         return reference_attention(q, k, v, spec, kv_padding, bias=bias, score_dtype=score_dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"no attention implementation for device {q.device}")
-    if bias is not None:
-        raise NotImplementedError(
-            "kernel K1 takes no dense bias (ALiBi); call reference_attention for it, as models/layers.py does"
-        )
-    return flash_attention_fwd(q, k, v, spec, kv_padding)
+    if route == "k1":
+        return flash_attention_fwd(q, k, v, spec, kv_padding)
+    return FlashAttention.apply(q, k, v, spec, kv_padding)

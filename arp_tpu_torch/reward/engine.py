@@ -38,6 +38,7 @@ guard is left out.
 
 from __future__ import annotations
 
+import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence, Union
@@ -47,7 +48,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.clip.convert import flax_to_torch, read_engine_spec
-from ..models.clip.model import CLIP, MODELS
+from ..models.clip.model import CLIP, IMAGE_RESOLUTION, MODELS, CLIPAttention
 from ..models.clip.tokenizer import Char97Tokenizer, build_tokenizer
 from ..ops import vit_infer
 from ..ops.preprocess import clip_preprocess_packed_patches
@@ -80,6 +81,12 @@ class ClipRewardEngine:
         attention; ``encode_recipe`` names the softmax dtype that runs.
       fast_int8_attn: w8a8 attention under ``fast_int8``; None means True,
         the JAX engine's default.
+      score_bf16: bf16 attention scores and softmax on the standard path
+        (both CLIP towers), as the JAX engine's; inert under a fast path, and
+        says so.  K1's softmax is float32 whatever this says: it acts on the
+        CPU, and the recipe names what was asked, as the JAX engine's does.
+      image_size: the frames' resized side; None: the model's own, which is
+        ``IMAGE_RESOLUTION[model_name]`` for a model built from its name.
     """
 
     def __init__(
@@ -98,6 +105,8 @@ class ClipRewardEngine:
         fast_int8: bool = False,
         fast_score_bf16: Optional[bool] = None,
         fast_int8_attn: Optional[bool] = None,
+        score_bf16: bool = False,
+        image_size: Optional[int] = None,
         mesh=None,
     ):
         unported = {
@@ -117,8 +126,19 @@ class ClipRewardEngine:
         self.device = resolve_device(device)
         if variables is None and model is None:
             raise NotImplementedError("loading the OpenAI CLIP checkpoints is not ported yet: pass variables")
+        if score_bf16 and fast:
+            warnings.warn(
+                "score_bf16 only affects the standard encode path and is inert under fast_encode/fast_int8 "
+                "— use fast_score_bf16 for the packed paths",
+                stacklevel=2,
+            )
         if model is None:
             model = MODELS[model_name]()
+            image_size = image_size or IMAGE_RESOLUTION.get(model_name, 224)
+        if score_bf16:
+            for module in model.modules():
+                if isinstance(module, CLIPAttention):
+                    module.score_dtype = torch.bfloat16
         if variables is not None:
             model.load_state_dict(flax_to_torch(variables))
         if quantize_weights:
@@ -138,13 +158,14 @@ class ClipRewardEngine:
         model.visual.to(compute_dtype)
         self.logit_scale = float(np.exp(model.logit_scale.item()))
         self.batch_size = batch_size
-        self.image_size = model.image_size
+        self.image_size = image_size or model.image_size
         self.compute_dtype = compute_dtype
         self._tokenizer = tokenizer
         # provenance stamped onto labeled datasets; "torch;" keeps port labels
         # apart from the JAX engine's
         dtype_name = str(compute_dtype).removeprefix("torch.")
-        self._recipe = f"torch;{dtype_name};score=float32;resize=pil;crop=0;wq={int(quantize_weights)}"
+        score_name = "bfloat16" if score_bf16 else "float32"
+        self._recipe = f"torch;{dtype_name};score={score_name};resize=pil;crop=0;wq={int(quantize_weights)}"
         if fast:
             # the softmax that runs: K1's is float32 on CUDA, int8 attention's is score_dtype
             ran = self._score_dtype if self.device.type == "cpu" or self._int8_attn else torch.float32
@@ -170,6 +191,7 @@ class ClipRewardEngine:
         # "bpe:<sha16>"/"fallback"/"custom": leave None -> the engine lazily
         # builds the standard BPE tokenizer (same vocab given the merges file)
         model = CLIP(**cfg, image_size=meta["image_size"])
+        engine_kwargs.setdefault("image_size", meta["image_size"])
         return cls(model=model, variables=flat, tokenizer=tokenizer, **engine_kwargs)
 
     # -- tokenization ---------------------------------------------------------

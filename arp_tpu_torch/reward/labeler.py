@@ -186,7 +186,8 @@ def main(argv=None):
     parser.add_argument("--inst_type", type=str, default="none")
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--bf16", action="store_true", help="run the image tower in bfloat16")
-    parser.add_argument("--int8", action="store_true", help="int8 weight-only quantization")
+    parser.add_argument("--int8", action="store_true",
+                        help="int8 weight-only quantization (not applied with --vl_checkpoint, as in arp_tpu's labeler)")
     parser.add_argument("--fast", action="store_true",
                         help="packed fused-QKV encode path (ops/vit_infer.py)")
     parser.add_argument("--fast_int8", action="store_true",
@@ -216,16 +217,15 @@ def main(argv=None):
         batch_size=args.batch_size,
         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
         device=args.device,
-        quantize_weights=args.int8,
         fast_encode=args.fast,
         fast_int8=args.fast_int8,
         fast_score_bf16=args.fast_score_bf16,
         fast_int8_attn=args.fast_int8_attn,
     )
-    if args.vl_checkpoint:
+    if args.vl_checkpoint:  # the spec's engine takes no --int8, as arp_tpu's labeler builds it
         engine = ClipRewardEngine.from_npz(args.vl_checkpoint, **engine_kwargs)
     else:
-        engine = ClipRewardEngine(**engine_kwargs)
+        engine = ClipRewardEngine(quantize_weights=args.int8, **engine_kwargs)
     stats = label_rewards(
         args.data_path,
         text,

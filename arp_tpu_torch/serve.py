@@ -16,14 +16,13 @@ API (JSON over HTTP):
   GET  /v1/health             -> {"status": "ok", "sessions": N}
 
 Checkpoints are the port's own: ``step_<n>.pt`` files in ``--checkpoint_dir``,
-each the policy's trained state dict and its step (:func:`save_policy_state`).
+each the policy's trained state dict and its step (``checkpoint.py`` owns the format;
+:func:`save_policy_state` and :func:`load_policy_state` are its).
 """
 
 from __future__ import annotations
 
 import json
-import os
-import re
 import threading
 import time
 import uuid
@@ -32,6 +31,8 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+
+from .checkpoint import latest_step, load_policy_state, save_policy_state  # noqa: F401 (the server's API)
 
 
 class UnknownSession(Exception):
@@ -385,40 +386,7 @@ def make_json_http_server(
     return ThreadingHTTPServer((host, port), Handler)
 
 
-# -- checkpoints -----------------------------------------------------------------
-
-_STEP_FILE = re.compile(r"step_(\d+)\.pt$")
-
-
-def save_policy_state(checkpoint_dir: str, step: int, model) -> str:
-    """Write ``model``'s trained state dict and ``step`` as ``step_<step>.pt``; returns the path.
-
-    The file appears under its name only once it is complete, so a reload
-    never reads half of one.
-    """
-    os.makedirs(checkpoint_dir, exist_ok=True)
-    path = os.path.join(checkpoint_dir, f"step_{step}.pt")
-    state = {k: v.detach().cpu() for k, v in model.trained_state_dict().items()}
-    torch.save({"step": int(step), "state": state}, path + ".tmp")
-    os.replace(path + ".tmp", path)
-    return path
-
-
-def latest_step(checkpoint_dir: str) -> Optional[int]:
-    """The largest n with a ``step_<n>.pt`` in ``checkpoint_dir``, or None."""
-    if not os.path.isdir(checkpoint_dir):
-        return None
-    steps = [int(m.group(1)) for name in os.listdir(checkpoint_dir) if (m := _STEP_FILE.match(name))]
-    return max(steps, default=None)
-
-
-def load_policy_state(checkpoint_dir: str) -> tuple[dict, dict]:
-    """(state dict, {"step": n}) of the newest ``step_<n>.pt``; none there raises."""
-    step = latest_step(checkpoint_dir)
-    if step is None:
-        raise FileNotFoundError(f"no step_<n>.pt checkpoint in {checkpoint_dir}")
-    saved = torch.load(os.path.join(checkpoint_dir, f"step_{step}.pt"), map_location="cpu", weights_only=True)
-    return saved["state"], {"step": saved["step"]}
+# -- checkpoints: checkpoint.py owns the step_<n>.pt format ---------------------------------
 
 
 def reloadable_policy(model, checkpoint_dir: str) -> tuple[Callable, Callable]:

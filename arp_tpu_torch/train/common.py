@@ -1,0 +1,343 @@
+"""Shared trainer building blocks (port of arp_tpu/train/common.py; flag-free, see main.py).
+
+The optimizer is optax's ``chain(clip_by_global_norm(clip), adamw(lr, b1=0.9,
+b2=0.999, eps=1e-8, weight_decay, mask))`` written out (:class:`AdamW`), not
+``torch.optim.AdamW``: that one decays the parameter before the Adam step, has
+no mask, and ``clip_grad_norm_`` adds 1e-6 to the norm.  Here, as in optax:
+
+  * the gradients are scaled by ``clip / ||g||`` only when ``||g|| >= clip``
+    (``||g||`` over every trained tensor, no epsilon);
+  * ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g^2 + b2 nu``, both bias-corrected
+    with the incremented count, and the direction is ``mu_hat / (sqrt(nu_hat) + eps)``;
+  * ``weight_decay * p`` is added to it where the mask allows (the policies'
+    ``no_decay_list`` is empty: every trained parameter decays);
+  * the sum is multiplied by ``-lr(count)``, the schedule at the count of updates
+    made *before* this one, and added to the parameter.
+
+Not ported yet: ``flops_analysis`` (waits for the profiler's counts),
+``build_test_step`` and ``resolve_goal_eval_data`` (rollout eval, ROADMAP).
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+import os
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..models.policy import ARPDT, BC, GCBC
+
+log = logging.getLogger(__name__)
+
+
+def build_model(flags_obj, num_actions: int, frozen_qpack=None, pt_variables=None):
+    """ARPDT with VL rewards or task rewards, else GCBC or BC, from the flags' model config.
+    ``pt_variables``: the frozen tower's state dict (None: its family's loader)."""
+    if flags_obj.use_vl or flags_obj.data.use_task_reward:
+        cls = ARPDT
+    elif "GCBC" in flags_obj.vl_type:
+        cls = GCBC
+    else:
+        cls = BC
+    return cls(config_updates=flags_obj.model, num_actions=num_actions, patch_dim=flags_obj.patch_dim,
+               normalize_quterion=False, frozen_qpack=frozen_qpack, pt_variables=pt_variables)
+
+
+def _frozen_amax_path(checkpoint_dir: str) -> str:
+    return os.path.join(checkpoint_dir, "frozen_int8_amax.npz")
+
+
+def save_frozen_amax(checkpoint_dir: str, amax) -> str:
+    """Keep the frozen_int8 calibration scales beside the checkpoint, so that a restore rebuilds
+    the int8 pack it trained with instead of calibrating again on another batch."""
+    path = _frozen_amax_path(checkpoint_dir)
+    os.makedirs(checkpoint_dir, exist_ok=True)
+
+    def host(a):
+        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    np.savez(path, img=host(amax["img"]), **{f"layers/{k}": host(v) for k, v in amax["layers"].items()})
+    return path
+
+
+def load_frozen_amax(checkpoint_dir: str):
+    """The saved calibration scales (numpy), or None when there are none."""
+    path = _frozen_amax_path(checkpoint_dir)
+    if not checkpoint_dir or not os.path.exists(path):
+        return None
+    with np.load(path) as z:
+        return {"img": z["img"], "layers": {k.split("/", 1)[1]: z[k] for k in z.files if k.startswith("layers/")}}
+
+
+def maybe_build_frozen_qpack(flags_obj, sample_batch, use_goal: bool, checkpoint_dir: str = "", save: bool = False,
+                             device="cuda", m3ae_loader=None):
+    """The calibrated int8 pack for ``--model.frozen_int8`` (None otherwise).
+
+    ``sample_batch`` is a real host batch: the int8 activation scales calibrate on it.  Saved
+    scales in ``checkpoint_dir`` win over a fresh calibration; with ``save`` fresh ones are kept
+    there.  The pack is built on ``device`` (the card unless the caller asks for the CPU).
+    """
+    if not flags_obj.model.get("frozen_int8", False) or flags_obj.model.use_from_scratch:
+        return None
+    from ..models.policy import build_frozen_qpack
+
+    image_size = 256
+    if getattr(flags_obj, "encode_image_size", 0) > 0:
+        image_size = flags_obj.encode_image_size
+    kw = dict(image_size=image_size, use_goal=use_goal, device=device, m3ae_loader=m3ae_loader)
+    amax = load_frozen_amax(checkpoint_dir)
+    if amax is not None:
+        log.info("frozen_int8: rebuilding the pack from saved calibration scales (%s)", _frozen_amax_path(checkpoint_dir))
+        return build_frozen_qpack(flags_obj.model, sample_batch, flags_obj.patch_dim, amax=amax, **kw)
+    log.info("frozen_int8: calibrating the packed encoder on a real batch")
+    qpack, amax = build_frozen_qpack(flags_obj.model, sample_batch, flags_obj.patch_dim, return_amax=True, **kw)
+    if save and checkpoint_dir:
+        save_frozen_amax(checkpoint_dir, amax)
+    return qpack
+
+
+# -- schedule and optimizer (optax's, written out) ---------------------------------------------------
+
+def _f32(x) -> np.float32:
+    return np.float32(x)
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int) -> Callable:
+    """optax.linear_schedule, in float32 as optax computes it."""
+    if transition_steps <= 0:
+        return lambda count: float(init_value)
+
+    def schedule(count):
+        frac = _f32(1) - _f32(min(max(count, 0), transition_steps)) / _f32(transition_steps)
+        return float((_f32(init_value) - _f32(end_value)) * frac + _f32(end_value))
+
+    return schedule
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int, alpha: float = 0.0) -> Callable:
+    """optax.cosine_decay_schedule, in float32."""
+    if not decay_steps > 0:
+        raise ValueError(f"The cosine_decay_schedule requires positive decay_steps, got decay_steps={decay_steps}.")
+
+    def schedule(count):
+        c = _f32(min(count, decay_steps))
+        cosine = _f32(0.5) * (_f32(1) + np.cos(_f32(math.pi) * c / _f32(decay_steps)))
+        return float(_f32(init_value) * ((_f32(1) - _f32(alpha)) * cosine + _f32(alpha)))
+
+    return schedule
+
+
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0) -> Callable:
+    """optax.warmup_cosine_decay_schedule: linear warmup, then cosine decay to ``end_value``."""
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    warmup = linear_schedule(init_value, peak_value, warmup_steps)
+    decay = cosine_decay_schedule(peak_value, decay_steps - warmup_steps, alpha)
+    return lambda count: warmup(count) if count < warmup_steps else decay(count - warmup_steps)
+
+
+def build_lr_schedule(flags_obj, steps_per_epoch: int, total_steps: int, lr_scale: float = 1.0) -> Callable:
+    """count -> learning rate, as the JAX trainer's optax schedules."""
+    if flags_obj.lr_schedule == "fixed":
+        return linear_schedule(flags_obj.lr, flags_obj.lr, total_steps)
+    if flags_obj.lr_schedule == "cos":
+        return warmup_cosine_decay_schedule(
+            init_value=0.0,
+            peak_value=flags_obj.lr * lr_scale,
+            # warmup never takes all of total_steps (the cosine needs positive decay steps)
+            warmup_steps=min(int(flags_obj.warmup_epochs * steps_per_epoch), max(total_steps - 1, 0)),
+            decay_steps=total_steps,
+            end_value=0.0,
+        )
+    if flags_obj.lr_schedule == "cos_decay":
+        return cosine_decay_schedule(flags_obj.lr, total_steps)
+    raise ValueError(f"Unsupported lr schedule {flags_obj.lr_schedule!r}")
+
+
+class AdamWState:
+    """optax's (count, mu, nu): the number of updates made, and the two moments of every parameter."""
+
+    def __init__(self, count: int, mu: list, nu: list):
+        self.count, self.mu, self.nu = count, mu, nu
+
+
+class AdamW:
+    """``optax.chain(clip_by_global_norm(clip), adamw(learning_rate, b1, b2, eps, weight_decay, mask))``
+    on a list of parameters; ``decay[i]`` is the mask's entry of parameter i."""
+
+    def __init__(self, learning_rate: Callable, weight_decay: float, decay: list, clip: float,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.learning_rate, self.weight_decay, self.decay, self.clip = learning_rate, weight_decay, decay, clip
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params: list) -> AdamWState:
+        if len(params) != len(self.decay):
+            raise ValueError(f"{len(params)} parameters against a decay mask of {len(self.decay)}")
+        return AdamWState(0, [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params])
+
+    @torch.no_grad()
+    def update(self, params: list, grads: list, state: AdamWState) -> AdamWState:
+        """Updates ``params`` in place from ``grads``; returns the new state."""
+        b1, b2 = self.b1, self.b2
+        # clip_by_global_norm: a select on the device, no host round trip
+        g_norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+        clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), self.clip)
+        keep = g_norm < self.clip
+        grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
+        # scale_by_adam
+        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1), torch._foreach_mul(state.mu, b1))
+        nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
+                                torch._foreach_mul(state.nu, b2))
+        count = state.count + 1
+        mu_hat = torch._foreach_div(mu, float(_f32(1) - _f32(b1) ** _f32(count)))
+        nu_hat = torch._foreach_div(nu, float(_f32(1) - _f32(b2) ** _f32(count)))
+        updates = list(torch._foreach_div(mu_hat, torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps)))
+        # add_decayed_weights under the mask
+        if self.weight_decay:
+            decayed = [i for i, d in enumerate(self.decay) if d]
+            added = torch._foreach_add([updates[i] for i in decayed], torch._foreach_mul(
+                [params[i] for i in decayed], self.weight_decay))
+            for i, u in zip(decayed, added):
+                updates[i] = u
+        # scale_by_learning_rate at the count before this update, then apply_updates
+        torch._foreach_add_(params, torch._foreach_mul(updates, -self.learning_rate(state.count)))
+        return AdamWState(count, list(mu), list(nu))
+
+
+def build_optimizer(flags_obj, learning_rate: Callable, model, params: Optional[list] = None) -> AdamW:
+    """clip_by_global_norm + adamw with the model's no-decay mask (the reference's main_procgen.py:490-507).
+
+    ``params``: the (name, parameter) pairs the optimizer will update; by default the model's
+    trained parameters, which exist only after its first forward."""
+    from ..parallel.step import trainable_parameters
+
+    params = trainable_parameters(model) if params is None else params
+    no_decay = model.no_decay_list()
+    decay = [not any(nd in part for nd in no_decay for part in name.split(".")) for name, _ in params]
+    return AdamW(learning_rate, flags_obj.weight_decay, decay, flags_obj.clip_gradient)
+
+
+# -- inputs and losses -----------------------------------------------------------------------------
+
+def model_image_size(flags_obj) -> int:
+    """The side the frames are resized to for the encoder (CLIP 224, the MAE / M3AE towers 256)."""
+    transfer = flags_obj.model.transfer_type
+    image_size = 224 if transfer.startswith("clip") else 256
+    if transfer == "none":
+        image_size = flags_obj.data.image_size
+    if getattr(flags_obj, "encode_image_size", 0) > 0:
+        image_size = flags_obj.encode_image_size
+    return image_size
+
+
+def get_dummy_input(flags_obj, dataset) -> dict:
+    """The one-sample batch whose forward gives the lazy layers their shapes (Flax's init input)."""
+    window = flags_obj.window_size
+    transfer = flags_obj.model.transfer_type
+    if transfer.endswith("_cached"):
+        emb_dim = dataset[0]["image_emb"][dataset.config.image_key.split(", ")[0]].shape[-1]
+        keys = dataset.obs_shape["image"]
+        return {
+            "action": np.ones((1, window), np.int32),
+            "image_emb": {k: np.ones((1, window, emb_dim), np.float32) for k in keys},
+            "goal_emb": {k: np.ones((1, window, emb_dim), np.float32) for k in keys},
+            "rtg": {k: np.ones((1, window, 1), np.float32) for k in dataset.obs_shape["rtg"]},
+            "goal": None,
+            "instruct": None,
+            "text_padding_mask": None,
+        }
+    image_size = model_image_size(flags_obj)
+    dummy = {"action": np.ones((1, window), np.int32), "image": {}, "goal": {}, "rtg": {}, "instruct": None,
+             "text_padding_mask": None}
+    for k in dataset.obs_shape["image"]:
+        dummy["image"][k] = np.ones((1, window, image_size, image_size, 3), np.float32)
+        dummy["goal"][k] = np.ones((1, window, image_size, image_size, 3), np.float32)
+        dummy["rtg"][k] = np.ones((1, window, 1), np.float32)
+    if dataset.config.state_key != "":
+        dummy["state"] = np.ones((1, window, dataset.config.state_dim), np.float32)
+    if flags_obj.use_text:
+        dummy["instruct"] = np.zeros((1, flags_obj.data.tokenizer_max_length), np.int32)
+        dummy["text_padding_mask"] = np.ones((1, flags_obj.data.tokenizer_max_length), np.float32)
+    return dummy
+
+
+def _on(x, device):
+    return x.to(device) if isinstance(x, torch.Tensor) else torch.as_tensor(np.asarray(x), device=device)
+
+
+def _frames(tree: dict, fn, device) -> dict:
+    """Each view's (B, T, H, W, C) frames through ``fn`` as one (B * T, ...) batch, in sorted key order."""
+    out = {}
+    for k, v in sorted(tree.items()):
+        v = _on(v, device)
+        b, w = v.shape[:2]
+        y = fn(v.reshape(b * w, *v.shape[2:]))
+        out[k] = y.reshape(b, w, *y.shape[1:])
+    return out
+
+
+def _aux(output) -> dict:
+    return {"loss": output["loss"], "acc": output["acc"] * 100, "trans_loss": output.get("trans_loss", 0.0),
+            "return_loss": output.get("return_loss", 0.0)}
+
+
+def make_loss_fn(model, augment_fn, image_size: int, use_goal: bool):
+    """``loss_fn(model, batch, generator)``: the augmentation on the model's device inside the step
+    (each view's frames, then the goals' under ``use_goal``), then the training forward, every draw
+    from ``generator``.  ``model`` and ``image_size`` are the JAX signature's; the step passes the model."""
+    del image_size
+
+    def loss_fn(model, batch, generator):
+        batch = dict(batch)
+        if augment_fn is not None and batch.get("image") is not None:
+            batch["image"] = _frames(batch["image"], lambda x: augment_fn(x, generator), model.device)
+            if use_goal and batch.get("goal") is not None:
+                batch["goal"] = _frames(batch["goal"], lambda x: augment_fn(x, generator), model.device)
+        output = model(batch, deterministic=False, generator=generator)
+        return output["loss"], _aux(output)
+
+    return loss_fn
+
+
+def make_eval_loss_fn(model, eval_transform, use_goal: bool):
+    """``loss_fn(model, batch, generator)`` with the eval transform and the deterministic forward."""
+
+    def loss_fn(model, batch, generator):
+        del generator
+        batch = dict(batch)
+        if eval_transform is not None and batch.get("image") is not None:
+            batch["image"] = _frames(batch["image"], eval_transform, model.device)
+            if use_goal and batch.get("goal") is not None:
+                batch["goal"] = _frames(batch["goal"], eval_transform, model.device)
+        output = model(batch, deterministic=True)
+        return output["loss"], _aux(output)
+
+    return loss_fn
+
+
+def _host_batch_to_arrays(batch, use_text: bool, use_goal: bool = False) -> dict:
+    """Drop the entries the step does not use, so no dead bytes cross to the device."""
+    out = dict(batch)
+    if not use_text:
+        out["instruct"] = None
+        out["text_padding_mask"] = None
+    if not use_goal:
+        out["goal"] = None
+        out.pop("goal_emb", None)
+    if "image_emb" in out:
+        # cached-embedding training: the frames never leave the host
+        out["image"] = None
+        if use_goal:
+            out["goal"] = None
+    return out
+
+
+def _mean_metrics(metric_list, prefix: str = "") -> dict:
+    """The mean of each metric over the steps, as floats (one host copy a value)."""
+    def value(v):
+        return float(v.detach().float().mean()) if isinstance(v, torch.Tensor) else float(np.mean(v))
+
+    return {f"{prefix}{k}": float(np.mean([value(m[k]) for m in metric_list])) for k in metric_list[0]}

@@ -1,0 +1,365 @@
+"""Policy trainer on one GPU — ``python -m arp_tpu_torch.train.main`` (port of arp_tpu/train/main.py).
+
+The flags are the JAX trainer's, under argparse, with the same dotted names
+for the nested configs (``--model.transfer_type=m3ae_vit_b16``,
+``--data.path=...``, ``--logging.output_dir=...``) and ``name=value`` or
+``name value`` spelling; ``--device`` (cuda unless ``cpu`` is asked for) is
+the port's.  The batch goes through a thread that reads, collates and pins it,
+then to the card by a ``non_blocking`` copy; the augmentation runs on the card
+inside the step.
+
+What differs from the JAX trainer, on purpose:
+  * checkpoints are ``step_<n>.pt`` files (arp_tpu_torch/checkpoint.py), ``n``
+    the number of batches consumed, and the step's random draws come from a
+    generator seeded by (seed, step): a resumed run continues exactly as an
+    uninterrupted one would (the JAX trainer resumes at the saved step, so it
+    trains on that step's batch twice, and restarts its key chain);
+  * no ``flops_analysis`` (the cost/flops entry of the log).
+
+Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
+rollout eval (``--eval_env fake|procgen``), several devices (``--mesh_*``
+above 1), ``--load_checkpoint`` (reference pickles), ``--data.use_arps``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import os
+import random
+import sys
+
+import numpy as np
+import torch
+
+from ..checkpoint import CheckpointManager
+from ..config import Config
+from ..data.instructions import get_m3ae_instruct
+from ..data.loader import DataLoader
+from ..data.procgen_dataset import ProcgenDataset, dataset_dirname
+from ..device import resolve_device
+from ..logging_utils import MetricsLogger
+from ..models.policy import get_policy_default_config
+from ..ops.augment import make_augment_fn, make_eval_transform
+from ..parallel.prefetch import ThreadedPrefetch, batch_to_device, pin_batch
+from ..parallel.step import TrainState, make_eval_step, make_train_step, tree_finite
+from ..profiling import StepTimer, Trace
+from ..resilience import FaultDetector, Heartbeat, PreemptionHandler
+from .common import (
+    _host_batch_to_arrays,
+    _mean_metrics,
+    build_lr_schedule,
+    build_model,
+    build_optimizer,
+    get_dummy_input,
+    make_eval_loss_fn,
+    make_loss_fn,
+    maybe_build_frozen_qpack,
+    model_image_size,
+)
+
+log = logging.getLogger("arp_tpu_torch.train")
+
+
+def flag_defaults() -> dict:
+    """The JAX trainer's flags and defaults, and ``device``."""
+    return dict(
+        seed=42, epochs=100, warmup_epochs=5.0, weight_decay=1e-4, batch_size=2, dataloader_n_workers=4,
+        dataloader_shuffle=True, log_freq=100, save_model_freq=0, load_checkpoint="", lr=0.1, lr_schedule="cos",
+        momentum=0.9, clip_gradient=1e9, auto_scale_lr=False, logging=MetricsLogger.get_default_config(),
+        log_all_worker=False, model=get_policy_default_config(), data=ProcgenDataset.get_default_config(),
+        window_size=4, use_text=False, val_every_epochs=10, test_every_epochs=10, num_test_episodes=5,
+        eval_parallel_envs=0, eval_temperature=0.0, return_to_go=0.0, scale=10.0, game_name="coinrun",
+        use_vl=True, vl_type="clip", vl_checkpoint="", use_crop=True, eval_data_path="", eval_data_name="",
+        eval_with_goal=False, eval_instruct="",
+        mesh_dp=-1, mesh_fsdp=1, mesh_tp=1, mesh_pp=1, mesh_dcn_dp=1, mesh_pp_microbatches=4,
+        accum_steps=1, checkpoint_dir="", episode_length=500, eval_env="fake", env_eval_env_type="none",
+        env_distribution_mode="hard", env_num_levels=500, env_start_level=0, env_hidden_goal=False,
+        reward_bf16=False, patch_dim=16, encode_image_size=0, explicit_l2_penalty=False,
+        # on a detected nan/spike: "log", "halt" (exit non-zero) or "rollback" (restore the latest
+        # checkpoint and go on forward through the data)
+        fault_policy="log",
+        heartbeat_path="",  # "" -> <output_dir>/heartbeat; "off" disables
+        heartbeat_interval=60.0,
+        fault_inject_step=-1,  # poison the batch with NaNs at this step (-1: never)
+        validate_data=True,
+        profile_dir="", profile_start_step=5, profile_steps=3,
+        device="cuda",
+    )
+
+
+def _parse_bool(text: str) -> bool:
+    low = text.lower()
+    if low in ("true", "1", "yes"):
+        return True
+    if low in ("false", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
+
+
+def _leaves(tree, prefix=""):
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            yield from _leaves(value, name + ".")
+        else:
+            yield name, value
+
+
+def _converter(default):
+    if isinstance(default, bool):
+        return _parse_bool
+    if isinstance(default, int):
+        return int
+    if isinstance(default, float):
+        return float
+    return str
+
+
+def parse_flags(argv=None) -> Config:
+    """The flags as a Config tree: the defaults, with every ``--name[.sub]=value`` of ``argv`` applied."""
+    flags = Config(flag_defaults())
+    parser = argparse.ArgumentParser(description="Train an ARP-DT / BC / GCBC policy (PyTorch, one GPU).")
+    for name, default in _leaves(flags):
+        kind = _converter(default)
+        extra = dict(nargs="?", const=True) if kind is _parse_bool else {}
+        parser.add_argument(f"--{name}", dest=name, type=kind, default=argparse.SUPPRESS, **extra)
+    for name, value in vars(parser.parse_args(argv)).items():
+        *path, leaf = name.split(".")
+        node = flags
+        for part in path:
+            node = node[part]
+        node[leaf] = value
+    return flags
+
+
+def check_ported(flags) -> None:
+    """Every flag whose path is not ported raises, naming its ROADMAP item."""
+    if flags.eval_env != "none":
+        raise NotImplementedError(
+            f"--eval_env={flags.eval_env}: rollout eval is not ported yet (ROADMAP Queue 1, item 5); use --eval_env=none"
+        )
+    for name in ("mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_pp", "mesh_dcn_dp"):
+        if flags[name] > 1:
+            raise NotImplementedError(f"--{name}={flags[name]}: several devices are not ported yet (ROADMAP Queue 1, item 12)")
+    if flags.load_checkpoint:
+        raise NotImplementedError("--load_checkpoint (reference checkpoints) is not ported yet (ROADMAP Queue 1, item 10)")
+
+
+def step_generator(seed: int, step: int, device) -> torch.Generator:
+    """The step's random stream: a function of (seed, step) alone, so a resumed run draws as an
+    uninterrupted one."""
+    return torch.Generator(device=device).manual_seed(seed * 1_000_003 + step)
+
+
+def _poison(tree):
+    if isinstance(tree, dict):
+        return {k: _poison(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return tree * float("nan")
+    return tree
+
+
+def main(argv=None):
+    logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
+    flags = parse_flags(argv)
+    check_ported(flags)
+    device = resolve_device(flags.device)
+    variant = dict(_leaves(flags))
+    variant.update(process_index=0, process_count=1, process_batch_size=flags.batch_size)
+    lr_scale = flags.batch_size / 256 if flags.auto_scale_lr else 1.0
+
+    flags.model.use_discrete_action = True
+    use_text = flags.use_text
+    if not flags.use_vl and flags.vl_type == "BC":
+        use_text = True  # InstructRL baseline
+
+    logger = MetricsLogger(config=flags.logging, variant=variant, enable=True)
+    np.random.seed(flags.seed)
+    random.seed(flags.seed)
+    torch.manual_seed(flags.seed)
+
+    dataset_name = dataset_dirname(flags.game_name, flags.env_distribution_mode, flags.env_start_level,
+                                   flags.env_num_levels, flags.data.num_demonstrations, flags.data.num_frames,
+                                   flags.data.enable_filter, flags.data.train_env_type)
+    if flags.validate_data:
+        # before the dataset opens the files: a schema fault reports instead of a traceback
+        from ..data.validate import validate_file
+
+        img_key = (flags.data.image_key or "ob").split(", ")[0]
+        for split in ("train", "val"):
+            path = f"{flags.data.path}/{dataset_name}/data_{split}.hdf5"
+            rep = validate_file(path, image_key=img_key, strict_stacking=False)
+            for w in rep.warnings:
+                log.warning("data validation: %s: %s", path, w)
+            if rep.errors:
+                raise ValueError(f"invalid demo file {path}: " + "; ".join(rep.errors)
+                                 + " (rerun with --validate_data=False to override)")
+
+    train_dataset = ProcgenDataset(update=flags.data, dataset_name=dataset_name, start_offset_ratio=0.0, split="train")
+    val_dataset = ProcgenDataset(update=flags.data, dataset_name=dataset_name, start_offset_ratio=0.0, split="val")
+    train_loader = DataLoader(train_dataset, batch_size=flags.batch_size, shuffle=flags.dataloader_shuffle,
+                              num_workers=flags.dataloader_n_workers, seed=flags.seed)
+    val_batch_size = max(1, min(flags.batch_size, len(val_dataset)))
+    val_loader = DataLoader(val_dataset, batch_size=val_batch_size, shuffle=flags.dataloader_shuffle,
+                            num_workers=flags.dataloader_n_workers, seed=flags.seed + 1)
+
+    steps_per_epoch = max(1, len(train_dataset) // flags.batch_size)
+    total_steps = steps_per_epoch * flags.epochs
+    val_steps = max(1, len(val_dataset) // val_batch_size)
+    save_model_freq = flags.save_model_freq or steps_per_epoch * flags.test_every_epochs
+    use_goal = "GCBC" in flags.vl_type
+
+    frozen_qpack = None
+    if flags.model.get("frozen_int8", False):
+        sample = _host_batch_to_arrays(next(iter(train_loader)), use_text, use_goal)
+        # the calibration scales are kept beside the checkpoints: a restore rebuilds this pack
+        frozen_qpack = maybe_build_frozen_qpack(flags, sample, use_goal, checkpoint_dir=flags.checkpoint_dir,
+                                                save=True, device=device)
+    model = build_model(flags, train_dataset.num_actions, frozen_qpack=frozen_qpack).to(device)
+    dummy_input = get_dummy_input(flags, train_dataset)
+    if use_text:
+        ids, pad = train_dataset.tokenizer(get_m3ae_instruct(flags.game_name) or "")
+        dummy_input["instruct"], dummy_input["text_padding_mask"] = ids[None], pad[None]
+    with torch.no_grad():
+        model(dummy_input, deterministic=True)  # the lazy layers take their shapes, as at Flax's init
+    learning_rate = build_lr_schedule(flags, steps_per_epoch, total_steps, lr_scale)
+    state = TrainState.create(model, build_optimizer(flags, learning_rate, model))
+
+    ckpt = CheckpointManager(flags.checkpoint_dir) if flags.checkpoint_dir else None
+    start_step = 0
+    if ckpt is not None and ckpt.latest_step() is not None:
+        state, meta = ckpt.restore(state)
+        start_step = int(meta["step"])
+        log.info("resumed from step %d", start_step)
+    num_params = sum(p.numel() for _, p in state.params)
+    logger.log({"cost/num_params": num_params})
+    log.info("num_params: %d", num_params)
+
+    # the augmentation runs on the device inside the step
+    image_size = model_image_size(flags)
+    transfer = flags.model.transfer_type
+    augment_fn = None if transfer.endswith("_cached") else make_augment_fn(
+        flags.data.augmentations, image_size=image_size, source_size=flags.data.image_size)
+    eval_transform = make_eval_transform(image_size=image_size, device=device)
+    loss_fn = make_loss_fn(model, augment_fn, image_size, use_goal)
+    train_step = make_train_step(
+        loss_fn,
+        # AdamW decays already; the reference adds an explicit 0.5 * wd * ||W||^2 on top
+        weight_decay=flags.weight_decay if flags.explicit_l2_penalty else 0.0,
+        learning_rate_fn=learning_rate,
+        accum_steps=flags.accum_steps,
+    )
+    eval_step = make_eval_step(make_eval_loss_fn(model, eval_transform, use_goal))
+
+    pin = device.type == "cuda"
+    # exact resume: the loader fast-forwards past the batches already consumed
+    train_iter = ThreadedPrefetch(
+        (pin_batch(_host_batch_to_arrays(b, use_text, use_goal), pin) for b in train_loader.epochs(skip_batches=start_step)),
+        capacity=2,
+    )
+    preemption = PreemptionHandler()
+    faults = FaultDetector()
+    step_timer = StepTimer()
+    heartbeat = None
+    if flags.heartbeat_path != "off":
+        heartbeat = Heartbeat(flags.heartbeat_path or os.path.join(logger.config.output_dir, "heartbeat"),
+                              interval_s=flags.heartbeat_interval)
+
+    def save(step, epoch):
+        ckpt.save(step + 1, state, metadata={"step": step + 1, "epoch": epoch})
+
+    train_metrics = []
+    last_rollback_step = None  # livelock guard for fault_policy=rollback
+    profile_start = start_step + flags.profile_start_step
+    profile_stop = profile_start + max(flags.profile_steps, 1)
+    tracer = None
+    try:
+        for step in range(start_step, total_steps):
+            if flags.profile_dir:
+                if step == profile_start:
+                    log.info("profiler: tracing %d steps to %s", profile_stop - profile_start, flags.profile_dir)
+                    tracer = Trace(flags.profile_dir)
+                    tracer.start()
+                elif tracer is not None and step == profile_stop:
+                    tracer.stop()
+                    tracer = None
+            batch = batch_to_device(next(train_iter), device)
+            if step == flags.fault_inject_step:
+                log.warning("chaos: injecting NaN batch at step %d", step)
+                batch = _poison(batch)
+            epoch = step // steps_per_epoch
+            state, aux = train_step(state, batch, step_generator(flags.seed, step, device))
+            train_metrics.append(aux)
+            step_timer.tick()
+            if heartbeat is not None:
+                heartbeat.beat(step)
+
+            if preemption.should_stop:
+                log.warning("preemption signal: checkpointing and exiting at step %d", step)
+                if ckpt is not None:
+                    save(step, epoch)
+                break
+
+            if step and step % flags.log_freq == 0:
+                logged = _mean_metrics(train_metrics, prefix="train_")
+                status = faults.check(logged["train_loss"])
+                if status != "ok":
+                    log.error("fault detector: %s at step %d (loss=%s)", status, step, logged["train_loss"])
+                    logged["fault"] = status
+                    if flags.fault_policy == "halt":
+                        logged.update(step=step, epoch=epoch)
+                        logger.log(logged)
+                        raise SystemExit(f"fault detector: {status} at step {step} (fault_policy=halt)")
+                    if flags.fault_policy == "rollback":
+                        if ckpt is None or ckpt.latest_step() is None:
+                            raise SystemExit(f"fault detector: {status} at step {step}; rollback requested but no "
+                                             "checkpoint exists (--checkpoint_dir)")
+                        state, meta = ckpt.restore(state)
+                        restored_step = int(meta["step"])
+                        if not tree_finite([p for _, p in state.params]):
+                            raise SystemExit(f"fault detector: {status} at step {step}; latest checkpoint (step "
+                                             f"{restored_step}) is itself non-finite — halting instead of looping")
+                        if restored_step == last_rollback_step:
+                            raise SystemExit(f"fault detector: {status} recurred immediately after restoring step "
+                                             f"{restored_step} — data or model divergence, not a transient; halting")
+                        last_rollback_step = restored_step
+                        faults.reset()
+                        logged["rolled_back_to"] = restored_step
+                        log.warning("fault rollback: restored step %s, continuing forward at step %d", restored_step, step)
+                logged.update(step=step, epoch=epoch, **step_timer.metrics(flags.batch_size))
+                logger.log(logged)
+                train_metrics = []
+
+            if flags.val_every_epochs > 0 and step > 0 and step % (flags.val_every_epochs * steps_per_epoch) == 0:
+                val_metrics = [eval_step(state, batch_to_device(pin_batch(_host_batch_to_arrays(vb, use_text, use_goal),
+                                                                          pin), device), None)
+                               for _, vb in zip(range(val_steps), val_loader)]
+                if val_metrics:
+                    logged = _mean_metrics(val_metrics, prefix="val_")
+                    logged.update(step=step, epoch=epoch)
+                    logger.log(logged)
+
+            if ckpt is not None and step and ((save_model_freq > 0 and step % save_model_freq == 0)
+                                              or step == total_steps - 1):
+                # a NaN checkpoint would defeat fault_policy=rollback
+                if tree_finite([p for _, p in state.params]):
+                    save(step, epoch)
+                else:
+                    log.error("skipping checkpoint at step %d: non-finite params", step)
+
+        if tracer is not None:  # the loop ended inside the profile window
+            tracer.stop()
+        if train_metrics:  # what the log cadence left over
+            logged = _mean_metrics(train_metrics, prefix="train_")
+            logged.update(step=total_steps - 1, **step_timer.metrics(flags.batch_size))
+            logger.log(logged)
+    finally:
+        train_iter.close()
+        preemption.restore()
+    logger.log({"final_step": total_steps, "best_eval_score": float(-np.inf)})  # no rollout eval yet
+    logger.close()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -50,7 +50,17 @@ Phases, each printing one JSON line:
                with float32 towers, frozen_bf16 and frozen_int8: action_pred against
                the CPU run of its first two sequences, K1 at head_dim 16 under the dt mask, ms
                a forward, and one profiled forward of each mode.
- 11. serve   — the policy server (frozen_int8, max_batch 8, window 4) behind its HTTP
+ 11. train   — ARPDT train steps at the same configuration and batch, through the trainer's
+               functions (train/common.py, parallel/step.py): random crop and color jitter
+               on the card, the loss, the backward (K1 with its plain backward under the
+               dt mask), the optax-exact AdamW update; float32, frozen_bf16 and frozen_int8
+               towers.  In float32 first one step on the card and on the CPU from one
+               state, batch and drawn augmentation (two sequences): loss, gradients and
+               updated parameters.  Then per mode: ms a step (median of 5 after 2), frames/s,
+               peak device memory, the step split into forward, backward and update, K1's
+               and K2's launches a step, the plain attention backward's share, one profiled
+               step; the frozen tower unchanged, every trained parameter moved.
+ 12. serve   — the policy server (frozen_int8, max_batch 8, window 4) behind its HTTP
                front on 127.0.0.1: warmup, 8 sessions x 6 /v1/act requests from 8
                client threads, every action against the direct greedy_action on that
                session's window, batching, a checkpoint save + /v1/reload, latencies.
@@ -254,6 +264,8 @@ def ptxas_faults(log: str) -> list:
 
 def kernel_kind(name: str) -> str:
     n = name.lower()
+    if "multi_tensor_apply" in n or "foreach" in n:
+        return "optimizer"
     if "flash_fwd" in n:
         return "k1_attention"
     if "int8_gemm_kernel" in n:
@@ -790,14 +802,15 @@ def cosine(a, b) -> float:
 
 class K1Recorder:
     """Stands in for ``attention.flash_attention_fwd`` while in place, and notes (mask kind, N,
-    heads, head_dim, dtype, padding) of every K1 launch; the launch count stays the wrapper's own."""
+    heads, head_dim, dtype, padding, whether q, k or v need a gradient) of every K1 launch; the
+    launch count stays the wrapper's own."""
 
     def __init__(self, attn):
         self.attn, self.real, self.shapes = attn, attn.flash_attention_fwd, []
 
     def __call__(self, q, k, v, spec, kv_padding=None):
         self.shapes.append((spec.kind, q.shape[1], q.shape[2], q.shape[3], str(q.dtype).removeprefix("torch."),
-                            kv_padding is not None))
+                            kv_padding is not None, any(x.requires_grad for x in (q, k, v))))
         return self.real(q, k, v, spec, kv_padding)
 
     launches = property(lambda self: self.real.launches,  # the wrapper counts through its module's name
@@ -813,7 +826,8 @@ class K1Recorder:
     def counts(self) -> dict:
         out = defaultdict(int)
         for shape in self.shapes:
-            out["{} n={} h={} d={} {}{}".format(*shape[:5], " padded" if shape[5] else "")] += 1
+            out["{} n={} h={} d={} {}{}{}".format(*shape[:5], " padded" if shape[5] else "",
+                                                   " grad" if shape[6] else "")] += 1
         return dict(out)
 
 
@@ -1047,6 +1061,260 @@ def phase_policy(counters, attn, policy_lib, flax_m3ae_to_torch) -> tuple[dict, 
     return totals, keep
 
 
+TRAIN_WARMUP, TRAIN_TIMED = 2, 5  # steps before the timed ones, and the timed ones (their median is ms a step)
+TRAIN_FLAGS = dict(lr=5e-4, lr_schedule="cos", warmup_epochs=10, epochs=50, weight_decay=5e-5, clip_gradient=10.0,
+                   augmentations="random_crop,color_jitter")  # jobs/train_procgen.sh:41-75
+TRAIN_STEPS_PER_EPOCH = 1000  # a nominal epoch: it only places the warmup's end for the schedule
+# The card's step against the CPU's on the same state, batch and drawn augmentation
+# (compare_step_with_cpu): the tolerances of tests/test_torch_train_step.py (loss 1e-5;
+# gradients 1e-4 of the largest entry; updated parameters 2e-5 at lr 5e-4, leaving out entries
+# whose gradient is within the gradient tolerance of 0, where Adam's first step moves by +-lr
+# on the sign alone).
+TRAIN_LOSS_ATOL, TRAIN_GRAD_REL, TRAIN_PARAM_ATOL = 1e-5, 1e-4, 2e-5
+# of the adapter's 768 hidden units, how many may flip their ReLU for some token between the card's
+# tower output and the CPU's (compare_step_with_cpu)
+TRAIN_MAX_FLIPPED_UNITS = 8
+ADAPTER_IN = "AdapterMLP_0.Dense_0"  # the adapter's first Linear, behind the ReLU
+
+
+def train_flags(cfg: dict):
+    """The trainer's flags for ``cfg``, as the CLI holds them (the model's config resolved)."""
+    from arp_tpu_torch.config import Config
+    from arp_tpu_torch.models.policy import get_policy_default_config
+
+    return Config(TRAIN_FLAGS, model=get_policy_default_config(cfg), use_vl=True, vl_type="clip", patch_dim=16,
+                  encode_image_size=0,
+                  data=dict(use_task_reward=False, image_size=256, augmentations=TRAIN_FLAGS["augmentations"]))
+
+
+def _flat(tree, prefix=""):
+    """A pack's tensors by dotted name."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}."))
+        elif isinstance(v, torch.Tensor):
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def compare_step_with_cpu(flags, build, augment, small_cpu, small_card) -> dict:
+    """One float32 step on the card and on the CPU from one state, batch (two sequences) and drawn
+    augmentation: the loss, the gradients and the updated parameters.
+
+    Twice on the card: end to end, and with the frozen tower's output replaced by the CPU's.  The
+    adapter's ReLUs make the gradient a piecewise function of the tower's output: where the card's
+    tower (K1 in float32, held to the CPU at 1e-4 by the m3ae and policy phases) moves a
+    pre-activation across 0, that unit's row of the adapter's first Linear takes another gradient,
+    a difference no tolerance on the gradient bounds.  So the end-to-end step is held on its loss,
+    on at most TRAIN_MAX_FLIPPED_UNITS such units, and on every gradient and updated parameter
+    outside their rows; the step on the CPU's tower output is held on all of them.  Returns the
+    trained weights every run started from (the CPU model's first ones).
+    """
+    from arp_tpu_torch.parallel.step import TrainState
+    from arp_tpu_torch.train import common
+
+    drawn = augment.draw(CPU_FRAMES, torch.Generator().manual_seed(SEED))
+    trained = {}
+
+    def one_step(device, small, tower_out=None):
+        model = build(device)
+        if not trained:
+            trained.update({k: v.clone() for k, v in model.trained_state_dict().items()})
+        model.load_trained_state_dict(trained)
+        seen = {}
+        tower = model.pt_model.forward_representation
+
+        def forward_representation(*args, **kwargs):  # notes the tower's output, or gives the one asked for
+            out = tower(*args, **kwargs)
+            seen["tower"] = out.detach().cpu()
+            seen["tower_used"] = seen["tower"] if tower_out is None else tower_out
+            return out if tower_out is None else tower_out.to(out.device)
+
+        model.pt_model.forward_representation = forward_representation
+        on = [{k: v.to(device) for k, v in p.items()} for p in drawn]
+        state = TrainState.create(model, common.build_optimizer(flags, lambda count: flags.lr, model))
+        loss_fn = common.make_loss_fn(model, lambda images, generator: augment.apply(images, on), 256, False)
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(model, small, torch.Generator(device=device).manual_seed(SEED))
+        loss.backward()
+        grads = [p.grad.detach().clone() for _, p in state.params]
+        state.apply_gradients(grads)
+        sync()
+        return dict(loss=float(loss.detach()), grads=[g.cpu() for g in grads], names=[n for n, _ in state.params],
+                    params=[p.detach().cpu() for _, p in state.params], seconds=time.perf_counter() - t0, **seen)
+
+    cpu = one_step("cpu", small_cpu)
+    gmax = max(float(g.abs().max()) for g in cpu["grads"])
+    settled = [g.abs() > TRAIN_GRAD_REL * gmax for g in cpu["grads"]]
+
+    def adapter_pre(tower_out):  # the adapter's first pre-activations, on the CPU, from a tower output
+        return torch.nn.functional.linear(tower_out, trained[f"{ADAPTER_IN}.weight"], trained[f"{ADAPTER_IN}.bias"])
+
+    def against_cpu(run):
+        flips = (adapter_pre(cpu["tower"]) > 0) != (adapter_pre(run["tower_used"]) > 0)
+        units = flips.flatten(0, -2).any(0)  # the adapter units whose ReLU went the other way for some token
+        keep = [torch.ones_like(g, dtype=torch.bool) for g in cpu["grads"]]
+        for name, m in zip(cpu["names"], keep):
+            if name in (f"{ADAPTER_IN}.weight", f"{ADAPTER_IN}.bias"):
+                m[units] = False
+        errs = [float(((a - b).abs() * m).max()) / gmax for a, b, m in zip(cpu["grads"], run["grads"], keep)]
+        worst = max(range(len(errs)), key=errs.__getitem__)
+        param_err = max(float(((a - b).abs() * m * k).max())
+                        for a, b, m, k in zip(cpu["params"], run["params"], settled, keep))
+        return dict(loss_abs_err=abs(cpu["loss"] - run["loss"]), grad_err_rel_to_max=errs[worst],
+                    worst_grad=run["names"][worst], param_max_abs_err=param_err,
+                    adapter_relu_flips=int(flips.sum()), adapter_relu_units_flipped=int(units.sum()),
+                    entries_left_out_for_flips=sum(int((~m).sum()) for m in keep))
+
+    e2e = one_step(DEVICE, small_card)
+    end_to_end = against_cpu(e2e)
+    same_tower = against_cpu(one_step(DEVICE, small_card, tower_out=cpu["tower"]))
+    emit("train_vs_cpu", mode="float32", sequences=CPU_FRAMES // POLICY_WINDOW, loss_cpu=cpu["loss"],
+         grad_max_abs=gmax, tower_max_abs_err=float((e2e["tower"] - cpu["tower"]).abs().max()),
+         end_to_end=end_to_end, same_tower_output=same_tower, param_entries=sum(p.numel() for p in cpu["params"]),
+         param_entries_left_out=sum(int((~m).sum()) for m in settled), lr=flags.lr, cpu_seconds=cpu["seconds"])
+    for run, what in ((end_to_end, "end to end"), (same_tower, "on the CPU's tower output")):
+        check(run["loss_abs_err"] <= TRAIN_LOSS_ATOL, f"train step loss {what}: card vs CPU {run['loss_abs_err']}")
+        check(run["grad_err_rel_to_max"] <= TRAIN_GRAD_REL,
+              f"train step gradients {what}: card vs CPU {run['grad_err_rel_to_max']} of the largest entry "
+              f"({run['worst_grad']})")
+        check(run["param_max_abs_err"] <= TRAIN_PARAM_ATOL,
+              f"train step updated params {what}: card vs CPU max abs {run['param_max_abs_err']}")
+    check(end_to_end["adapter_relu_units_flipped"] <= TRAIN_MAX_FLIPPED_UNITS,
+          f"train step end to end: {end_to_end['adapter_relu_units_flipped']} adapter units flipped, "
+          f"more than {TRAIN_MAX_FLIPPED_UNITS}")
+    check(same_tower["adapter_relu_flips"] == 0, "train step on the CPU's tower output: an adapter ReLU flipped")
+    return trained
+
+
+def phase_train(counters, attn, policy_lib, flax_m3ae_to_torch) -> dict:
+    """ARPDT train steps at the flagship configuration in three tower modes, through the trainer's own
+    functions (train/common.py, parallel/step.py); returns each kernel's launches in the counted steps."""
+    from arp_tpu_torch.ops.attention import reference_attention
+    from arp_tpu_torch.ops.augment import make_augment_fn
+    from arp_tpu_torch.ops.masks import MaskSpec
+    from arp_tpu_torch.parallel.step import TrainState, make_train_step
+    from arp_tpu_torch.train import common
+
+    pt = flax_m3ae_to_torch(random_m3ae_variables(M3AE_DIMS, 16, BERT_VOCAB, SEED))
+    raw, _ = policy_batch(POLICY_BATCH, POLICY_WINDOW, SEED)
+    small = head_batch(raw, CPU_FRAMES // POLICY_WINDOW)  # two sequences, the CPU run's share
+
+    def to(tree, device):
+        return {k: (to(v, device) if isinstance(v, dict) else None if v is None else torch.from_numpy(v).to(device))
+                for k, v in tree.items()}
+
+    on_card = to(raw, DEVICE)
+    frames = POLICY_BATCH * POLICY_WINDOW
+    totals, trained = dict.fromkeys(counters, 0), None
+    for mode, over in POLICY_MODES.items():
+        cfg = dict(POLICY_CFG, m3ae=M3AE_CFG, **over)
+        flags = train_flags(cfg)
+        schedule = common.build_lr_schedule(flags, TRAIN_STEPS_PER_EPOCH, TRAIN_STEPS_PER_EPOCH * flags.epochs)
+        augment = make_augment_fn(flags.data.augmentations, image_size=256, source_size=flags.data.image_size)
+
+        def build(device):
+            """The model on ``device`` as the trainer builds it, its first forward run, with the phase's trained weights."""
+            qpack = common.maybe_build_frozen_qpack(flags, small, use_goal=False, device=device,
+                                                    m3ae_loader=lambda name: pt)
+            torch.manual_seed(SEED)
+            model = common.build_model(flags, 15, frozen_qpack=qpack, pt_variables=pt).to(device)
+            with torch.no_grad():
+                model(to(head_batch(small, 1), device), deterministic=True)  # the lazy layers take their shapes
+                if trained is not None:
+                    model.load_trained_state_dict(trained)
+            return model
+
+        if mode == "float32":
+            trained = compare_step_with_cpu(flags, build, augment, to(small, "cpu"), to(small, DEVICE))
+
+        model = build(DEVICE)
+        state = TrainState.create(model, common.build_optimizer(flags, schedule, model))
+        # the steps run where the warmup ends (lr 5e-4): a step from 0 moves a parameter by lr(0) = 0
+        state.step = state.opt_state.count = TRAIN_FLAGS["warmup_epochs"] * TRAIN_STEPS_PER_EPOCH
+        loss_fn = common.make_loss_fn(model, augment, 256, False)
+        step = make_train_step(loss_fn, learning_rate_fn=schedule)
+        tower = {f"pt_model.{k}": v.detach().clone() for k, v in model.pt_model.state_dict().items()}
+        if model.frozen_qpack is not None:
+            tower.update({f"qpack.{k}": v.clone() for k, v in _flat(model.frozen_qpack).items()})
+        before = {n: p.detach().clone() for n, p in state.params}
+        gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+        for _ in range(TRAIN_WARMUP):
+            step(state, on_card, gen)
+        sync()
+        for fn in counters.values():
+            fn.launches = 0
+        with K1Recorder(attn) as rec:
+            _, aux = step(state, on_card, gen)
+        sync()
+        launches = launch_counts(counters)
+        if DEVICE != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(TRAIN_TIMED):
+            t0 = time.perf_counter()
+            _, aux = step(state, on_card, gen)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        peak = torch.cuda.max_memory_allocated() if DEVICE != "cpu" else None
+        ms = float(np.median(times))
+        # one more step split into its forward, backward and optimizer update, each synced
+        split = {}
+        t0 = time.perf_counter()
+        loss, _ = loss_fn(model, on_card, gen)
+        sync()
+        split["forward_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        loss.backward()
+        sync()
+        split["backward_ms"] = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        state.apply_gradients([p.grad for _, p in state.params])
+        sync()
+        split["optimizer_ms"] = (time.perf_counter() - t0) * 1e3
+        for _, p in state.params:
+            p.grad = None
+        loss_value = float(aux["loss"])
+        check(np.isfinite(loss_value), f"train {mode}: loss {loss_value}")
+        now = {f"pt_model.{k}": v for k, v in model.pt_model.state_dict().items()}
+        if model.frozen_qpack is not None:
+            now.update({f"qpack.{k}": v for k, v in _flat(model.frozen_qpack).items()})
+        changed = [k for k, v in tower.items() if not torch.equal(v, now[k])]
+        check(not changed, f"train {mode}: the frozen tower changed: {changed[:4]}")
+        check(all(p.grad is None for p in model.pt_model.parameters()), f"train {mode}: a tower parameter has a gradient")
+        still = [n for n, p in state.params if torch.equal(before[n], p.detach())]
+        check(not still, f"train {mode}: trained parameters that did not move: {still}")
+        shapes = rec.counts()
+        dt_grad = sum(n for shape, n in shapes.items()
+                      if shape.startswith(f"dt n={3 * POLICY_WINDOW} h=8 d=16 float32") and shape.endswith(" grad"))
+        check(dt_grad == POLICY_CFG["depth"], f"train {mode}: K1 under the dt mask with grad enabled launched {dt_grad} "
+                                               f"times a step, expected {POLICY_CFG['depth']} ({shapes})")
+        tower_k1 = 0 if mode == "frozen_int8" else M3AE_DIMS["depth"]  # frozen_int8_attn "auto": int8 attention
+        check(launches["flash_attn_fwd"] == tower_k1 + POLICY_CFG["depth"]
+              and launches["int8_gemm"] == (1 + 4 * M3AE_DIMS["depth"] if mode == "frozen_int8" else 0),
+              f"train {mode}: launches {launches}")
+        for name, n in launches.items():
+            totals[name] += n
+        # the plain backward that FlashAttention runs for the policy blocks, at the step's shape
+        k1_bwd_ms = None
+        if DEVICE != "cpu":
+            n_tok = 3 * POLICY_WINDOW  # obs, rtg and action tokens a timestep
+            q, k, v = (torch.randn(POLICY_BATCH, n_tok, 8, 16, device=DEVICE, requires_grad=True) for _ in range(3))
+            spec, g_out = MaskSpec("dt", 1, 3), torch.randn(POLICY_BATCH, n_tok, 8, 16, device=DEVICE)
+            k1_bwd_ms = cuda_ms(lambda: torch.autograd.grad(reference_attention(q, k, v, spec), (q, k, v), g_out))
+        emit("train", mode=mode, batch=POLICY_BATCH, window=POLICY_WINDOW, frames=frames, ms=ms, step_ms=times,
+             fps=frames / ms * 1e3, peak_memory_bytes=peak, loss=loss_value, learning_rate=aux["learning_rate"],
+             launches=launches, k1_shapes=shapes, trained_params=sum(p.numel() for _, p in state.params), **split,
+             k1_plain_backward_ms_a_call=k1_bwd_ms,
+             k1_plain_backward_share=None if k1_bwd_ms is None else POLICY_CFG["depth"] * k1_bwd_ms / ms)
+        emit("profile", mode=f"train_{mode}", frames=frames, **device_profile(lambda: step(state, on_card, gen)))
+        del model, state, step, tower, now, before
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    return totals
+
+
 def phase_serve(counters, keep, policy_lib, serve) -> dict:
     """The policy server with the frozen_int8 policy behind real HTTP; returns each kernel's launches over the requests."""
     import tempfile
@@ -1219,6 +1487,7 @@ def main() -> int:
     # are counted from 0 just before it
     path_launches = {"m3ae": phase_m3ae(counters, attn, m3ae_lib, m3ae_infer, flax_m3ae_to_torch)}
     path_launches["policy"], keep = phase_policy(counters, attn, policy_lib, flax_m3ae_to_torch)
+    path_launches["train"] = phase_train(counters, attn, policy_lib, flax_m3ae_to_torch)
     path_launches["serve"] = phase_serve(counters, keep, policy_lib, serve)
     del keep
     for path, counts in path_launches.items():

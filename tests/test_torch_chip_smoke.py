@@ -244,7 +244,7 @@ def test_k1_recorder_notes_shapes_and_keeps_the_count():
 
 
 def test_policy_path_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
-    """The m3ae, policy and serve phases end to end on the CPU at a tiny tower width and few frames:
+    """The m3ae, policy, train and serve phases end to end on the CPU at a tiny tower width and few frames:
     their control flow, shapes and comparisons.  What only the card can show (a kernel's launches,
     the profile) is left out."""
     from arp_tpu_torch import serve
@@ -256,7 +256,7 @@ def test_policy_path_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
 
     for name, value in dict(DEVICE="cpu", M3AE_DIMS=TINY_M3AE, M3AE_CFG=dict(model_type=None, **TINY_M3AE),
                             M3AE_FRAMES=3, CPU_FRAMES=2, BERT_VOCAB=211, POLICY_BATCH=2, POLICY_WINDOW=2,
-                            SERVE_SESSIONS=3, SERVE_STEPS=3).items():
+                            SERVE_SESSIONS=3, SERVE_STEPS=3, TRAIN_WARMUP=1, TRAIN_TIMED=1).items():
         monkeypatch.setattr(chip_smoke, name, value)
     monkeypatch.setattr(policy_lib.models, "BERT_VOCAB_SIZE", 211)
     monkeypatch.setattr(chip_smoke, "device_profile", lambda run: {"rehearsal": True})
@@ -267,6 +267,7 @@ def test_policy_path_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
 
     chip_smoke.phase_m3ae(counters, attn, m3ae_lib, m3ae_infer, flax_m3ae_to_torch)
     _, keep = chip_smoke.phase_policy(counters, attn, policy_lib, flax_m3ae_to_torch)
+    chip_smoke.phase_train(counters, attn, policy_lib, flax_m3ae_to_torch)
     chip_smoke.phase_serve(counters, keep, policy_lib, serve)
     import json
 
@@ -280,5 +281,11 @@ def test_policy_path_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert all(m["cosine_vs_cpu"] > 0.9999 for m in by_phase["m3ae"])  # the same device twice
     assert [p["mode"] for p in by_phase["policy"]] == ["float32", "frozen_bf16", "frozen_int8"]
     assert by_phase["policy"][1]["cosine_vs_float32"] > 0.98 and by_phase["policy"][2]["cosine_vs_frozen_bf16"] > 0.95
+    assert [p["mode"] for p in by_phase["train"]] == ["float32", "frozen_bf16", "frozen_int8"]
+    assert all(t["frames"] == 4 and t["trained_params"] > 0 for t in by_phase["train"])
+    compared = by_phase["train_vs_cpu"][0]  # the same device twice: equal
+    for run in (compared["end_to_end"], compared["same_tower_output"]):
+        assert run["loss_abs_err"] == 0.0 and run["grad_err_rel_to_max"] == 0.0 and run["adapter_relu_units_flipped"] == 0
+        assert run["entries_left_out_for_flips"] == 0
     assert by_phase["serve"][0]["requests"] == 9 and by_phase["serve"][0]["actions_differing_from_direct_forward"] == 0
     assert by_phase["serve_reload"][0]["health_step"] == 7

@@ -116,7 +116,8 @@ def test_cpu_path_never_builds_a_kernel(jax_base, frames, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,recipe", [
-    (["--int8"], "torch;float32;score=float32;resize=pil;crop=0;wq=1"),
+    # arp_tpu's labeler builds the --vl_checkpoint engine without --int8: so does the port's
+    (["--int8"], "torch;float32;score=float32;resize=pil;crop=0;wq=0"),
     (["--fast", "--no-fast_score_bf16"], "torch;packed;float32;score=float32;int8_attn=0;resize=pil;crop=0"),
     (["--fast", "--bf16"], "torch;packed;bfloat16;score=bfloat16;int8_attn=0;resize=pil;crop=0"),
     (["--fast_int8"], "torch;packed;int8;score=bfloat16;int8_attn=1;resize=pil;crop=0"),
@@ -140,5 +141,6 @@ def test_cli_refuses_int8_with_a_fast_path(jax_base, tmp_path):
     jax_base.save_npz(spec)
     path = str(tmp_path / "demo.hdf5")
     _make_demo_hdf5(path)
+    # --int8 acts where the engine is built from its name (no --vl_checkpoint), as in arp_tpu
     with pytest.raises(ValueError, match="mutually exclusive"):
-        tlabeler.main(["--data_path", path, "--vl_checkpoint", spec, "--device", "cpu", "--int8", "--fast"])
+        tlabeler.main(["--data_path", path, "--device", "cpu", "--int8", "--fast"])

@@ -549,3 +549,96 @@ def test_attention_with_alibi_bias_takes_the_plain_attention_on_the_card(cuda):
         got = block.to(cuda)(x.to(cuda), True, MaskSpec("dt", 1, 3))
     assert attn.flash_attention_fwd.launches == k1  # the bias branch is the plain attention, by design
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+
+
+# -- training: K1's gradient, the augmentation on the card, a flagship-width step ------------------
+
+def _block_grads(block, x, spec, dev):
+    """The gradients of sum(out * w) for a fixed w, on ``dev``: input first, then every parameter."""
+    block = block.to(dev)
+    x = x.to(dev).requires_grad_(True)
+    out = block(x, False, spec)
+    w = torch.linspace(-1, 1, out.numel(), device=dev).reshape(out.shape)
+    grads = torch.autograd.grad((out * w).sum(), [x, *block.parameters()])
+    return [g.cpu() for g in grads]
+
+
+@pytest.mark.parametrize("case", ["policy_dt_d16", "tower_n257_d64"])
+def test_k1_gradient_on_the_card_matches_the_cpu(cuda, case):
+    """A Block's gradients through K1 (its plain backward) equal the CPU's within 1e-5 of the
+    largest entry, and K1 ran the forward once."""
+    from arp_tpu_torch.models import layers
+
+    torch.manual_seed(0)
+    if case == "policy_dt_d16":
+        block, spec, x = layers.Block(128, 8, mlp_ratio=4), MaskSpec("dt", 1, 3), torch.randn(16, 12, 128)
+    else:
+        block, spec, x = layers.Block(768, 12, mlp_ratio=4, mlp_bias=True), MaskSpec("none"), torch.randn(2, 257, 768)
+    want = _block_grads(block, x, spec, "cpu")
+    k1 = attn.flash_attention_fwd.launches
+    got = _block_grads(block, x, spec, cuda)
+    assert attn.flash_attention_fwd.launches == k1 + 1
+    scale = max(float(g.abs().max()) for g in want)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= 1e-5 * scale
+
+
+def test_flash_attention_gradient_of_masked_rows_on_the_card(cuda):
+    """A row whose keys are all padded takes the mean of V forward, and the plain version's gradient back."""
+    q, k, v = _qkv(11, (3, 12, 8, 16), cuda)
+    pad = torch.zeros(3, 12, dtype=torch.bool, device=cuda)
+    pad[1] = True
+    for x in (q, k, v):
+        x.requires_grad_(True)
+    out = attn.dot_product_attention(q, k, v, MaskSpec("dt", 1, 3), pad)
+    ref = [x.detach().cpu().requires_grad_(True) for x in (q, k, v)]
+    want = attn.reference_attention(*ref, MaskSpec("dt", 1, 3), pad.cpu())
+    g = torch.randn(want.shape)
+    got_grads = torch.autograd.grad(out, (q, k, v), g.to(cuda))
+    want_grads = torch.autograd.grad(want, ref, g)
+    torch.testing.assert_close(out.detach().cpu(), want.detach(), atol=1e-4, rtol=0)
+    for a, b in zip(got_grads, want_grads):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("augs", ["random_crop", "color_jitter", "rotate", "random_crop,color_jitter,rotate"])
+def test_augmentation_on_the_card_matches_the_cpu(cuda, augs):
+    from arp_tpu_torch.ops.augment import make_augment_fn
+
+    aug = make_augment_fn(augs, image_size=64, source_size=64)
+    images = torch.from_numpy(np.random.default_rng(6).integers(0, 256, size=(12, 64, 64, 3), dtype=np.uint8))
+    params = aug.draw(12, torch.Generator().manual_seed(6))
+    want = aug.apply(images, params)
+    got = aug.apply(images.to(cuda), [{k: v.to(cuda) for k, v in p.items()} for p in params])
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=0)
+    drawn = aug(images.to(cuda), torch.Generator(device=cuda).manual_seed(6))  # draws on the card
+    assert drawn.shape == (12, 64, 64, 3) and torch.isfinite(drawn).all()
+
+
+@pytest.mark.parametrize("mode", ["float32", "frozen_bf16", "frozen_int8"])
+def test_flagship_width_train_step_on_the_card(cuda, mode):
+    """One train step at the flagship widths (M3AE base tower, 128-wide policy) on 2 x 4 frames:
+    finite loss, the frozen tower untouched and without gradients, every trained parameter moved."""
+    from arp_tpu_torch.models import policy as policy_lib
+    from arp_tpu_torch.ops.augment import make_augment_fn
+    from arp_tpu_torch.parallel.step import TrainState, make_train_step
+    from arp_tpu_torch.train import common
+
+    pt = policy_lib.flax_m3ae_to_torch(chip_smoke.random_m3ae_variables(chip_smoke.M3AE_DIMS, 16, chip_smoke.BERT_VOCAB, 0))
+    flags = chip_smoke.train_flags(dict(chip_smoke.POLICY_CFG, m3ae=chip_smoke.M3AE_CFG, **chip_smoke.POLICY_MODES[mode]))
+    raw, _ = chip_smoke.policy_batch(2, 4, 0)
+    batch = {k: ({kk: torch.from_numpy(vv).to(cuda) for kk, vv in v.items()} if isinstance(v, dict)
+                 else None if v is None else torch.from_numpy(v).to(cuda)) for k, v in raw.items()}
+    qpack = common.maybe_build_frozen_qpack(flags, raw, False, device=cuda, m3ae_loader=lambda name: pt)
+    model = common.build_model(flags, 15, frozen_qpack=qpack, pt_variables=pt).to(cuda)
+    with torch.no_grad():
+        model(batch, deterministic=True)
+    state = TrainState.create(model, common.build_optimizer(flags, lambda count: 5e-4, model))
+    tower = {k: v.clone() for k, v in model.pt_model.state_dict().items()}
+    before = {n: p.detach().clone() for n, p in state.params}
+    step = make_train_step(common.make_loss_fn(model, make_augment_fn(flags.data.augmentations, 256, 256), 256, False))
+    _, aux = step(state, batch, torch.Generator(device=cuda).manual_seed(0))
+    assert np.isfinite(float(aux["loss"]))
+    assert all(torch.equal(v, model.pt_model.state_dict()[k]) for k, v in tower.items())
+    assert all(p.grad is None for p in model.pt_model.parameters())
+    assert not [n for n, p in state.params if torch.equal(before[n], p.detach())]

@@ -40,9 +40,11 @@ def test_port_imports_without_jax_or_flax():
     )
     assert out.returncode == 0, out.stderr + out.stdout
     n, *names = out.stdout.split("IMPORTED")[1].split()
-    assert int(n) >= 27, out.stdout  # every module of the package, not an empty walk
+    assert int(n) >= 41, out.stdout  # every module of the package, not an empty walk
     for module in ("serve", "config", "utils", "models.layers", "models.m3ae", "models.impala", "models.policy.models",
-                   "models.policy.convert", "ops.m3ae_infer", "ops.augment"):
+                   "models.policy.convert", "ops.m3ae_infer", "ops.augment", "train.main", "train.common",
+                   "parallel.step", "parallel.prefetch", "data.procgen_dataset", "data.loader", "data.validate",
+                   "data.instructions", "checkpoint", "logging_utils", "profiling", "resilience"):
         assert f"arp_tpu_torch.{module}" in names, module
 
 
@@ -89,6 +91,40 @@ def test_policy_and_server_run_without_jax_or_the_jax_package():
             out = server.act({"session_id": sid, "observation": np.zeros((32, 32, 3), np.uint8).tolist()})
         assert 0 <= out["action"] < 15
         bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_train_step_runs_without_jax_or_the_jax_package():
+    """The train step's modules (no h5py needed) and one step with the JAX stack blocked."""
+    script = _SCRIPT + textwrap.dedent(
+        """
+        import numpy as np, torch
+        from arp_tpu_torch.config import Config
+        from arp_tpu_torch.models.policy import ARPDT
+        from arp_tpu_torch.ops.augment import make_augment_fn
+        from arp_tpu_torch.parallel.step import TrainState, make_train_step
+        from arp_tpu_torch.train import common
+        sys.modules.pop("h5py", None)
+        model = ARPDT(dict(model_type="vit_debug", emb_dim=32, depth=1, num_heads=4, use_discrete_action=True),
+                      num_actions=15, patch_dim=16)
+        rng = np.random.default_rng(0)
+        batch = {"image": {"ob": rng.integers(0, 256, size=(2, 2, 32, 32, 3), dtype=np.uint8)},
+                 "rtg": {"ob": np.ones((2, 2, 1), np.float32)}, "action": np.zeros((2, 2), np.int32),
+                 "instruct": None, "text_padding_mask": None}
+        with torch.no_grad():
+            model(batch, deterministic=True)
+        flags = Config(clip_gradient=10.0, weight_decay=5e-5)
+        state = TrainState.create(model, common.build_optimizer(flags, lambda c: 1e-3, model))
+        step = make_train_step(common.make_loss_fn(model, make_augment_fn("random_crop,color_jitter", 32, 32), 32, False))
+        state, aux = step(state, batch, torch.Generator().manual_seed(0))
+        assert np.isfinite(float(aux["loss"])) and state.step == 1
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("h5py",))
         assert not bad, bad
         """
     )
