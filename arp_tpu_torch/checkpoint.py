@@ -108,6 +108,12 @@ def load_policy_state(directory: str, step: Optional[int] = None) -> tuple[dict,
     return saved["state"], dict(saved.get("metadata", {}), step=saved["step"])
 
 
+def load_best_state(directory: str) -> tuple[dict, dict]:
+    """(trained state dict, metadata with ``step`` and ``score``) of ``best.pt`` in ``directory``."""
+    saved = torch.load(os.path.join(directory, "best.pt"), map_location="cpu", weights_only=True)
+    return saved["state"], dict(saved.get("metadata", {}), step=saved["step"])
+
+
 class CheckpointManager:
     """Save, restore and keep the best of train states in ``directory``."""
 

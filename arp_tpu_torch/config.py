@@ -2,11 +2,13 @@
 
 ``Config`` is a dict with attribute access; :func:`update_config` merges an
 update tree into it, nested mappings into nested ``Config``s, as
-``ConfigDict.update`` does.
+``ConfigDict.update`` does.  :func:`parse_flag_tree` reads a CLI's flags into
+such a tree, as the JAX package's absl flags with dotted nested names.
 """
 
 from __future__ import annotations
 
+import argparse
 from typing import Mapping, Optional
 
 
@@ -45,3 +47,50 @@ def update_config(config: Config, updates: Optional[Mapping]) -> Config:
             else:
                 config[key] = value.copy() if isinstance(value, Config) else value
     return config
+
+
+def _parse_bool(text: str) -> bool:
+    low = text.lower()
+    if low in ("true", "1", "yes"):
+        return True
+    if low in ("false", "0", "no"):
+        return False
+    raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
+
+
+def flag_leaves(tree: Mapping, prefix: str = ""):
+    """(dotted name, value) of every leaf of a flag tree."""
+    for key, value in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(value, dict):
+            yield from flag_leaves(value, name + ".")
+        else:
+            yield name, value
+
+
+def _converter(default):
+    if isinstance(default, bool):
+        return _parse_bool
+    if isinstance(default, int):
+        return int
+    if isinstance(default, float):
+        return float
+    return str
+
+
+def parse_flag_tree(defaults: Mapping, argv=None, description: str = "") -> Config:
+    """``defaults`` as a Config tree with every ``--name[.sub]=value`` (or ``--name value``) of
+    ``argv`` applied, each converted to its default's type; a bare boolean flag means True."""
+    flags = Config(defaults)
+    parser = argparse.ArgumentParser(description=description)
+    for name, default in flag_leaves(flags):
+        kind = _converter(default)
+        extra = dict(nargs="?", const=True) if kind is _parse_bool else {}
+        parser.add_argument(f"--{name}", dest=name, type=kind, default=argparse.SUPPRESS, **extra)
+    for name, value in vars(parser.parse_args(argv)).items():
+        *path, leaf = name.split(".")
+        node = flags
+        for part in path:
+            node = node[part]
+        node[leaf] = value
+    return flags

@@ -12,6 +12,11 @@ The input is what ``arp_tpu`` holds: ``{"params": {...}}`` as nested
 mappings (a Flax FrozenDict works) or flattened ``"params/a/b/c"`` keys, as
 ``arp_tpu``'s ``ClipRewardEngine.save_npz`` writes them.  Values are anything
 ``numpy.asarray`` takes.  Reading a spec needs only numpy.
+
+:func:`convert_torch_clip_vars` is the other way in: an OpenAI CLIP state dict
+(``torch.jit.load(...).state_dict()``, fused ``in_proj`` attention, a Conv2d
+patch embedding) to the same Flax-layout variables, as numpy.  Its ViT half
+only: the ModifiedResNet towers are not ported (ROADMAP Queue 1, item 11).
 """
 
 from __future__ import annotations
@@ -54,6 +59,66 @@ def flax_to_torch(variables_np: Mapping) -> dict[str, torch.Tensor]:
             leaf = "weight"
         state[".".join([*mods, leaf])] = torch.tensor(arr)
     return state
+
+
+def _set(tree: dict, path: list, value) -> None:
+    node = tree
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = np.asarray(value)
+
+
+def _convert_transformer(out: dict, base_path: list, torch_prefix: str, sd: Mapping) -> None:
+    """OpenAI resblocks -> the Flax tree: ``in_proj`` (3D, D) split into query / key / value Dense
+    kernels (transposed), ``out_proj`` -> out, LayerNorm weight -> scale."""
+    n_blocks = 0
+    while f"{torch_prefix}resblocks.{n_blocks}.ln_1.weight" in sd:
+        n_blocks += 1
+    for i in range(n_blocks):
+        tp, path = f"{torch_prefix}resblocks.{i}.", base_path + [f"resblocks.{i}"]
+        for ln in ("ln_1", "ln_2"):
+            _set(out, path + [ln, "scale"], sd[tp + ln + ".weight"])
+            _set(out, path + [ln, "bias"], sd[tp + ln + ".bias"])
+        w, b = sd[tp + "attn.in_proj_weight"], sd[tp + "attn.in_proj_bias"]
+        d = w.shape[1]
+        for j, name in enumerate(("query", "key", "value")):
+            _set(out, path + ["attn", name, "kernel"], w[j * d : (j + 1) * d].T)
+            _set(out, path + ["attn", name, "bias"], b[j * d : (j + 1) * d])
+        _set(out, path + ["attn", "out", "kernel"], sd[tp + "attn.out_proj.weight"].T)
+        _set(out, path + ["attn", "out", "bias"], sd[tp + "attn.out_proj.bias"])
+        for mlp in ("c_fc", "c_proj"):
+            _set(out, path + ["mlp", mlp, "kernel"], sd[tp + "mlp." + mlp + ".weight"].T)
+            _set(out, path + ["mlp", mlp, "bias"], sd[tp + "mlp." + mlp + ".bias"])
+
+
+def convert_torch_clip_vars(sd: Mapping) -> dict:
+    """An OpenAI CLIP ViT state dict (numpy or tensor values) -> ``{"params": ...}`` in the Flax layout."""
+    sd = {k: np.asarray(v) for k, v in sd.items() if "num_batches_tracked" not in k}
+    for meta in ("context_length", "input_resolution", "vocab_size"):
+        sd.pop(meta, None)
+    if "visual.conv1.weight" not in sd or "visual.class_embedding" not in sd:
+        raise NotImplementedError(
+            "a ModifiedResNet CLIP checkpoint: the ResNet towers are not ported yet (ROADMAP Queue 1, item 11)")
+    params: dict = {}
+    # Conv2d patch embedding (F, C, P, P) -> Dense kernel (P*P*C, F) in (p_row, p_col, channel) order
+    w = sd["visual.conv1.weight"]
+    _set(params, ["visual", "conv1", "kernel"], w.transpose(2, 3, 1, 0).reshape(-1, w.shape[0]))
+    _set(params, ["visual", "class_embedding"], sd["visual.class_embedding"])
+    _set(params, ["visual", "positional_embedding"], sd["visual.positional_embedding"])
+    for ln in ("ln_pre", "ln_post"):
+        _set(params, ["visual", ln, "scale"], sd[f"visual.{ln}.weight"])
+        _set(params, ["visual", ln, "bias"], sd[f"visual.{ln}.bias"])
+    _convert_transformer(params, ["visual", "transformer"], "visual.transformer.", sd)
+    if "visual.proj" in sd:
+        _set(params, ["visual", "proj", "kernel"], sd["visual.proj"])
+    _set(params, ["text", "token_embedding", "embedding"], sd["token_embedding.weight"])
+    _set(params, ["text", "positional_embedding"], sd["positional_embedding"])
+    _convert_transformer(params, ["text", "transformer"], "transformer.", sd)
+    _set(params, ["text", "ln_final", "scale"], sd["ln_final.weight"])
+    _set(params, ["text", "ln_final", "bias"], sd["ln_final.bias"])
+    _set(params, ["text", "text_projection", "kernel"], sd["text_projection"])
+    _set(params, ["logit_scale"], sd["logit_scale"])
+    return {"params": params}
 
 
 def read_engine_spec(path: str) -> tuple[dict, dict[str, np.ndarray]]:

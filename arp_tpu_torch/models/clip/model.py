@@ -15,14 +15,19 @@ transpose of the Dense kernels.  As in the Flax model:
   * a tower's dtype is its parameters' dtype: cast the module and the inputs
     to bfloat16 for a bf16 encode.
 
-The ModifiedResNet towers are not ported yet.
+:func:`load_model_vars` reads a local OpenAI checkpoint (a ``.npy`` of its
+state dict or the ``.pt`` jit archive) into arp_tpu's Flax layout, as the JAX
+package's does; fetching it is not ported.  The ModifiedResNet towers are not
+ported yet (ROADMAP Queue 1, item 11).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -109,10 +114,14 @@ class CLIPTransformer(nn.Module):
             ResidualAttentionBlock(features, num_heads, score_dtype) for _ in range(num_layers)
         )
 
-    def forward(self, x, mask_spec=MaskSpec("none"), kv_padding=None):
+    def forward(self, x, mask_spec=MaskSpec("none"), kv_padding=None, return_intermediates: bool = False):
+        """``return_intermediates``: also every block's output, in layer order (what the Flax
+        stack sows as ``intermediate_layer_{i}``)."""
+        inter = []
         for block in self.resblocks:
             x = block(x, mask_spec, kv_padding)
-        return x
+            inter.append(x)
+        return (x, inter) if return_intermediates else x
 
 
 class VisionTransformer(nn.Module):
@@ -133,7 +142,7 @@ class VisionTransformer(nn.Module):
         self.ln_post = LayerNorm(features)
         self.proj = nn.Linear(features, out_features, bias=False)
 
-    def forward(self, x):
+    def forward(self, x, return_intermediates: bool = False):
         p = self.patch_size
         if x.ndim == 4:
             b, h, w, c = x.shape
@@ -145,8 +154,9 @@ class VisionTransformer(nn.Module):
         x = torch.cat((cls, x), dim=1)
         x = x + self.positional_embedding[None, : x.shape[1]]
         x = self.ln_pre(x)
-        x = self.transformer(x)
-        return self.proj(self.ln_post(x[:, 0]))
+        x, inter = self.transformer(x, return_intermediates=True)
+        out = self.proj(self.ln_post(x[:, 0]))
+        return (out, inter) if return_intermediates else out
 
 
 class TextEncoder(nn.Module):
@@ -160,14 +170,15 @@ class TextEncoder(nn.Module):
         self.ln_final = LayerNorm(features)
         self.text_projection = nn.Linear(features, out_features, bias=False)
 
-    def forward(self, text: torch.Tensor):
+    def forward(self, text: torch.Tensor, return_intermediates: bool = False):
         x = self.token_embedding(text) + self.positional_embedding[None, : text.shape[1]]
         # causal + key padding (pad id 0), both lazy
-        x = self.transformer(x, mask_spec=MaskSpec("causal"), kv_padding=text == 0)
+        x, inter = self.transformer(x, mask_spec=MaskSpec("causal"), kv_padding=text == 0, return_intermediates=True)
         x = self.ln_final(x)
         # the EOT token (highest id) pools the sequence
         x = x[torch.arange(x.shape[0], device=x.device), text.argmax(-1)]
-        return self.text_projection(x)
+        out = self.text_projection(x)
+        return (out, inter) if return_intermediates else out
 
 
 class CLIP(nn.Module):
@@ -202,17 +213,20 @@ class CLIP(nn.Module):
         )
         self.logit_scale = nn.Parameter(torch.zeros(()))
 
-    def encode_image(self, image, normalize: bool = True):
-        x = self.visual(image)
+    def encode_image(self, image, normalize: bool = True, return_intermediates: bool = False):
+        """``return_intermediates``: (features, every vision block's (B, N, D) output in layer
+        order), the blocks' outputs taken before ``ln_post``, as Flax captures them."""
+        x, inter = self.visual(image, return_intermediates=True)
         if normalize:
             x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
-        return x
+        return (x, inter) if return_intermediates else x
 
-    def encode_text(self, text, normalize: bool = True):
-        x = self.text(text)
+    def encode_text(self, text, normalize: bool = True, return_intermediates: bool = False):
+        """``return_intermediates``: as :meth:`encode_image`, the text blocks' outputs before ``ln_final``."""
+        x, inter = self.text(text, return_intermediates=True)
         if normalize:
             x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
-        return x
+        return (x, inter) if return_intermediates else x
 
 
 def _model_fn(name):
@@ -229,3 +243,31 @@ MODELS = {
     "vit_b32_clip4clip": _model_fn("vit_b32"),
     "vit_b16_clip4clip": _model_fn("vit_b16"),
 }
+
+
+def load_model_vars(model_name: str, checkpoint_path: Optional[str] = None, download_dir: Optional[str] = None) -> dict:
+    """CLIP variables in arp_tpu's Flax layout (numpy) from a local OpenAI checkpoint.
+
+    ``checkpoint_path`` is a ``.npy`` of the torch state dict or the raw ``.pt`` jit
+    archive; by default ``{download_dir}/{model_name}.npy``, ``download_dir`` defaulting to
+    ``$ARP_TPU_CHECKPOINT_DIR`` or ``~/.cache/arp_tpu``, as in the JAX package.  Give the
+    result to :func:`arp_tpu_torch.models.clip.flax_to_torch`.  A missing file raises:
+    fetching the checkpoints is not ported.
+    """
+    from .convert import convert_torch_clip_vars
+
+    if checkpoint_path is None:
+        if download_dir is None:
+            download_dir = os.environ.get("ARP_TPU_CHECKPOINT_DIR", os.path.expanduser("~/.cache/arp_tpu"))
+        checkpoint_path = os.path.join(download_dir, model_name + ".npy")
+    if not os.path.exists(checkpoint_path):
+        raise FileNotFoundError(
+            f"CLIP checkpoint not found at {checkpoint_path}: save the OpenAI state dict there as .npy "
+            "(arp_tpu/models/clip/convert.py says how) or pass the .pt archive; fetching it is not ported")
+    if checkpoint_path.endswith(".pt"):
+        state = torch.jit.load(checkpoint_path, map_location="cpu").state_dict()
+        np_params = {k: v.cpu().numpy() for k, v in state.items()}
+    else:
+        with open(checkpoint_path, "rb") as f:
+            np_params = np.load(f, allow_pickle=True).tolist()
+    return convert_torch_clip_vars(np_params)

@@ -28,7 +28,8 @@ import torch
 from ..clip.convert import _flatten
 
 
-def _convert(params: Mapping, skip=lambda path: False) -> dict[str, torch.Tensor]:
+def flax_params_to_torch(params: Mapping, skip=lambda path: False) -> dict[str, torch.Tensor]:
+    """A Flax ``params`` tree -> a state dict by the rules above; ``skip(path)`` drops a leaf."""
     tree = params["params"] if "params" in params else params
     state = {}
     for path, value in _flatten(tree).items():
@@ -45,7 +46,8 @@ def _convert(params: Mapping, skip=lambda path: False) -> dict[str, torch.Tensor
                 raise NotImplementedError(f"{'/'.join(path)}: no rule for a kernel of shape {arr.shape}")
         elif leaf in ("scale", "embedding"):
             leaf = "weight"
-        state[".".join([*mods, leaf])] = torch.tensor(np.ascontiguousarray(arr))
+        # reshape: ascontiguousarray makes a 0-d array 1-d, and a scalar parameter is 0-d
+        state[".".join([*mods, leaf])] = torch.tensor(np.ascontiguousarray(arr)).reshape(arr.shape)
     return state
 
 
@@ -55,7 +57,7 @@ def flax_m3ae_to_torch(variables: Mapping) -> dict[str, torch.Tensor]:
     The encoder side only: the decoder, its projections and the mask
     embeddings are dropped, as the port's modules hold no decoder.
     """
-    return _convert(variables, skip=lambda path: path[0].startswith("decoder") or path[0].endswith("mask_embedding"))
+    return flax_params_to_torch(variables, skip=lambda path: path[0].startswith("decoder") or path[0].endswith("mask_embedding"))
 
 
 def flax_policy_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
@@ -65,5 +67,5 @@ def flax_policy_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
     ``pt_model`` and converts by the same rules; a CLIP tower keeps its q/k/v
     Dense kernels apart, an M3AE tower its fused ``qkv/kernel``.
     """
-    return _convert(params, skip=lambda path: path[0] == "pt_model" and (
+    return flax_params_to_torch(params, skip=lambda path: path[0] == "pt_model" and (
         path[1].startswith("decoder") or path[1].endswith("mask_embedding")))

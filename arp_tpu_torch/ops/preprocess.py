@@ -6,6 +6,12 @@ separable passes, each three dense matmuls), then /255 and the per-channel
 CLIP normalization, then patchify into ViT patch vectors in
 (p_row, p_col, channel) order.
 
+:func:`clip_preprocess` is the unpacked path, on (B, H, W, C) frames, for
+what the packed one does not take: ``crop_half`` (a center crop to half the
+side before the resize) and ``resize_mode="fast"`` (``jax.image.resize``'s
+antialiased bicubic, :func:`arp_tpu_torch.ops.augment.resize_image`).  Its
+``"pil"`` mode crops, then runs the packed bit-exact resize.
+
 :func:`resize_bicubic_pil_reference` is the plain version of the resize: the
 same fixed-point arithmetic in numpy int64, needing no Pillow.
 """
@@ -17,6 +23,9 @@ import math
 
 import numpy as np
 import torch
+
+from .augment import resize_image
+from .quantization import true_divide
 
 PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed-point precision for 8bpc
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -209,3 +218,39 @@ def resize_bicubic_pil_reference(images: np.ndarray, out_h: int, out_w: int) -> 
     x = np.swapaxes(x.reshape(b, out_w, h, c), 1, 2).reshape(b, h, out_w * c)
     x = _pass(x, idx_h, kk_h)  # (B, outH, outW*C)
     return x.reshape(b, out_h, out_w, c).astype(np.uint8)
+
+
+def center_crop(images: torch.Tensor, crop_h: int, crop_w: int) -> torch.Tensor:
+    """Center crop of (B, H, W, C), with the JAX package's arithmetic (a view)."""
+    start_h = int((images.shape[1] - crop_h) / 2)
+    start_w = int((images.shape[2] - crop_w) / 2)
+    return images[:, start_h : start_h + crop_h, start_w : start_w + crop_w, :]
+
+
+def clip_preprocess(images: torch.Tensor, image_size: int = 224, mean=CLIP_MEAN, std=CLIP_STD,
+                    resize_mode: str = "pil", crop_half: bool = False) -> torch.Tensor:
+    """uint8 (B, H, W, C) frames -> normalized float32 (B, image_size, image_size, C) CLIP input.
+
+    ``resize_mode``: "pil" (Pillow's bicubic bit for bit) or "fast" (the antialiased float
+    bicubic of ``jax.image.resize``, not rounded back to integers).  ``crop_half``: center-crop
+    to half the height and width first.  A side already at ``image_size`` is not resized.
+    """
+    if crop_half:
+        images = center_crop(images, images.shape[1] // 2, images.shape[2] // 2)
+    b, h, w, c = images.shape
+    resize = (h, w) != (image_size, image_size)
+    if resize_mode == "pil":
+        x = images.to(torch.float32)
+        if resize:
+            x = resize_bicubic_pil_packed(x.reshape(b, h, w * c), c, image_size, image_size)
+            x = x.reshape(b, image_size, image_size, c)
+    elif resize_mode == "fast":
+        x = images.to(torch.float32)
+        if resize:
+            x = resize_image(x, image_size, image_size, "bicubic")
+    else:
+        raise ValueError(f"resize_mode must be 'pil' or 'fast', got {resize_mode!r}")
+    x = true_divide(x, 255.0)
+    mean = torch.tensor(mean, dtype=torch.float32, device=x.device)
+    std = torch.tensor(std, dtype=torch.float32, device=x.device)
+    return (x - mean) / std

@@ -31,9 +31,19 @@ With ``compute_dtype=torch.bfloat16`` the image tower's weights and inputs are
 cast to bf16; the text tower and ``logit_scale`` stay float32, as in the JAX
 engine, which casts only inside its image-encode program.
 
-Not ported yet (each raises ``NotImplementedError``): the ``host`` and
-``fast`` resize modes, ``use_crop`` and ``mesh``.  The TPU's 64-multiple batch
-guard is left out.
+Frames take the packed Pillow-exact path above when ``resize_mode`` is "pil"
+and ``use_crop`` is off.  Otherwise (``resize_mode="fast"``, ``use_crop``)
+they take :func:`arp_tpu_torch.ops.preprocess.clip_preprocess` on (B, H, W, C),
+and the image tower runs the CLIP module: as in the JAX engine, the packed
+``fast_encode`` / ``fast_int8`` paths need the packed preprocessing, and ask
+for them there warns and runs the standard path.  The fine-tuned engine
+(finetune/reward.py) builds its packed trunk on the unpacked preprocessing.
+
+Not ported yet (each raises ``NotImplementedError``): the ``host`` resize mode
+(ROADMAP Queue 1, item 6) and ``mesh`` (item 12).  The TPU's 64-multiple batch
+guard is left out.  Without ``variables`` or ``model`` the engine reads the
+OpenAI checkpoint of ``model_name`` from a local file
+(:func:`arp_tpu_torch.models.clip.load_model_vars`), as the JAX engine does.
 """
 
 from __future__ import annotations
@@ -48,10 +58,11 @@ import torch
 
 from ..device import resolve_device
 from ..models.clip.convert import flax_to_torch, read_engine_spec
-from ..models.clip.model import CLIP, IMAGE_RESOLUTION, MODELS, CLIPAttention
+from ..models.clip.model import CLIP, IMAGE_RESOLUTION, MODELS, CLIPAttention, load_model_vars
 from ..models.clip.tokenizer import Char97Tokenizer, build_tokenizer
+from ..models.m3ae import extract_patches
 from ..ops import vit_infer
-from ..ops.preprocess import clip_preprocess_packed_patches
+from ..ops.preprocess import clip_preprocess, clip_preprocess_packed_patches
 from ..ops.quantization import quantize_linears
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -64,10 +75,13 @@ class ClipRewardEngine:
       model_name: key into ``arp_tpu_torch.models.clip.MODELS`` (default CLIP
         ViT-B/16), used when ``model`` is None.
       variables: CLIP weights in ``arp_tpu``'s Flax layout (nested mappings or
-        flattened ``"params/a/b"`` keys; see ``models/clip/convert.py``).  May
-        be None only when ``model`` already holds its weights: loading the
-        OpenAI checkpoints is not ported yet.
+        flattened ``"params/a/b"`` keys; see ``models/clip/convert.py``).
+        None with a ``model``: the model's own weights; None without one:
+        ``load_model_vars(model_name)``, a local OpenAI checkpoint.
       batch_size: fixed device batch; inputs are padded to multiples.
+      resize_mode: "pil" (Pillow's bicubic, bit for bit) or "fast" (the
+        antialiased float bicubic); "host" is not ported.
+      use_crop: center-crop each frame to half its side before the resize.
       compute_dtype: torch.float32 or torch.bfloat16 for the image tower.
       device: where the towers run, e.g. "cuda" or "cpu".  CUDA without a GPU
         raises.
@@ -109,14 +123,12 @@ class ClipRewardEngine:
         image_size: Optional[int] = None,
         mesh=None,
     ):
-        unported = {
-            "resize_mode != 'pil'": resize_mode != "pil",
-            "use_crop": use_crop,
-            "mesh": mesh is not None,
-        }
-        for what, asked in unported.items():
-            if asked:
-                raise NotImplementedError(f"ClipRewardEngine({what}) is not ported yet (ROADMAP.md)")
+        if resize_mode == "host":
+            raise NotImplementedError("ClipRewardEngine(resize_mode='host') is not ported yet (ROADMAP Queue 1, item 6)")
+        if resize_mode not in ("pil", "fast"):
+            raise ValueError(f"resize_mode must be 'pil', 'fast' or 'host', got {resize_mode!r}")
+        if mesh is not None:
+            raise NotImplementedError("ClipRewardEngine(mesh) is not ported yet (ROADMAP Queue 1, item 12)")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {_DTYPES}, got {compute_dtype}")
         fast = bool(fast_encode or fast_int8)
@@ -125,7 +137,7 @@ class ClipRewardEngine:
                              "the fast path repacks the float weights (int8 mode quantizes them itself)")
         self.device = resolve_device(device)
         if variables is None and model is None:
-            raise NotImplementedError("loading the OpenAI CLIP checkpoints is not ported yet: pass variables")
+            variables = load_model_vars(model_name)
         if score_bf16 and fast:
             warnings.warn(
                 "score_bf16 only affects the standard encode path and is inert under fast_encode/fast_int8 "
@@ -145,16 +157,19 @@ class ClipRewardEngine:
             quantize_linears(model)
         model.eval().to(self.device)
         self.model = model
+        self.resize_mode, self.use_crop = resize_mode, use_crop
+        # the packed Pillow-exact preprocessing, which the packed encode paths need
+        self._packed = resize_mode == "pil" and not use_crop
         self._fast = self._fast_q = None
-        self._fast_int8 = bool(fast_int8)
-        if fast:
+        self._fast_int8 = False
+        if fast and self._packed:
             # from the float32 tower, cast once; the int8 pack is bf16 until calibrated
-            self._fast_dtype = torch.bfloat16 if fast_int8 else compute_dtype
-            self._fast = vit_infer.pack_vit_params(model.visual, dtype=self._fast_dtype)
-            self._heads = model.vision_features // 64
-            # None resolves as in the JAX engine, so each flag means the same in both packages
-            self._score_dtype = torch.bfloat16 if fast_score_bf16 in (None, True) else torch.float32
-            self._int8_attn = self._fast_int8 and fast_int8_attn in (None, True)
+            self._init_packed_trunk(torch.bfloat16 if fast_int8 else compute_dtype, fast_int8, fast_score_bf16,
+                                    fast_int8_attn)
+        elif fast:
+            warnings.warn(
+                "fast_encode requires the packed ViT pipeline (pil resize, no engine-side crop); "
+                "using the standard path", stacklevel=2)
         model.visual.to(compute_dtype)
         self.logit_scale = float(np.exp(model.logit_scale.item()))
         self.batch_size = batch_size
@@ -165,15 +180,28 @@ class ClipRewardEngine:
         # apart from the JAX engine's
         dtype_name = str(compute_dtype).removeprefix("torch.")
         score_name = "bfloat16" if score_bf16 else "float32"
-        self._recipe = f"torch;{dtype_name};score={score_name};resize=pil;crop=0;wq={int(quantize_weights)}"
-        if fast:
-            # the softmax that runs: K1's is float32 on CUDA, int8 attention's is score_dtype
-            ran = self._score_dtype if self.device.type == "cpu" or self._int8_attn else torch.float32
-            self._recipe = (
-                f"torch;packed;{'int8' if fast_int8 else dtype_name}"
-                f";score={str(ran).removeprefix('torch.')};int8_attn={int(self._int8_attn)}"
-                ";resize=pil;crop=0"
-            )
+        self._recipe = (f"torch;{dtype_name};score={score_name};resize={resize_mode};crop={int(use_crop)}"
+                        f";wq={int(quantize_weights)}")
+        if self._fast is not None:
+            self._recipe = f"torch;packed;{self._packed_recipe()};resize={resize_mode};crop={int(use_crop)}"
+
+    def _init_packed_trunk(self, dtype: torch.dtype, fast_int8: bool, fast_score_bf16: Optional[bool],
+                           fast_int8_attn: Optional[bool]) -> None:
+        """The packed tower (ops/vit_infer.py) in ``dtype``, from the float32 module's weights;
+        under ``fast_int8`` the bf16 pack, quantized at the first device batch."""
+        self._fast_dtype = dtype
+        self._fast = vit_infer.pack_vit_params(self.model.visual, dtype=dtype)
+        self._fast_int8 = bool(fast_int8)
+        self._heads = self.model.vision_features // 64
+        # None resolves as in the JAX engine, so each flag means the same in both packages
+        self._score_dtype = torch.bfloat16 if fast_score_bf16 in (None, True) else torch.float32
+        self._int8_attn = self._fast_int8 and fast_int8_attn in (None, True)
+
+    def _packed_recipe(self) -> str:
+        # the softmax that runs: K1's is float32 on CUDA, int8 attention's is score_dtype
+        ran = self._score_dtype if self.device.type == "cpu" or self._int8_attn else torch.float32
+        dtype_name = "int8" if self._fast_int8 else str(self._fast_dtype).removeprefix("torch.")
+        return f"{dtype_name};score={str(ran).removeprefix('torch.')};int8_attn={int(self._int8_attn)}"
 
     @classmethod
     def from_npz(cls, path: str, **engine_kwargs):
@@ -220,24 +248,36 @@ class ClipRewardEngine:
 
     # -- feature extraction ---------------------------------------------------
 
+    def _patches(self, frames: torch.Tensor) -> torch.Tensor:
+        """One device batch of packed uint8 frames (B, H, W*C) -> normalized ViT patches (B, N, P*P*C)."""
+        p = self.model.vision_patch_size
+        if self._packed:
+            return clip_preprocess_packed_patches(frames, channels=3, image_size=self.image_size, patch_size=p)
+        b, h, wc = frames.shape
+        x = clip_preprocess(frames.reshape(b, h, wc // 3, 3), image_size=self.image_size,
+                            resize_mode=self.resize_mode, crop_half=self.use_crop)
+        return extract_patches(x, p)
+
+    def _packed_trunk(self, x: torch.Tensor, return_intermediates: bool = False):
+        """The packed tower on patches: float32 (B, embed_dim) features and, when asked, the
+        per-layer CLS tokens (L, B, D).  The int8 pack calibrates on the first batch, as in JAX."""
+        if not self._fast_int8:
+            return vit_infer.vit_encode(self._fast, x, self._heads, compute_dtype=self._fast_dtype,
+                                        score_dtype=self._score_dtype, return_intermediates=return_intermediates)
+        if self._fast_q is None:
+            amax = vit_infer.calibrate_vit(self._fast, x, self._heads)
+            self._fast_q = vit_infer.quantize_packed(self._fast, amax)
+        return vit_infer.vit_encode_int8(self._fast_q, x, self._heads, score_dtype=self._score_dtype,
+                                         return_intermediates=return_intermediates, int8_attn=self._int8_attn)
+
     @torch.inference_mode()
     def _encode_chunk(self, frames: torch.Tensor, normalize: bool) -> torch.Tensor:
         """One device batch of packed uint8 frames (B, H, W*C) -> float32 features."""
-        x = clip_preprocess_packed_patches(
-            frames, channels=3, image_size=self.image_size,
-            patch_size=self.model.vision_patch_size,
-        )
+        x = self._patches(frames)
         if self._fast is None:
             feat = self.model.encode_image(x.to(self.compute_dtype), normalize=False).float()
-        elif self._fast_int8:
-            if self._fast_q is None:  # lazy calibration on the first device batch, as in JAX
-                amax = vit_infer.calibrate_vit(self._fast, x, self._heads)
-                self._fast_q = vit_infer.quantize_packed(self._fast, amax)
-            feat = vit_infer.vit_encode_int8(self._fast_q, x, self._heads, score_dtype=self._score_dtype,
-                                             int8_attn=self._int8_attn)
         else:
-            feat = vit_infer.vit_encode(self._fast, x, self._heads, compute_dtype=self._fast_dtype,
-                                        score_dtype=self._score_dtype)
+            feat = self._packed_trunk(x)
         if normalize:
             feat = feat / torch.linalg.vector_norm(feat, dim=-1, keepdim=True)
         return feat

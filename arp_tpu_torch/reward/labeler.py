@@ -181,8 +181,13 @@ def main(argv=None):
     parser.add_argument("--env_type", type=str, default="none")
     parser.add_argument("--image_keys", type=str, default="ob")
     parser.add_argument("--model_type", type=str, default="clip")
+    parser.add_argument("--model_ckpt_dir", type=str, default=None,
+                        help="the fine-tuned adapter of --model_type clip_ft*: a directory the port's "
+                             "finetune CLI wrote, or a pickle of arp_tpu's adapter params")
     parser.add_argument("--vl_checkpoint", type=str, default=None,
                         help=".npz engine spec written by arp_tpu's ClipRewardEngine.save_npz")
+    parser.add_argument("--use_crop", type=lambda s: s.lower() in ("1", "true"), default=False,
+                        help="center-crop each frame to half its side before the resize")
     parser.add_argument("--inst_type", type=str, default="none")
     parser.add_argument("--batch_size", type=int, default=256)
     parser.add_argument("--bf16", action="store_true", help="run the image tower in bfloat16")
@@ -204,8 +209,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    if args.model_type.startswith("clip_ft"):
-        raise NotImplementedError("the fine-tuned (clip_ft) reward engine is not ported yet")
     env_name = args.env_name if args.env_type == "none" else f"{args.env_name}_{args.env_type}"
     if args.inst_type != "none":
         text = get_clip_special_instruct(env_name, args.inst_type)
@@ -213,16 +216,19 @@ def main(argv=None):
         text = get_clip_instruct(env_name)
     print(f"[INFO] env_name: {env_name}\t instruction: {text}")
 
-    engine_kwargs = dict(
-        batch_size=args.batch_size,
-        compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        device=args.device,
-        fast_encode=args.fast,
-        fast_int8=args.fast_int8,
-        fast_score_bf16=args.fast_score_bf16,
-        fast_int8_attn=args.fast_int8_attn,
-    )
-    if args.vl_checkpoint:  # the spec's engine takes no --int8, as arp_tpu's labeler builds it
+    fast_kwargs = dict(fast_encode=args.fast, fast_int8=args.fast_int8, fast_score_bf16=args.fast_score_bf16,
+                       fast_int8_attn=args.fast_int8_attn)
+    engine_kwargs = dict(batch_size=args.batch_size, use_crop=args.use_crop, device=args.device,
+                         compute_dtype=torch.bfloat16 if args.bf16 else torch.float32, **fast_kwargs)
+    if args.model_type.startswith("clip_ft"):
+        if args.model_ckpt_dir is None:
+            raise ValueError("specify --model_ckpt_dir (adapter checkpoint)")
+        from ..finetune.reward import ClipFtRewardEngine, load_adapter_params
+
+        engine = ClipFtRewardEngine(adapter_params=load_adapter_params(args.model_ckpt_dir),
+                                    batch_size=args.batch_size, use_crop=args.use_crop, device=args.device,
+                                    **fast_kwargs)
+    elif args.vl_checkpoint:  # the spec's engine takes no --int8, as arp_tpu's labeler builds it
         engine = ClipRewardEngine.from_npz(args.vl_checkpoint, **engine_kwargs)
     else:
         engine = ClipRewardEngine(quantize_weights=args.int8, **engine_kwargs)

@@ -166,9 +166,10 @@ class AdamWState:
 
 class AdamW:
     """``optax.chain(clip_by_global_norm(clip), adamw(learning_rate, b1, b2, eps, weight_decay, mask))``
-    on a list of parameters; ``decay[i]`` is the mask's entry of parameter i."""
+    on a list of parameters; ``decay[i]`` is the mask's entry of parameter i.  ``clip=None`` is
+    ``optax.adamw`` alone, without the clipping (the adapter fine-tuning's optimizer)."""
 
-    def __init__(self, learning_rate: Callable, weight_decay: float, decay: list, clip: float,
+    def __init__(self, learning_rate: Callable, weight_decay: float, decay: list, clip: Optional[float],
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
         self.learning_rate, self.weight_decay, self.decay, self.clip = learning_rate, weight_decay, decay, clip
         self.b1, self.b2, self.eps = b1, b2, eps
@@ -182,11 +183,12 @@ class AdamW:
     def update(self, params: list, grads: list, state: AdamWState) -> AdamWState:
         """Updates ``params`` in place from ``grads``; returns the new state."""
         b1, b2 = self.b1, self.b2
-        # clip_by_global_norm: a select on the device, no host round trip
-        g_norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
-        clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), self.clip)
-        keep = g_norm < self.clip
-        grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
+        if self.clip is not None:
+            # clip_by_global_norm: a select on the device, no host round trip
+            g_norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+            clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), self.clip)
+            keep = g_norm < self.clip
+            grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
         # scale_by_adam
         mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1), torch._foreach_mul(state.mu, b1))
         nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),

@@ -23,7 +23,6 @@ above 1), ``--load_checkpoint`` (reference pickles), ``--data.use_arps``.
 
 from __future__ import annotations
 
-import argparse
 import logging
 import os
 import random
@@ -33,7 +32,7 @@ import numpy as np
 import torch
 
 from ..checkpoint import CheckpointManager
-from ..config import Config
+from ..config import Config, flag_leaves, parse_flag_tree
 from ..data.instructions import get_m3ae_instruct
 from ..data.loader import DataLoader
 from ..data.procgen_dataset import ProcgenDataset, dataset_dirname
@@ -88,49 +87,9 @@ def flag_defaults() -> dict:
     )
 
 
-def _parse_bool(text: str) -> bool:
-    low = text.lower()
-    if low in ("true", "1", "yes"):
-        return True
-    if low in ("false", "0", "no"):
-        return False
-    raise argparse.ArgumentTypeError(f"not a boolean: {text!r}")
-
-
-def _leaves(tree, prefix=""):
-    for key, value in tree.items():
-        name = f"{prefix}{key}"
-        if isinstance(value, dict):
-            yield from _leaves(value, name + ".")
-        else:
-            yield name, value
-
-
-def _converter(default):
-    if isinstance(default, bool):
-        return _parse_bool
-    if isinstance(default, int):
-        return int
-    if isinstance(default, float):
-        return float
-    return str
-
-
 def parse_flags(argv=None) -> Config:
     """The flags as a Config tree: the defaults, with every ``--name[.sub]=value`` of ``argv`` applied."""
-    flags = Config(flag_defaults())
-    parser = argparse.ArgumentParser(description="Train an ARP-DT / BC / GCBC policy (PyTorch, one GPU).")
-    for name, default in _leaves(flags):
-        kind = _converter(default)
-        extra = dict(nargs="?", const=True) if kind is _parse_bool else {}
-        parser.add_argument(f"--{name}", dest=name, type=kind, default=argparse.SUPPRESS, **extra)
-    for name, value in vars(parser.parse_args(argv)).items():
-        *path, leaf = name.split(".")
-        node = flags
-        for part in path:
-            node = node[part]
-        node[leaf] = value
-    return flags
+    return parse_flag_tree(flag_defaults(), argv, "Train an ARP-DT / BC / GCBC policy (PyTorch, one GPU).")
 
 
 def check_ported(flags) -> None:
@@ -165,7 +124,7 @@ def main(argv=None):
     flags = parse_flags(argv)
     check_ported(flags)
     device = resolve_device(flags.device)
-    variant = dict(_leaves(flags))
+    variant = dict(flag_leaves(flags))
     variant.update(process_index=0, process_count=1, process_batch_size=flags.batch_size)
     lr_scale = flags.batch_size / 256 if flags.auto_scale_lr else 1.0
 

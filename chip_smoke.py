@@ -64,6 +64,20 @@ Phases, each printing one JSON line:
                front on 127.0.0.1: warmup, 8 sessions x 6 /v1/act requests from 8
                client threads, every action against the direct greedy_action on that
                session's window, batching, a checkpoint save + /v1/reload, latencies.
+ 13. finetune — the ARP-DT+ fine-tuning step at the flagship configuration
+               (arp_tpu/finetune/train.py: CLIP ViT-B/16, the adapter at its default widths,
+               15 actions, AdamW at lr 1e-4 and weight decay 1e-4, VIP and inverse-dynamics
+               losses) on 32 quadruples of 512 x 512 frames, through the CLI's functions:
+               first one step of 4 quadruples on the card and on the CPU from the same
+               weights and jitter draw (loss, gradients outside the rows of ReLU units that
+               flipped, params after AdamW), then ms a step (median of 5 after 2), peak
+               memory, the split into preprocessing, CLIP encodes and the rest, K1's
+               launches, one profiled step.
+ 14. slice_ft — the clip_ft reward engine labeling the 256-frame demo group in four modes
+               (module float32, packed with float32 scores, packed bf16, fast_int8): frames/s,
+               launches, reward MAE against a CPU engine of the same mode; on fast_int8 the
+               F2 measurement (the same calibrated trunk through K2 and through K2's plain
+               version on the card).
 Each timed shape of k1, k2 and k3 also carries ``bound_ms``: the least time the
 card could take, the larger of the bytes the function must move over the memory
 rate and its operations over the peak rate of their type (PEAK below).
@@ -340,6 +354,13 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
     cases["m3ae_n257"] = (M3AE_FRAMES, M3AE_TOKENS, 12, 64, MaskSpec("none"), None)
     cases["m3ae_text_n273_pad"] = (M3AE_FRAMES, M3AE_TOKENS + TEXT_LEN, 12, 64, MaskSpec("none"), text_pad)
     cases["m3ae_goal_n513"] = (M3AE_FRAMES, 2 * M3AE_TOKENS - 1, 12, 64, MaskSpec("none"), None)
+    # ARP-DT+: a fine-tuning step's vision call (three images a quadruple) and text call (the
+    # instruction's tokens, padded), and the clip_ft engine's one text
+    instruction_pad = torch.from_numpy(ft_tokens() == 0).to("cuda")
+    cases["finetune_vit"] = (3 * FT_BATCH, TOKENS, 12, 64, MaskSpec("none"), None)
+    cases["finetune_text"] = (FT_BATCH, 77, 8, 64, MaskSpec("causal"),
+                              instruction_pad.expand(FT_BATCH, 77).contiguous())
+    cases["slice_ft_text"] = (1, 77, 8, 64, MaskSpec("causal"), instruction_pad)
 
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -362,7 +383,9 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
     timings = {}  # every timed shape is one of the checked cases
     timed = {"vit_b16": (vit, K1_ATOL), "text": (text, K1_ATOL), "m3ae_n257": (cases["m3ae_n257"], K1_ATOL),
              "m3ae_goal_n513": (cases["m3ae_goal_n513"], (torch.bfloat16,)),
-             "policy_d16_dt_n12": (cases["policy_d16_dt_n12"], K1_ATOL)}
+             "policy_d16_dt_n12": (cases["policy_d16_dt_n12"], K1_ATOL),
+             "finetune_vit": (cases["finetune_vit"], (torch.float32,)),
+             "finetune_text": (cases["finetune_text"], (torch.float32,))}
     for label, ((b, n, h, d, spec, pad), dtypes) in timed.items():
         # what this mask lets through: the products and exponentials that must be made
         allowed = materialize_mask(spec, n, device="cuda")[None].expand(b, n, n)
@@ -1426,6 +1449,357 @@ def phase_serve(counters, keep, policy_lib, serve) -> dict:
     return launches
 
 
+# --- ARP-DT+: the adapter's fine-tuning step and the clip_ft reward engine --------------------------
+
+FT_CLIP = "vit_b16"  # the flagship configuration: arp_tpu/finetune/train.py:30-49
+FT_BATCH, FT_CPU_BATCH = 32, 4  # quadruples a step; the CPU run's share
+FT_FRAME = 512  # the quadruple dataset's default image_size (arp_tpu/finetune/dataset.py:35)
+FT_LR = FT_WD = 1e-4
+FT_ACTIONS = 15
+FT_WARMUP, FT_TIMED = 2, 5
+FT_TEXT = "the goal is to collect the coin."
+FT_LABEL_FRAMES, FT_ROWS, FT_BATCH_LABEL = LABEL_FRAMES, LABEL_ROWS, BATCH  # slice_ft: the labeling phases' demo group
+# The card's step against the CPU's on the same weights, quadruples and jitter draw (float32 on both,
+# sums in other orders; K1's float32 body against the plain attention, ~1e-6): the loss within 1e-4
+# relative; the gradients within 1e-4 of the largest entry, outside the rows of the adapter units
+# whose ReLU input changed sign between the two runs (at most FT_MAX_FLIPPED_UNITS of them: such a
+# unit's row takes another gradient, a difference no tolerance bounds, as in the train phase); after
+# one AdamW step the parameters within 1e-5 of the largest entry, outside those rows and the entries
+# whose gradient the two runs do not give to a tenth of itself: Adam's first step moves an entry by
+# lr * g / (|g| + 1e-8), +-lr on the sign of g alone, so a gradient near 0 whose sign the sums'
+# order decides moves its entry by 2 lr (2e-4) more on one side than on the other.
+FT_LOSS_REL, FT_GRAD_REL, FT_PARAM_REL, FT_MAX_FLIPPED_UNITS = 1e-4, 1e-4, 1e-5, 8
+FT_RELU_LINEARS = tuple(f"{m}.Dense_{k}" for m in ("image_adapter", "text_adapter", "inverse_layer") for k in (0, 1))
+# slice_ft's engines: label -> ClipFtRewardEngine knobs (its packed trunk is bf16 in every mode)
+FT_MODES = {
+    "module_f32": {},
+    "fast_f32_scores": dict(fast_encode=True, fast_score_bf16=False),
+    "fast_bf16": dict(fast_encode=True),
+    "fast_int8": dict(fast_int8=True),
+}
+
+
+def random_adapter_variables(cfg: dict, hidden_dim: int, action_dim: int, seed: int) -> dict:
+    """Random ClipMultiscaleAdapter params in arp_tpu's Flax layout, from a numpy seed: the adapters'
+    kernels xavier-uniform with zero biases and the intermediate projections lecun-normal, as Flax
+    initializes them; the scalars at their initial values."""
+    rng = np.random.default_rng(seed)
+    L, dv, dt, e = cfg["text_num_layers"], cfg["vision_features"], cfg["text_features"], cfg["embed_dim"]
+    hid = hidden_dim or 2 * e
+    feat = dt * L + e
+
+    def lecun(n_in, n_out):
+        return {"kernel": np.clip(rng.standard_normal((n_in, n_out), dtype=np.float32), -2, 2) * np.float32(
+            n_in ** -0.5 / 0.87962566103423978)}
+
+    def mlp(n_in, n_hidden, n_out):
+        out = {}
+        for k, (a, b) in enumerate(((n_in, n_hidden), (n_hidden, n_out))):
+            limit = np.float32(np.sqrt(6.0 / (a + b)))
+            out[f"Dense_{k}"] = {"kernel": rng.uniform(-limit, limit, (a, b)).astype(np.float32),
+                                 "bias": np.zeros(b, np.float32)}
+        return out
+
+    return {"params": {
+        "image_intermediate_linear": lecun(dv * L, dt * L), "text_intermediate_linear": lecun(dt * L, dt * L),
+        "image_adapter": mlp(feat, hid * (L + 1), feat), "text_adapter": mlp(feat, hid * (L + 1), feat),
+        "inverse_layer": mlp(4 * feat, hid, action_dim),
+        "image_residual_weight": np.float32(4.0), "text_residual_weight": np.float32(4.0),
+        "lambda_id": np.float32(np.log(1 / 0.07)),
+    }}
+
+
+def quadruples(n: int, size: int, tokens: np.ndarray, seed: int) -> dict:
+    """A fine-tuning batch as ProcgenActionDataset's loader gives it: four (n, size, size, 3) uint8 frames,
+    the instruction's tokens (n, 1, 77), r and the action."""
+    rng = np.random.default_rng(seed)
+    batch = {f"image{i}": {"ob": rng.integers(0, 256, size=(n, size, size, 3), dtype=np.uint8)} for i in range(4)}
+    batch["instruct"] = np.repeat(np.asarray(tokens, np.int32)[None], n, axis=0)
+    batch["r"] = rng.integers(0, 2, size=(n, 1)).astype(np.int32)
+    batch["action"] = rng.integers(0, FT_ACTIONS, size=(n,)).astype(np.int64)
+    return batch
+
+
+def on_device(tree, device):
+    return {k: on_device(v, device) if isinstance(v, dict) else torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in tree.items()}
+
+
+def ft_clip(cfg: dict, state: dict, device):
+    from arp_tpu_torch.models.clip import CLIP
+
+    clip = CLIP(**cfg, image_size=224)
+    clip.load_state_dict(state)
+    return clip.eval().requires_grad_(False).to(device)
+
+
+def ft_adapter(cfg: dict, adapter_state: dict, device):
+    from arp_tpu_torch.finetune.adapter_model import ClipMultiscaleAdapter
+
+    adapter = ClipMultiscaleAdapter(clip_config=cfg, action_dim=FT_ACTIONS)
+    adapter.load_state_dict(adapter_state)
+    return adapter.to(device)
+
+
+def ft_step_on(device, cfg, clip_state, adapter_state, batch, draws) -> dict:
+    """One fine-tuning step of the CLI's pieces on ``device`` with given draws: the loss, every gradient,
+    the ReLU Linears' outputs and the parameters after one AdamW step, on the host."""
+    from arp_tpu_torch.finetune.train import build_optimizer
+    from arp_tpu_torch.parallel.step import TrainState
+
+    clip, adapter = ft_clip(cfg, clip_state, device), ft_adapter(cfg, adapter_state, device)
+    pre, hooks = {}, []
+
+    def note(mod, inp, out, name):  # an AdapterMLP's ReLU inputs, from its input and (not yet updated) weights
+        with torch.no_grad():
+            x = inp[0]
+            for k in range(mod.num_layers):
+                x = torch.nn.functional.linear(x, getattr(mod, f"Dense_{k}").weight, getattr(mod, f"Dense_{k}").bias)
+                pre[f"{name}.Dense_{k}"] = x.cpu()
+                x = torch.relu(x)
+
+    for name in ("image_adapter", "text_adapter", "inverse_layer"):
+        hooks.append(adapter.get_submodule(name).register_forward_hook(
+            lambda mod, inp, out, name=name: note(mod, inp, out, name)))
+    state = TrainState.create(adapter, build_optimizer(adapter, FT_LR, FT_WD))
+    t0 = time.perf_counter()
+    loss, metrics = adapter(clip, on_device(batch, device), train=True,
+                            draws={"apply": draws["apply"].to(device),
+                                   "jitter": {k: v.to(device) for k, v in draws["jitter"].items()}})
+    loss.backward()
+    grads = [p.grad.detach().clone() for _, p in state.params]
+    state.apply_gradients(grads)
+    sync()
+    for h in hooks:
+        h.remove()
+    names = [n for n, _ in state.params]
+    out = dict(loss=float(loss.detach()), names=names, grads=dict(zip(names, (g.cpu() for g in grads))),
+               params={n: p.detach().cpu() for n, p in state.params}, pre=pre, seconds=time.perf_counter() - t0)
+    del clip, adapter, state, grads
+    return out
+
+
+def compare_ft_step_with_cpu(cfg, clip_state, adapter_state, tokens) -> dict:
+    """The card's fine-tuning step against the CPU's on FT_CPU_BATCH quadruples (see FT_LOSS_REL)."""
+    from arp_tpu_torch.finetune.adapter_model import ClipMultiscaleAdapter
+
+    small = quadruples(FT_CPU_BATCH, FT_FRAME, tokens, SEED + 1)
+    draws = ClipMultiscaleAdapter.draw_preprocess(torch.Generator().manual_seed(SEED))
+    draws["apply"] = torch.tensor(True)  # the jitter applied, so that both runs go through it
+    cpu = ft_step_on("cpu", cfg, clip_state, adapter_state, small, draws)
+    card = ft_step_on(DEVICE, cfg, clip_state, adapter_state, small, draws)
+    gmax = max(float(g.abs().max()) for g in cpu["grads"].values())
+    pmax = max(float(p.abs().max()) for p in cpu["params"].values())
+    keep = {n: torch.ones_like(g, dtype=torch.bool) for n, g in cpu["grads"].items()}
+    flipped = {}
+    for name in FT_RELU_LINEARS:  # the units whose ReLU input changed sign for some row
+        units = ((cpu["pre"][name] > 0) != (card["pre"][name] > 0)).any(0)
+        flipped[name] = int(units.sum())
+        keep[f"{name}.weight"][units] = False
+        keep[f"{name}.bias"][units] = False
+    grad_err = {n: float(((cpu["grads"][n] - card["grads"][n]).abs() * keep[n]).max()) / gmax for n in cpu["names"]}
+    settled = {n: ((g - card["grads"][n]).abs() * 10 <= g.abs()) & keep[n] for n, g in cpu["grads"].items()}
+    param_err = {n: float(((cpu["params"][n] - card["params"][n]).abs() * settled[n]).max()) / pmax
+                 for n in cpu["names"]}
+    worst_g, worst_p = max(grad_err, key=grad_err.get), max(param_err, key=param_err.get)
+    result = dict(quadruples=FT_CPU_BATCH, loss_cpu=cpu["loss"], loss_card=card["loss"],
+                  loss_rel_err=abs(cpu["loss"] - card["loss"]) / abs(cpu["loss"]), grad_max_abs=gmax,
+                  grad_err_rel_to_max=grad_err[worst_g], worst_grad=worst_g, param_max_abs=pmax,
+                  param_err_rel_to_max=param_err[worst_p], worst_param=worst_p, relu_units_flipped=flipped,
+                  entries_left_out_for_flips=sum(int((~m).sum()) for m in keep.values()),
+                  entries_left_out_unsettled_grad=sum(int((~s).sum()) for s in settled.values()),
+                  param_entries=sum(p.numel() for p in cpu["params"].values()), cpu_seconds=cpu["seconds"])
+    emit("finetune_vs_cpu", **result)
+    check(result["loss_rel_err"] <= FT_LOSS_REL, f"finetune step loss: card vs CPU {result['loss_rel_err']} relative")
+    check(sum(flipped.values()) <= FT_MAX_FLIPPED_UNITS,
+          f"finetune step: {sum(flipped.values())} adapter units flipped their ReLU, more than {FT_MAX_FLIPPED_UNITS}")
+    check(result["grad_err_rel_to_max"] <= FT_GRAD_REL,
+          f"finetune step gradients: card vs CPU {result['grad_err_rel_to_max']} of the largest entry ({worst_g})")
+    check(result["param_err_rel_to_max"] <= FT_PARAM_REL,
+          f"finetune step params after AdamW: card vs CPU {result['param_err_rel_to_max']} of the largest ({worst_p})")
+    return result
+
+
+def ft_tokens() -> np.ndarray:
+    """FT_TEXT's (1, 77) tokens, as the dataset and the engine tokenize it."""
+    from arp_tpu_torch.models.clip.tokenizer import build_tokenizer
+
+    return np.asarray(build_tokenizer(truncate=True)(FT_TEXT))
+
+
+def ft_weights():
+    """The flagship CLIP and adapter weights from the seed, through the two bridges, with the tokens of FT_TEXT."""
+    from arp_tpu_torch.finetune.convert import flax_adapter_to_torch
+    from arp_tpu_torch.models.clip import CONFIGS, flax_to_torch
+
+    cfg = CONFIGS[FT_CLIP]
+    clip_state = flax_to_torch(random_clip_variables(cfg, 224, SEED))
+    adapter_state = flax_adapter_to_torch(random_adapter_variables(cfg, 0, FT_ACTIONS, SEED + 1))
+    return cfg, clip_state, adapter_state, ft_tokens()
+
+
+def phase_finetune(counters, weights) -> dict:
+    """The ARP-DT+ fine-tuning step at the flagship widths through the CLI's functions; returns each kernel's
+    launches over the timed steps."""
+    from arp_tpu_torch.finetune.train import build_optimizer, make_loss_fn
+    from arp_tpu_torch.parallel.step import TrainState, make_train_step
+
+    cfg, clip_state, adapter_state, tokens = weights
+    compared = compare_ft_step_with_cpu(cfg, clip_state, adapter_state, tokens)
+    clip, adapter = ft_clip(cfg, clip_state, DEVICE), ft_adapter(cfg, adapter_state, DEVICE)
+    state = TrainState.create(adapter, build_optimizer(adapter, FT_LR, FT_WD))
+    step = make_train_step(make_loss_fn(clip, train=True))
+    batch = on_device(quadruples(FT_BATCH, FT_FRAME, tokens, SEED + 2), DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    before = {n: p.detach().clone() for n, p in state.params}
+    for _ in range(FT_WARMUP):
+        step(state, batch, gen)
+    sync()
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    for _ in range(FT_TIMED):
+        t0 = time.perf_counter()
+        _, aux = step(state, batch, gen)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = launch_counts(counters)
+    peak = torch.cuda.max_memory_allocated() if DEVICE != "cpu" else None
+    ms = float(np.median(times))
+    # one more step split into the preprocessing, the frozen CLIP's encodes and the rest (the adapter's
+    # forward and backward, AdamW), each part synced on the host clock
+    split = defaultdict(float)
+
+    def timed(part, fn):
+        def run(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            sync()
+            split[part] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    adapter.preprocess = timed("preprocess_ms", adapter.preprocess)
+    clip.encode_image = timed("clip_encode_ms", clip.encode_image)
+    clip.encode_text = timed("clip_encode_ms", clip.encode_text)
+    t0 = time.perf_counter()
+    step(state, batch, gen)
+    sync()
+    split["adapter_forward_backward_adamw_ms"] = (time.perf_counter() - t0) * 1e3 - split["preprocess_ms"] - split[
+        "clip_encode_ms"]
+    del adapter.preprocess, clip.encode_image, clip.encode_text
+    loss = float(aux["loss"])
+    check(np.isfinite(loss), f"finetune: loss {loss}")
+    still = [n for n, p in state.params if torch.equal(before[n], p.detach())]
+    check(not still, f"finetune: parameters that did not move: {still}")
+    check(all(p.grad is None for p in clip.parameters()), "finetune: a CLIP parameter has a gradient")
+    k1_step = cfg["vision_num_layers"] + cfg["text_num_layers"]  # one vision call of 3B rows, one text call
+    check(launches["flash_attn_fwd"] == FT_TIMED * k1_step and launches["int8_gemm"] == 0,
+          f"finetune: launches {launches} over {FT_TIMED} steps, expected K1 {FT_TIMED * k1_step}, K2 0")
+    emit("finetune", clip=FT_CLIP, quadruples=FT_BATCH, frame=FT_FRAME, encoded_frames=3 * FT_BATCH,
+         ms=ms, step_ms=times, quadruples_per_s=FT_BATCH / ms * 1e3, peak_memory_bytes=peak, loss=loss,
+         launches=launches, trained_params=sum(p.numel() for _, p in state.params), **split,
+         vs_cpu={k: compared[k] for k in ("loss_rel_err", "grad_err_rel_to_max", "param_err_rel_to_max",
+                                          "relu_units_flipped")})
+    emit("profile", mode="finetune", frames=4 * FT_BATCH, **device_profile(lambda: step(state, batch, gen)))
+    del clip, adapter, state, step, batch, before
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_slice_ft(counters, weights, label_group, vit_infer) -> dict:
+    """The clip_ft engine on the labeling demo group in four modes, each against a CPU engine of the same
+    mode; the F2 measurement on fast_int8; returns each kernel's launches over the labeling runs."""
+    from arp_tpu_torch.finetune.reward import ClipFtRewardEngine
+    from arp_tpu_torch.models.clip import CLIP
+
+    cfg, clip_state, adapter_state, _ = weights
+    g_src = demo_group(FT_LABEL_FRAMES, 2, 256, SEED)
+    rows = FT_ROWS
+    frames = np.asarray(g_src["ob"][:, -1])
+    frames8 = frames[rows]
+
+    adapters = {device: ft_adapter(cfg, adapter_state, device) for device in ("cpu", DEVICE)}  # built once
+
+    def engine(device, batch_size, **knobs):
+        model = CLIP(**cfg, image_size=224)
+        model.load_state_dict(clip_state)
+        return ClipFtRewardEngine(adapter_state, model=model, clip_config=cfg, batch_size=batch_size, device=device,
+                                  adapter=adapters[device], **knobs)
+
+    totals = dict.fromkeys(counters, 0)
+    for label, knobs in FT_MODES.items():
+        cpu = engine("cpu", len(rows), **knobs)
+        want = cpu.text_rewards(frames8, FT_TEXT)  # an int8 engine calibrates on these frames
+        del cpu
+        eng = engine(DEVICE, FT_BATCH_LABEL, **knobs)
+        eng.text_rewards(frames8, FT_TEXT)  # the same first batch: the rows, padded with the last one
+        g = MemoryGroup((k, g_src[k]) for k in ("ob", "act", "done"))
+        sync()
+        for fn in counters.values():
+            fn.launches = 0
+        stats = label_group(g, FT_TEXT, eng, model_type="clip_ft", progress=False)
+        launches = launch_counts(counters)
+        reward = np.asarray(g["ob_clip_ft_reward"])
+        mae = float(np.abs(reward[rows, -1] - want).mean())
+        # module_f32: BASELINE.json's float32 target.  The packed trunk is bf16 in every other mode (its
+        # softmax float32 in K1 on the card whatever the score dtype): the bf16 bound of the slice_fast
+        # phase; fast_int8 the int8 bound of slice_fast (one integer arithmetic, with the bf16 roundings
+        # that differ between the card and the CPU moving values across an int8 edge)
+        bound = F32_REWARD_MAE if label == "module_f32" else (
+            INT8_COS_MAE if "int8" in label else BF16_COS_MAE) * eng.logit_scale
+        emit("slice_ft", mode=label, knobs={k: str(v) for k, v in knobs.items()}, frames=stats["frames"],
+             seconds=stats["seconds"], fps=stats["fps"], batch_size=FT_BATCH_LABEL, launches=launches,
+             reward_mae_vs_cpu=mae, mae_bound=bound, reward_mean=float(reward[:, -1].mean()),
+             reward_std=float(reward[:, -1].std()), recipe=eng.encode_recipe)
+        check(reward.shape == (FT_LABEL_FRAMES, 2) and np.isfinite(reward).all(), f"slice_ft {label}: rewards")
+        check(launches["flash_attn_fwd"] > 0, f"slice_ft {label}: labeling never launched K1")
+        check((launches["int8_gemm"] > 0) == ("int8" in label), f"slice_ft {label}: K2 launches {launches['int8_gemm']}")
+        check(mae <= bound, f"slice_ft {label}: reward MAE vs the CPU engine {mae} > {bound}")
+        for name, n in launches.items():
+            totals[name] += n
+        g = MemoryGroup((k, g_src[k]) for k in ("ob", "act", "done"))
+        emit("profile", mode=f"slice_ft_{label}", frames=FT_LABEL_FRAMES,
+             **device_profile(lambda: label_group(g, FT_TEXT, eng, model_type="clip_ft", progress=False)))
+        if label == "fast_int8":
+            f2_measurement(eng, frames, want, rows, vit_infer)
+        del eng
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    del adapters
+    return totals
+
+
+def f2_measurement(eng, frames, want, rows, vit_infer) -> dict:
+    """ROADMAP's F2: the calibrated fast_int8 trunk on the card twice on the same frames, once through K2
+    (its quick-GELU with ex2.approx / rcp.approx) and once through K2's plain version on the card's
+    tensors, called in K2's place for this check only; the reward MAE between the two runs, and each
+    run's against the CPU engine on the rows it recomputed."""
+    with_k2 = eng.text_rewards(frames, FT_TEXT)
+    real = vit_infer.fused_int8_matmul
+
+    def plain(x, a_scale, wq, w_scale, bias=None, act="none", wq_t=None):
+        return vit_infer.fused_int8_matmul_reference(x, a_scale, wq, w_scale, bias, act)
+
+    vit_infer.fused_int8_matmul = plain
+    try:
+        before = real.launches
+        with_plain = eng.text_rewards(frames, FT_TEXT)
+        check(real.launches == before, "F2: the plain run launched K2")
+    finally:
+        vit_infer.fused_int8_matmul = real
+    result = dict(frames=len(frames), k2_vs_plain_on_card_mae=float(np.abs(with_k2 - with_plain).mean()),
+                  k2_vs_plain_on_card_max=float(np.abs(with_k2 - with_plain).max()),
+                  k2_vs_cpu_mae=float(np.abs(with_k2[rows] - want).mean()),
+                  plain_on_card_vs_cpu_mae=float(np.abs(with_plain[rows] - want).mean()), rows=len(rows))
+    emit("f2", **result)
+    return result
+
+
 def kernel_entry(name: str, launches: int, max_abs_err: float, timing: dict, **extra) -> dict:
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -1490,9 +1864,16 @@ def main() -> int:
     path_launches["train"] = phase_train(counters, attn, policy_lib, flax_m3ae_to_torch)
     path_launches["serve"] = phase_serve(counters, keep, policy_lib, serve)
     del keep
+    # ARP-DT+: the adapter's fine-tuning step, and labeling with the clip_ft engine
+    weights = ft_weights()
+    path_launches["finetune"] = phase_finetune(counters, weights)
+    path_launches["slice_ft"] = phase_slice_ft(counters, weights, label_group, vit_infer)
+    del weights
+    path_kernels = {"finetune": ("flash_attn_fwd",)}  # every other path runs K1 and K2
     for path, counts in path_launches.items():
-        for name in ("flash_attn_fwd", "int8_gemm"):
+        for name in path_kernels.get(path, ("flash_attn_fwd", "int8_gemm")):
             check(counts[name] > 0, f"the {path} runs never launched {name}")
+        for name in ("flash_attn_fwd", "int8_gemm"):
             launches[name] += counts[name]
 
     def shapes(timings, labels):
@@ -1509,7 +1890,8 @@ def main() -> int:
                      launches_by_path={"labeling": launches["flash_attn_fwd"] - sum(c["flash_attn_fwd"] for c in path_launches.values()),
                                        **{path: c["flash_attn_fwd"] for path, c in path_launches.items()}},
                      policy_path=shapes(k1["timings"], ("m3ae_n257_bfloat16", "m3ae_n257_float32", "m3ae_goal_n513_bfloat16",
-                                                        "policy_d16_dt_n12_float32", "policy_d16_dt_n12_bfloat16"))),
+                                                        "policy_d16_dt_n12_float32", "policy_d16_dt_n12_bfloat16")),
+                     finetune_path=shapes(k1["timings"], ("finetune_vit_float32", "finetune_text_float32"))),
         kernel_entry("int8_gemm", launches["int8_gemm"], k2["max_abs_err"], fc,
                      bf16_matmul_ms=fc["bf16_matmul_ms"], max_bf16_ulps=k2["max_bf16_ulps"],
                      launches_by_path={"labeling": launches["int8_gemm"] - sum(c["int8_gemm"] for c in path_launches.values()),

@@ -12,7 +12,7 @@ import torch
 from arp_tpu.models.impala import ImpalaCNN as JImpala
 from arp_tpu.ops import augment as jaug
 from arp_tpu_torch.models.impala import ImpalaCNN
-from arp_tpu_torch.models.policy.convert import _convert
+from arp_tpu_torch.models.policy.convert import flax_params_to_torch
 from arp_tpu_torch.ops import augment as taug
 
 
@@ -89,7 +89,7 @@ def test_impala_cnn(pool_padding, size):
     tm = ImpalaCNN(pool_padding=pool_padding)
     with torch.no_grad():
         tm(torch.from_numpy(x))  # the lazy first conv and dense take their shapes
-        tm.load_state_dict(_convert(jax.device_get(params)))
+        tm.load_state_dict(flax_params_to_torch(jax.device_get(params)))
         got = tm(torch.from_numpy(x))
     assert got.shape == (2, 256)
     np.testing.assert_allclose(got.numpy(), np.asarray(jm.apply({"params": params}, jnp.asarray(x))), atol=1e-4, rtol=1e-5)

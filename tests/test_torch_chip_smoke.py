@@ -289,3 +289,68 @@ def test_policy_path_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
         assert run["entries_left_out_for_flips"] == 0
     assert by_phase["serve"][0]["requests"] == 9 and by_phase["serve"][0]["actions_differing_from_direct_forward"] == 0
     assert by_phase["serve_reload"][0]["health_step"] == 7
+
+
+def test_random_adapter_weights_have_the_flax_layout():
+    """random_adapter_variables gives Flax's own init tree of the adapter, name for name and shape for shape."""
+    from arp_tpu.finetune.adapter_model import ClipMultiscaleAdapter as JAdapter
+    from arp_tpu.models.clip.model import CONFIGS as JCONFIGS
+    from arp_tpu_torch.finetune.adapter_model import ClipMultiscaleAdapter
+    from arp_tpu_torch.finetune.convert import flax_adapter_to_torch
+    from test_finetune import TINY_CFG, make_batch, tiny_tokens
+
+    JCONFIGS["tiny_smoke_layout"] = TINY_CFG
+    try:
+        model = JAdapter(clip_model_name="tiny_smoke_layout", action_dim=7)
+        clip_vars = FlaxCLIP(**TINY_CFG).init(jax.random.PRNGKey(0), jnp.zeros((1, 224, 224, 3)),
+                                              jnp.asarray(tiny_tokens(1)))
+        params = model.init({"params": jax.random.PRNGKey(1), "aug": jax.random.PRNGKey(2)}, clip_vars,
+                            make_batch(np.random.default_rng(0)), train=False)
+    finally:
+        del JCONFIGS["tiny_smoke_layout"]
+    ours = chip_smoke.random_adapter_variables(TINY_CFG, 0, 7, seed=0)
+    assert _shapes(ours) == _shapes(params)
+    ClipMultiscaleAdapter(clip_config=TINY_CFG, action_dim=7).load_state_dict(flax_adapter_to_torch(ours))  # strict
+
+
+def test_finetune_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """The finetune and slice_ft phases end to end on the CPU at a tiny CLIP width and few frames: their
+    control flow, shapes and comparisons (the same device twice: equal).  What only the card can show
+    (the kernels' launches, the profile) is left out."""
+    import json
+
+    from arp_tpu_torch.models.clip import model as tclip_model
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import quantization, vit_infer
+
+    tiny = dict(embed_dim=16, vocab_size=600, vision_num_layers=3, vision_features=64, vision_patch_size=16,
+                text_features=16, text_num_heads=4, text_num_layers=2)
+    monkeypatch.setitem(tclip_model.CONFIGS, "tiny_smoke", tiny)
+    for name, value in dict(DEVICE="cpu", FT_CLIP="tiny_smoke", FT_BATCH=2, FT_CPU_BATCH=2, FT_FRAME=40,
+                            FT_WARMUP=1, FT_TIMED=1, FT_LABEL_FRAMES=9, FT_ROWS=np.array([0, 2, 8]),
+                            FT_BATCH_LABEL=4).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "device_profile", lambda run: {"rehearsal": True})
+    real_check = chip_smoke.check
+    monkeypatch.setattr(chip_smoke, "check", lambda ok, what: real_check(ok or "launch" in what, what))
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
+                "int8_matmul": quantization.int8_matmul}
+    weights = chip_smoke.ft_weights()
+    chip_smoke.phase_finetune(counters, weights)
+    chip_smoke.phase_slice_ft(counters, weights, label_group, vit_infer)
+    assert vit_infer.fused_int8_matmul is counters["int8_gemm"]  # the F2 check put K2's wrapper back
+    by_phase = {}
+    for line in capsys.readouterr().out.splitlines():
+        if line.startswith("{"):
+            record = json.loads(line)
+            by_phase.setdefault(record["phase"], []).append(record)
+    compared = by_phase["finetune_vs_cpu"][0]
+    assert compared["loss_rel_err"] == 0.0 and compared["grad_err_rel_to_max"] == 0.0
+    assert compared["param_err_rel_to_max"] == 0.0 and sum(compared["relu_units_flipped"].values()) == 0
+    step = by_phase["finetune"][0]
+    assert step["quadruples"] == 2 and step["trained_params"] > 0 and np.isfinite(step["loss"])
+    assert {"preprocess_ms", "clip_encode_ms", "adapter_forward_backward_adamw_ms"} <= set(step)
+    assert [r["mode"] for r in by_phase["slice_ft"]] == list(chip_smoke.FT_MODES)
+    assert all(r["reward_mae_vs_cpu"] < 1e-5 and r["frames"] == 9 for r in by_phase["slice_ft"])
+    f2 = by_phase["f2"][0]
+    assert f2["frames"] == 9 and f2["k2_vs_plain_on_card_mae"] == 0.0  # on the CPU both runs are the plain version

@@ -642,3 +642,45 @@ def test_flagship_width_train_step_on_the_card(cuda, mode):
     assert all(torch.equal(v, model.pt_model.state_dict()[k]) for k, v in tower.items())
     assert all(p.grad is None for p in model.pt_model.parameters())
     assert not [n for n, p in state.params if torch.equal(before[n], p.detach())]
+
+
+# --- ARP-DT+ -------------------------------------------------------------------------------------
+
+FT_TINY = dict(embed_dim=16, vocab_size=600, vision_num_layers=3, vision_features=64, vision_patch_size=16,
+               text_features=64, text_num_heads=4, text_num_layers=2)  # head_dim 64 and 16: widths K1 takes
+
+
+def _ft_weights():
+    from arp_tpu_torch.finetune.convert import flax_adapter_to_torch
+
+    return (flax_to_torch(chip_smoke.random_clip_variables(FT_TINY, 224, 0)),
+            flax_adapter_to_torch(chip_smoke.random_adapter_variables(FT_TINY, 0, 15, 1)))
+
+
+@pytest.mark.parametrize("mode", list(chip_smoke.FT_MODES))
+def test_clip_ft_engine_on_the_card_matches_the_cpu(cuda, mode):
+    """The clip_ft engine on the card against the CPU engine of the same mode, both calibrated on the same frames."""
+    from arp_tpu_torch.finetune.reward import ClipFtRewardEngine
+
+    clip_state, adapter_state = _ft_weights()
+    frames = np.random.default_rng(3).integers(0, 256, size=(6, 64, 64, 3), dtype=np.uint8)
+
+    def rewards(device):
+        model = CLIP(**FT_TINY, image_size=224)
+        model.load_state_dict(clip_state)
+        engine = ClipFtRewardEngine(adapter_state, model=model, clip_config=FT_TINY, batch_size=8, device=device,
+                                    **chip_smoke.FT_MODES[mode])
+        return engine.text_rewards(frames, chip_smoke.FT_TEXT), engine.logit_scale
+
+    (got, scale), (want, _) = rewards(cuda), rewards("cpu")
+    bound = 1e-4 if mode == "module_f32" else (
+        chip_smoke.INT8_COS_MAE if "int8" in mode else chip_smoke.BF16_COS_MAE) * scale
+    assert np.isfinite(got).all() and np.abs(got - want).mean() <= bound
+
+
+def test_finetune_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """chip_smoke's card-against-CPU fine-tuning step at a tiny width (it checks its own bounds)."""
+    monkeypatch.setattr(chip_smoke, "FT_FRAME", 64)
+    clip_state, adapter_state = _ft_weights()
+    result = chip_smoke.compare_ft_step_with_cpu(FT_TINY, clip_state, adapter_state, chip_smoke.ft_tokens())
+    assert result["loss_rel_err"] <= chip_smoke.FT_LOSS_REL

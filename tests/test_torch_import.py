@@ -40,11 +40,13 @@ def test_port_imports_without_jax_or_flax():
     )
     assert out.returncode == 0, out.stderr + out.stdout
     n, *names = out.stdout.split("IMPORTED")[1].split()
-    assert int(n) >= 41, out.stdout  # every module of the package, not an empty walk
+    assert int(n) >= 48, out.stdout  # every module of the package, not an empty walk
     for module in ("serve", "config", "utils", "models.layers", "models.m3ae", "models.impala", "models.policy.models",
                    "models.policy.convert", "ops.m3ae_infer", "ops.augment", "train.main", "train.common",
                    "parallel.step", "parallel.prefetch", "data.procgen_dataset", "data.loader", "data.validate",
-                   "data.instructions", "checkpoint", "logging_utils", "profiling", "resilience"):
+                   "data.instructions", "checkpoint", "logging_utils", "profiling", "resilience", "models.clip.model",
+                   "models.clip.convert", "finetune", "finetune.adapter_model", "finetune.convert", "finetune.dataset",
+                   "finetune.decoder", "finetune.train", "finetune.reward"):
         assert f"arp_tpu_torch.{module}" in names, module
 
 

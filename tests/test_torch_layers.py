@@ -14,7 +14,7 @@ from arp_tpu.ops.masks import MaskSpec as JMaskSpec
 from arp_tpu_torch import utils as tutils
 from arp_tpu_torch.config import Config, update_config
 from arp_tpu_torch.models import layers as tl
-from arp_tpu_torch.models.policy.convert import _convert
+from arp_tpu_torch.models.policy.convert import flax_params_to_torch
 from arp_tpu_torch.ops.masks import MaskSpec
 
 @pytest.fixture(autouse=True, scope="module")
@@ -43,7 +43,7 @@ def _randomize(params, seed):
 
 
 def _load(module, params):
-    module.load_state_dict(_convert(jax.device_get(params)))
+    module.load_state_dict(flax_params_to_torch(jax.device_get(params)))
     return module.eval()
 
 

@@ -362,7 +362,7 @@ def test_ensemble_heads_one_batched_matmul():
     jm = jpol.EnsembleHeads(5, 32, 7)
     params = _randomize(jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"], 18)
     tm = tpol.EnsembleHeads(5, 32, 32, 7)
-    state = convert._convert(jax.device_get(params))
+    state = convert.flax_params_to_torch(jax.device_get(params))
     assert state["heads.Dense_0.kernel"].shape == (5, 32, 32) and state["heads.Dense_1.kernel"].shape == (5, 32, 7)
     tm.load_state_dict(state)
     np.testing.assert_allclose(tm(torch.from_numpy(x)).detach().numpy(), np.asarray(jm.apply({"params": params}, jnp.asarray(x))),

@@ -99,15 +99,18 @@ def test_provenance(jax_engine, port_engine):
 
 
 @pytest.mark.parametrize("option", [
-    dict(resize_mode="host"), dict(resize_mode="fast"), dict(use_crop=True), dict(mesh=object()),
+    dict(resize_mode="host"), dict(mesh=object()),
 ], ids=lambda o: next(iter(o)) + ("_" + o["resize_mode"] if "resize_mode" in o else ""))
 def test_unported_options_raise(jax_engine, option):
+    # resize_mode="fast" and use_crop are ported: tests/test_torch_finetune_engine.py holds them to JAX
     with pytest.raises(NotImplementedError):
         _port_engine(jax_engine, **option)
 
 
-def test_openai_checkpoint_loading_is_not_ported():
-    with pytest.raises(NotImplementedError):
+def test_openai_checkpoint_loading_is_not_ported(tmp_path, monkeypatch):
+    """Without variables the engine reads the local OpenAI checkpoint, as JAX's does; fetching it is not ported."""
+    monkeypatch.setenv("ARP_TPU_CHECKPOINT_DIR", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="fetching it is not ported"):
         ClipRewardEngine(device="cpu")
 
 
@@ -183,10 +186,12 @@ def test_cli_labels_with_a_jax_engine_spec(jax_engine, tmp_path, capsys):
     _assert_same_labels(port_path, jax_path)
 
 
-def test_cli_without_a_spec_needs_the_unported_openai_loader(tmp_path):
+def test_cli_without_a_spec_needs_the_unported_openai_loader(tmp_path, monkeypatch):
+    """Without --vl_checkpoint the labeler reads vit_b16 from ARP_TPU_CHECKPOINT_DIR; it cannot fetch it."""
     path = str(tmp_path / "data.hdf5")
     _make_demo_hdf5(path)
-    with pytest.raises(NotImplementedError):
+    monkeypatch.setenv("ARP_TPU_CHECKPOINT_DIR", str(tmp_path))
+    with pytest.raises(FileNotFoundError, match="vit_b16.npy"):
         tlabeler.main(["--data_path", path, "--device", "cpu"])
 
 
