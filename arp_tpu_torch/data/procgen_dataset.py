@@ -49,7 +49,7 @@ def build_instruction_tokenizer(use_bert: bool = True, max_length: int = 77, voc
 
     Returns fn(text) -> (ids int32[max_length], padding_mask float32[max_length]) with
     padding_mask 1.0 = PAD.  The vocabulary is looked up in the explicit path,
-    ``$ARP_TPU_BERT_VOCAB``, ``arp_tpu/assets/`` and the cache; nothing is fetched.
+    ``$ARP_TPU_BERT_VOCAB``, ``arp_tpu_torch/assets/`` and the cache; nothing is fetched.
     """
     if use_bert:
         from ..models.clip.tokenizer import resolve_asset

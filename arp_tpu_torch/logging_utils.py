@@ -2,7 +2,7 @@
 asked for (``online``) and importable.
 
 Each experiment writes ``<output_dir>/<experiment_id>/metrics.jsonl`` and
-``variant.json``.  Not ported: ``log_video`` (rollout videos come with eval, ROADMAP).
+``variant.json``; :meth:`MetricsLogger.log_video` writes rollout videos beside them.
 """
 
 from __future__ import annotations
@@ -83,6 +83,20 @@ class MetricsLogger:
         self._jsonl.flush()
         if self.run is not None:
             self.run.log(metrics, step=step)
+
+    def log_video(self, key: str, frames: np.ndarray, fps: int = 20):
+        """frames: (T, H, W, C) uint8 -> mp4 in the output dir (a GIF without an mp4 backend).
+        Best effort, as in the JAX package: a failure to encode (no imageio) is logged, not raised."""
+        if not self.enable:
+            return
+        try:
+            from .video import save_video
+
+            path = os.path.join(self.config.output_dir, f"{key.replace('/', '_')}.mp4")
+            path = save_video(frames, path, fps=fps)  # the path it wrote: .gif when it fell back
+            self.log({f"{key}_path": path})
+        except Exception as e:  # video encoding is best-effort
+            self.log({f"{key}_error": str(e)})
 
     @property
     def output_dir(self):

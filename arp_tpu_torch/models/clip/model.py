@@ -263,7 +263,7 @@ def load_model_vars(model_name: str, checkpoint_path: Optional[str] = None, down
     if not os.path.exists(checkpoint_path):
         raise FileNotFoundError(
             f"CLIP checkpoint not found at {checkpoint_path}: save the OpenAI state dict there as .npy "
-            "(arp_tpu/models/clip/convert.py says how) or pass the .pt archive; fetching it is not ported")
+            "(the JAX package's models/clip/convert.py says how) or pass the .pt archive; fetching it is not ported")
     if checkpoint_path.endswith(".pt"):
         state = torch.jit.load(checkpoint_path, map_location="cpu").state_dict()
         np_params = {k: v.cpu().numpy() for k, v in state.items()}

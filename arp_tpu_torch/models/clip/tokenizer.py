@@ -23,20 +23,18 @@ import numpy as np
 
 MAX_TEXT_LENGTH = 77
 BPE_FILENAME = "bpe_simple_vocab_16e6.txt.gz"
-# The vendor point shared with the JAX package (arp_tpu/assets/README.md).
-ASSETS_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))),
-    "arp_tpu", "assets",
-)
+# The port's own vendor point (assets/README.md): it reads no file of the JAX package.
+ASSETS_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))), "assets")
 
 
 def resolve_asset(filename: str, explicit: Optional[str] = None,
                   env_var: Optional[str] = None) -> Optional[str]:
     """Local path of a tokenizer asset, or None if absent everywhere.
 
-    The lookup of arp_tpu/models/clip/download.py::resolve_asset, without its
-    fetcher: the explicit path, the env var, the vendored ``arp_tpu/assets/``
-    directory, then the ``~/.cache/arp_tpu`` cache.  Never touches the network.
+    The lookup of the JAX package's models/clip/download.py::resolve_asset, without
+    its fetcher: the explicit path, the env var, the port's vendored
+    ``arp_tpu_torch/assets/`` directory, then the ``~/.cache/arp_tpu`` cache (which
+    the JAX package's fetcher fills).  Never touches the network.
     """
     candidates = [explicit]
     if env_var:
@@ -122,7 +120,10 @@ class BPETokenizer:
                 "byte-level FALLBACK vocabulary. Token ids will NOT match "
                 "OpenAI CLIP — text embeddings from pretrained checkpoints "
                 "will be wrong. Set ARP_TPU_BPE_PATH (or pass bpe_path) to "
-                "the original bpe_simple_vocab_16e6.txt.gz for exact ids.",
+                "the original bpe_simple_vocab_16e6.txt.gz for exact ids. "
+                "The port looks in arp_tpu_torch/assets/, not in the JAX "
+                "package's assets: a file vendored only there is not read, "
+                "while ARP_TPU_BPE_PATH is read by both packages.",
                 stacklevel=2,
             )
 
@@ -221,7 +222,7 @@ def build_tokenizer(bpe_path: Optional[str] = None, truncate: bool = False):
     """Returns a tokenize fn: texts -> (n, 77) int32 ids.
 
     Merges-file resolution (first hit wins): explicit ``bpe_path``,
-    ``ARP_TPU_BPE_PATH``, the vendored ``arp_tpu/assets/`` dir, the
+    ``ARP_TPU_BPE_PATH``, the vendored ``arp_tpu_torch/assets/`` dir, the
     ``~/.cache/arp_tpu`` cache.  Exact OpenAI ids whenever any source is
     present; loud fallback vocab otherwise.
     """

@@ -220,6 +220,13 @@ def resize_bicubic_pil_reference(images: np.ndarray, out_h: int, out_w: int) -> 
     return x.reshape(b, out_h, out_w, c).astype(np.uint8)
 
 
+def center_crop_np(images: np.ndarray, crop_h: int, crop_w: int) -> np.ndarray:
+    """Host-side center crop of (B, H, W, C) numpy frames, with :func:`center_crop`'s arithmetic (a view)."""
+    start_h = int((images.shape[1] - crop_h) / 2)
+    start_w = int((images.shape[2] - crop_w) / 2)
+    return images[:, start_h : start_h + crop_h, start_w : start_w + crop_w, :]
+
+
 def center_crop(images: torch.Tensor, crop_h: int, crop_w: int) -> torch.Tensor:
     """Center crop of (B, H, W, C), with the JAX package's arithmetic (a view)."""
     start_h = int((images.shape[1] - crop_h) / 2)

@@ -99,7 +99,7 @@ def tree_map(fn: Callable, *trees):
     return fn(*trees)
 
 
-def _to_host(out) -> np.ndarray:
+def to_host(out) -> np.ndarray:
     """A policy_fn's or transform's result (tensor or array) as a numpy array on the host."""
     return out.detach().cpu().numpy() if isinstance(out, torch.Tensor) else np.asarray(out)
 
@@ -200,7 +200,7 @@ class _MicroBatcher:
         batched = tree_map(stack, *[it["inputs"] for it in items])
         self.dispatches += 1
         self.batched_requests += n
-        return _to_host(self.policy_fn(batched))[:n]
+        return to_host(self.policy_fn(batched))[:n]
 
 
 class PolicyServer:
@@ -248,14 +248,14 @@ class PolicyServer:
             raise UnknownSession(sid)
         obs = np.asarray(body["observation"], np.uint8)
         if self.transform_obs_fn is not None:
-            obs = _to_host(self.transform_obs_fn(obs))
+            obs = to_host(self.transform_obs_fn(obs))
         with session.lock:
             session.push(obs, body.get("reward"))
             inputs = session.inputs()
             if self._batcher is not None:
                 action = self._batcher.submit(inputs)
             else:
-                action = int(_to_host(self.policy_fn(inputs))[0])
+                action = int(to_host(self.policy_fn(inputs))[0])
             session.record_action(action)
             return {"action": action, "rtg": float(session.rtg * session.scale)}
 
@@ -275,7 +275,7 @@ class PolicyServer:
         and the micro-batcher pads groups to power-of-two buckets: the product
         is the complete signature set.
         """
-        obs = _to_host(obs)
+        obs = to_host(obs)
         buckets = [1]
         if self._batcher is not None:
             while buckets[-1] < self._batcher.max_batch:
@@ -290,7 +290,7 @@ class PolicyServer:
                     "instruct": None,
                     "text_padding_mask": None,
                 }
-                _to_host(self.policy_fn(inputs))
+                to_host(self.policy_fn(inputs))
                 warmed.append((w, b))
         return warmed
 

@@ -14,8 +14,14 @@ no mask, and ``clip_grad_norm_`` adds 1e-6 to the norm.  Here, as in optax:
   * the sum is multiplied by ``-lr(count)``, the schedule at the count of updates
     made *before* this one, and added to the parameter.
 
-Not ported yet: ``flops_analysis`` (waits for the profiler's counts),
-``build_test_step`` and ``resolve_goal_eval_data`` (rollout eval, ROADMAP).
+:func:`build_test_step` is the rollout eval (envs/rollout.py) with the reward
+engine the flags ask for.  Greedy actions (``eval_temperature`` 0, the
+default) are the JAX package's; with a temperature the actions are drawn by
+``BasePolicy.sample_action`` from a ``torch.Generator`` seeded by (the eval's
+seed, the policy call's index), reproducible under one seed but not the JAX
+key stream's draws.
+
+Not ported yet: ``flops_analysis`` (waits for the profiler's counts).
 """
 
 from __future__ import annotations
@@ -28,6 +34,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..data.instructions import get_clip_special_instruct, get_eval_instruct, get_m3ae_instruct
+from ..device import resolve_device
 from ..models.policy import ARPDT, BC, GCBC
 
 log = logging.getLogger(__name__)
@@ -343,3 +351,240 @@ def _mean_metrics(metric_list, prefix: str = "") -> dict:
         return float(v.detach().float().mean()) if isinstance(v, torch.Tensor) else float(np.mean(v))
 
     return {f"{prefix}{k}": float(np.mean([value(m[k]) for m in metric_list])) for k in metric_list[0]}
+
+
+# -- rollout eval -----------------------------------------------------------------------------------
+
+def resolve_goal_eval_data(flags_obj):
+    """(eval_data_path | None, filename) for goal-conditioned eval.
+
+    An explicit --eval_data_path wins; with --eval_with_goal the reference
+    derives the eval-level dataset dir (start_level+num_levels ..
+    num_levels*2, num_test_episodes*10 demos) and reads its eval file
+    (main_procgen.py:342-350, :614-632).  The collect stage writes
+    data_{split}.hdf5, so the filename default is data_train.hdf5,
+    overridable via --eval_data_name.
+    """
+    eval_data_path = flags_obj.eval_data_path or None
+    eval_data_name = getattr(flags_obj, "eval_data_name", "") or "data_train.hdf5"
+    if (
+        eval_data_path is not None
+        and not getattr(flags_obj, "eval_data_name", "")
+        and not os.path.exists(os.path.join(eval_data_path, eval_data_name))
+        and os.path.exists(os.path.join(eval_data_path, "data.hdf5"))
+    ):
+        # pre-existing eval dirs may carry a plain data.hdf5
+        eval_data_name = "data.hdf5"
+    if eval_data_path is None and getattr(flags_obj, "eval_with_goal", False):
+        from ..data.procgen_dataset import dataset_dirname
+
+        name = dataset_dirname(
+            flags_obj.game_name,
+            distribution_mode=flags_obj.env_distribution_mode,
+            start_level=flags_obj.env_start_level + flags_obj.env_num_levels,
+            num_levels=flags_obj.env_num_levels * 2,
+            num_demonstrations=flags_obj.num_test_episodes * 10,
+            num_frames=flags_obj.data.num_frames,
+            enable_filter=True,
+            env_type=flags_obj.env_eval_env_type,
+        )
+        eval_data_path = os.path.join(flags_obj.data.path, name)
+    return eval_data_path, eval_data_name
+
+
+def build_reward_engine(flags_obj, device="cuda"):
+    """(engine | None, instruction text | None) of the eval's on-the-fly rewards, as the JAX
+    package's build_test_step chooses them: ``clip_ft*`` with ``--vl_checkpoint`` the fine-tuned
+    adapter's engine; a ``.npz`` spec; else CLIP (``clip_ft*`` without a checkpoint falls back to
+    it, with a warning).  Every engine is built with ``use_crop=False``: the rollout crops on the
+    host once.  No CLIP checkpoint: a warning and no engine (the rtg stays constant)."""
+    if not flags_obj.use_vl:
+        return None, None
+    game = (
+        flags_obj.game_name
+        if flags_obj.env_eval_env_type == "none"
+        else f"{flags_obj.game_name}_{flags_obj.env_eval_env_type}"
+    )
+    if getattr(flags_obj, "eval_instruct", ""):
+        # an explicit override (task-specific text for eval splits the instruction assets miss)
+        text = flags_obj.eval_instruct
+    elif flags_obj.data.inst_type != "none":
+        text = get_clip_special_instruct(game, flags_obj.data.inst_type)
+    else:
+        text = get_eval_instruct(game)
+    compute_dtype = torch.bfloat16 if flags_obj.reward_bf16 else torch.float32
+    vl_ckpt = getattr(flags_obj, "vl_checkpoint", "") or ""
+    try:
+        if flags_obj.vl_type.startswith("clip_ft") and vl_ckpt:
+            from ..finetune.reward import ClipFtRewardEngine, load_adapter_params
+
+            engine = ClipFtRewardEngine(load_adapter_params(vl_ckpt), batch_size=64, use_crop=False, device=device)
+        elif vl_ckpt.endswith(".npz"):
+            # a self-contained engine spec (the JAX package's ClipRewardEngine.save_npz): online
+            # rewards from the same tower that labeled the training data
+            from ..reward.engine import ClipRewardEngine
+
+            engine = ClipRewardEngine.from_npz(vl_ckpt, batch_size=64, resize_mode="pil", use_crop=False,
+                                               compute_dtype=compute_dtype, device=device)
+        else:
+            from ..reward.engine import ClipRewardEngine
+
+            if flags_obj.vl_type.startswith("clip_ft"):
+                log.warning("vl_type=%s but no --vl_checkpoint given: eval rewards fall back to base CLIP and will "
+                            "NOT match clip_ft training labels", flags_obj.vl_type)
+            engine = ClipRewardEngine(batch_size=64, resize_mode="pil", use_crop=False, compute_dtype=compute_dtype,
+                                      device=device)
+    except FileNotFoundError:
+        log.warning("no CLIP checkpoint for eval rewards; rtg stays constant")
+        engine = None
+    if engine is not None and text is None and flags_obj.vl_type in ("clip", "clip_ft"):
+        # fail here with guidance instead of deep inside the rollout's tokenizer
+        raise ValueError(f"no eval instruction for {game!r} (inst_type={flags_obj.data.inst_type!r}); "
+                         "pass --eval_instruct")
+    return engine, text
+
+
+def eval_generator(seed: int, call: int, device) -> torch.Generator:
+    """The temperature draws of the eval's ``call``-th policy call: a function of (seed, call) alone."""
+    return torch.Generator(device=device).manual_seed(int(seed) * 1_000_003 + call)
+
+
+def build_test_step(flags_obj, model, train_dataset, eval_transform, use_text, mesh=None, device="cuda"):
+    """Rollout-eval step factory (reference create_test_step, main_procgen.py:171-229).
+
+    Returns ``test_step_fn(state, seed) -> (metric, info, videos)``: ``state`` is a TrainState, a
+    policy, or None for ``model`` (the weights evaluated are its), ``seed`` seeds the temperature
+    draws.
+    ``eval_transform`` gives float32 frames on ``device``, where the policy's windows and the
+    reward engine (:func:`build_reward_engine`) live.  Returns None (with a loud warning) for cached-embedding
+    policies: rollout eval needs live image encoding, and a ``*_cached`` model has no encoder to
+    run on env frames; every caller must handle the None.
+    """
+    if mesh is not None:
+        raise NotImplementedError("build_test_step(mesh) is not ported yet (ROADMAP Queue 1, item 12)")
+    if flags_obj.model.transfer_type.endswith("_cached"):
+        log.warning("rollout eval disabled: transfer_type=%s consumes precomputed embeddings and cannot encode env "
+                    "frames — evaluate the converted live-encoder model instead", flags_obj.model.transfer_type)
+        return None
+    from ..envs.fake import FakeProcgen
+    from ..envs.rollout import batch_rollout, load_goal_and_state, open_goal_eval, parallel_rollout
+
+    device = resolve_device(device)
+    env_conf = {
+        "episode_length": flags_obj.episode_length,
+        "eval_env_type": flags_obj.env_eval_env_type,
+        "distribution_mode": flags_obj.env_distribution_mode,
+        "num_levels": flags_obj.env_num_levels,
+        "start_level": flags_obj.env_start_level,
+    }
+    fake_conf = {
+        "episode_length": flags_obj.episode_length,
+        "hidden_goal": bool(getattr(flags_obj, "env_hidden_goal", False)),
+    }
+
+    def make_envs(k, **extra):
+        if flags_obj.eval_env == "fake":
+            return [FakeProcgen(flags_obj.game_name, dict(fake_conf, **extra)) for _ in range(k)]
+        from ..envs.procgen import Procgen
+
+        return [Procgen(flags_obj.game_name, dict(env_conf, **extra)) for _ in range(k)]
+
+    instruct_info = {"instruct": None, "text_padding_mask": None}
+    if use_text:
+        ids, pad = train_dataset.tokenizer(get_m3ae_instruct(flags_obj.game_name) or "")
+        instruct_info = {"instruct": torch.as_tensor(np.asarray(ids)[None]).to(device),
+                         "text_padding_mask": torch.as_tensor(np.asarray(pad)[None]).to(device)}
+
+    reward_engine, text = build_reward_engine(flags_obj, device)
+
+    # 0.0 = greedy (reference parity, ARPDT.py:488-492); > 0 = seeded temperature sampling
+    temperature = float(getattr(flags_obj, "eval_temperature", 0.0) or 0.0)
+
+    def make_policy(state, seed):
+        policy = model if state is None else getattr(state, "model", state)
+        calls = {"n": 0}
+
+        @torch.no_grad()
+        def policy_fn(inputs, rngs):
+            del rngs  # the draws come from (seed, call)
+            merged = dict(inputs)
+            b = merged["action"].shape[0]
+            # instruct only where the caller left it unset, tiled to the env batch
+            for k, v in instruct_info.items():
+                if merged.get(k) is None and v is not None:
+                    merged[k] = v.expand(b, *v.shape[1:])
+            if temperature > 0.0:
+                gen = eval_generator(seed, calls["n"], policy.device)
+                calls["n"] += 1
+                return policy.sample_action(merged, gen, temperature)
+            return policy.greedy_action(merged)
+
+        return policy_fn
+
+    return_to_go = (
+        getattr(train_dataset, "return_to_go", 1000.0)
+        if flags_obj.return_to_go == 0
+        else flags_obj.return_to_go
+    )
+    scale = getattr(train_dataset, "scale", 100.0)
+    eval_data_path, eval_data_name = resolve_goal_eval_data(flags_obj)
+    common = dict(transform_obs_fn=eval_transform, episode_length=flags_obj.episode_length,
+                  window_size=flags_obj.window_size, return_to_go=return_to_go, scale=scale,
+                  reward_engine=reward_engine, vl_type=flags_obj.vl_type, text=text,
+                  reward_min=getattr(train_dataset, "reward_min", 0.0), use_normalize=flags_obj.data.use_normalize,
+                  use_crop=flags_obj.use_crop, device=device)
+
+    n_parallel = int(getattr(flags_obj, "eval_parallel_envs", 0) or 0)
+    if n_parallel > 1:
+        # N env copies step in lockstep so the policy and reward model run real batches; episodes
+        # run in waves of n_parallel, and the metrics are episode-weighted means over the waves
+        def parallel_test_step_fn(state, seed):
+            policy = make_policy(state, seed)
+            total = flags_obj.num_test_episodes
+            eval_hdf5 = traj_idx = None
+            if eval_data_path is not None:
+                eval_hdf5, traj_idx = open_goal_eval(eval_data_path, eval_data_name, total)
+            metrics, weights = [], []
+            try:
+                for wave_start in range(0, total, n_parallel):
+                    eps = list(range(wave_start, min(wave_start + n_parallel, total)))
+                    goals = states = None
+                    if eval_hdf5 is not None:
+                        pairs = [load_goal_and_state(eval_data_path, eval_hdf5, traj_idx, ep) for ep in eps]
+                        states = [s for _, s in pairs]
+                        # goal-swap sensitivity probe: episode ep's initial state with episode
+                        # (ep + shift)'s goal frame
+                        shift = int(getattr(flags_obj, "eval_goal_shift", 0) or 0)
+                        if shift:
+                            goals = np.stack([
+                                load_goal_and_state(eval_data_path, eval_hdf5, traj_idx, (ep + shift) % total)[0]
+                                for ep in eps
+                            ])
+                        else:
+                            goals = np.stack([g for g, _ in pairs])
+                    # record_video off: parallel_rollout returns no videos
+                    m = parallel_rollout(rng=seed, envs=make_envs(len(eps), record_video=False), policy_fn=policy,
+                                         goal_images=goals, initial_states=states,
+                                         feed_goal_to_policy=eval_hdf5 is not None, seed_offset=wave_start, **common)
+                    metrics.append(m)
+                    weights.append(len(eps))
+            finally:
+                if eval_hdf5 is not None:
+                    eval_hdf5.close()
+            if not metrics:  # num_test_episodes == 0: degrade like a skipped eval
+                nan = np.float32("nan")
+                return {"return": nan, "episode_length": nan, "success_rate": nan}, {"episode_len": 0.0}, []
+            wsum = sum(weights)
+            metric = {k: np.float32(sum(float(m[k]) * w for m, w in zip(metrics, weights)) / wsum) for k in metrics[0]}
+            return metric, {"episode_len": float(metric["episode_length"])}, []
+
+        return parallel_test_step_fn
+
+    (environment,) = make_envs(1)
+
+    def test_step_fn(state, seed):
+        return batch_rollout(rng=seed, data_aug_rng=seed, env=environment, policy_fn=make_policy(state, seed),
+                             num_episodes=flags_obj.num_test_episodes, eval_data_path=eval_data_path,
+                             data_name=eval_data_name, **common)
+
+    return test_step_fn

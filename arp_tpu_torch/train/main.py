@@ -14,11 +14,18 @@ What differs from the JAX trainer, on purpose:
     generator seeded by (seed, step): a resumed run continues exactly as an
     uninterrupted one would (the JAX trainer resumes at the saved step, so it
     trains on that step's batch twice, and restarts its key chain);
-  * no ``flops_analysis`` (the cost/flops entry of the log).
+  * no ``flops_analysis`` (the cost/flops entry of the log);
+  * the rollout eval's temperature draws (``--eval_temperature`` > 0) come from
+    a torch generator seeded by (seed + step, policy call), not JAX's keys.
+
+Rollout eval (``--eval_env fake|procgen``) runs every ``test_every_epochs``
+and at the last step (train/common.py::build_test_step, envs/rollout.py), on
+the card with the policy; its return is the score ``best.pt`` keeps
+(``--checkpoint_dir``).
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-rollout eval (``--eval_env fake|procgen``), several devices (``--mesh_*``
-above 1), ``--load_checkpoint`` (reference pickles), ``--data.use_arps``.
+several devices (``--mesh_*`` above 1), ``--load_checkpoint`` (reference
+pickles), ``--data.use_arps``.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ from .common import (
     build_lr_schedule,
     build_model,
     build_optimizer,
+    build_test_step,
     get_dummy_input,
     make_eval_loss_fn,
     make_loss_fn,
@@ -94,10 +102,6 @@ def parse_flags(argv=None) -> Config:
 
 def check_ported(flags) -> None:
     """Every flag whose path is not ported raises, naming its ROADMAP item."""
-    if flags.eval_env != "none":
-        raise NotImplementedError(
-            f"--eval_env={flags.eval_env}: rollout eval is not ported yet (ROADMAP Queue 1, item 5); use --eval_env=none"
-        )
     for name in ("mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_pp", "mesh_dcn_dp"):
         if flags[name] > 1:
             raise NotImplementedError(f"--{name}={flags[name]}: several devices are not ported yet (ROADMAP Queue 1, item 12)")
@@ -210,6 +214,11 @@ def main(argv=None):
         accum_steps=flags.accum_steps,
     )
     eval_step = make_eval_step(make_eval_loss_fn(model, eval_transform, use_goal))
+    # rollout eval (None for cached-embedding policies, which cannot encode env frames)
+    test_step_fn = None
+    if flags.eval_env != "none":
+        test_step_fn = build_test_step(flags, model, train_dataset, eval_transform, use_text, device=device)
+    best_eval_score = -np.inf
 
     pin = device.type == "cuda"
     # exact resume: the loader fast-forwards past the batches already consumed
@@ -299,6 +308,22 @@ def main(argv=None):
                     logged.update(step=step, epoch=epoch)
                     logger.log(logged)
 
+            if (test_step_fn is not None and flags.test_every_epochs > 0 and step > 0
+                    and (step % (flags.test_every_epochs * steps_per_epoch) == 0 or step == total_steps - 1)):
+                metric, _, videos = test_step_fn(state, flags.seed + step)
+                logged = {f"test/{k}": float(v) for k, v in metric.items()}
+                logged.update(step=step, epoch=epoch)
+                logger.log(logged)
+                if videos:
+                    logger.log_video(f"media/test_step{step}", videos[0])
+                score = float(metric["return"])
+                if ckpt is not None:
+                    if np.isfinite(score) and tree_finite([p for _, p in state.params]):
+                        ckpt.save_best(step + 1, state, score, metadata={"step": step + 1})
+                    else:
+                        log.error("skipping best-save at step %d: non-finite score/params", step)
+                best_eval_score = max(best_eval_score, score)
+
             if ckpt is not None and step and ((save_model_freq > 0 and step % save_model_freq == 0)
                                               or step == total_steps - 1):
                 # a NaN checkpoint would defeat fault_policy=rollback
@@ -316,7 +341,7 @@ def main(argv=None):
     finally:
         train_iter.close()
         preemption.restore()
-    logger.log({"final_step": total_steps, "best_eval_score": float(-np.inf)})  # no rollout eval yet
+    logger.log({"final_step": total_steps, "best_eval_score": float(best_eval_score)})
     logger.close()
 
 

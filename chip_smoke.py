@@ -78,6 +78,19 @@ Phases, each printing one JSON line:
                launches, reward MAE against a CPU engine of the same mode; on fast_int8 the
                F2 measurement (the same calibrated trunk through K2 and through K2's plain
                version on the card).
+ 15. rollout — stage 5 at the flagship policy configuration through the trainer's
+               build_test_step (vit_base ARPDT over the m3ae_vit_b16 tower, adapter, window 4,
+               15 actions; vl_type clip with rewards from a CLIP ViT-B/16 engine spec of random
+               weights, written as the JAX package's save_npz writes one): FakeProcgen at 64 x 64
+               with episodes cut to 64 steps; (a) the sequential batch_rollout, 1 env x 2
+               episodes, frozen_bf16; (b) one wave of 10 lockstep envs (num_test_episodes 10) in
+               frozen_bf16 and frozen_int8; (c) 10 envs x 16 steps with the clip_ft engine on the
+               finetune phase's adapter.  Each: steps/s, env-steps/s, ms a step split into policy,
+               reward and env + transform, launches, the rtg trace (it must move).  Then one
+               profiled window (10 envs x 8 steps) and (d) the card against the CPU: 4 envs x 6
+               steps with float32 towers on both from one set of weights and seeds, the card
+               following the CPU's actions; greedy actions equal wherever the CPU's top-2 logits
+               are more than 1e-3 apart, rtg windows within 1e-4.
 Each timed shape of k1, k2 and k3 also carries ``bound_ms``: the least time the
 card could take, the larger of the bytes the function must move over the memory
 rate and its operations over the peak rate of their type (PEAK below).
@@ -88,11 +101,12 @@ failure raises and exits non-zero; without CUDA it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
 import time
-from collections import defaultdict
+from collections import Counter, defaultdict
 
 import numpy as np
 import torch
@@ -361,6 +375,14 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
     cases["finetune_text"] = (FT_BATCH, 77, 8, 64, MaskSpec("causal"),
                               instruction_pad.expand(FT_BATCH, 77).contiguous())
     cases["slice_ft_text"] = (1, 77, 8, 64, MaskSpec("causal"), instruction_pad)
+    # the rollout: the tower at B * w frames while the window fills (w = 1..4; B = 1 sequential, the
+    # card-vs-CPU run's envs, a wave's), the policy blocks at those batches, the reward engine's ViT at
+    # build_test_step's batch (the text is slice_ft_text's)
+    for b in sorted({1, ROLLOUT_CPU_ENVS, ROLLOUT_ENVS}):
+        for w in range(1, POLICY_WINDOW + 1):
+            cases[f"rollout_tower_b{b * w}"] = (b * w, M3AE_TOKENS, 12, 64, MaskSpec("none"), None)
+            cases[f"rollout_policy_b{b}_n{3 * w}"] = (b, 3 * w, 8, 16, MaskSpec("dt", 1, 3), None)
+    cases["rollout_engine_vit"] = (ROLLOUT_ENGINE_BATCH, TOKENS, 12, 64, MaskSpec("none"), None)
 
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -409,7 +431,9 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
                 "library_ms": t["library"], "library": "scaled_dot_product_attention",
                 **bound(4 * q.numel() * q.element_size(), 4 * d * pairs, "bf16" if dtype == torch.bfloat16 else "f32")}
     emit("k1_time", timings=timings)
-    return {"max_abs_err": max_err, "timings": timings}
+    checked = {k1_key(b, n, h, d, spec, pad is not None, dtype)
+               for b, n, h, d, spec, pad in cases.values() for dtype in K1_ATOL}
+    return {"max_abs_err": max_err, "timings": timings, "checked": checked}
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor, floor: float = 0.0) -> float:
@@ -511,6 +535,10 @@ def phase_k2(vi, quant) -> dict:
     for m in (1, 129, 1003):  # the tanh-GELU over ragged rows, and beyond the scale
         cases[f"ragged_m{m}_gelu_tanh"] = (m, 768, 3072, torch.bfloat16, "gelu_tanh", "dense", 1.05, True)
     cases["m1003_k768_n3072_gelu_tanh_clamped_f32"] = (1003, 768, 3072, torch.float32, "gelu_tanh", "dense", 0.4, True)
+    for w in range(1, POLICY_WINDOW + 1):  # the frozen_int8 tower in a rollout wave while the window fills
+        for label, (_, k, n, dtype, act) in K2_M3AE_SITES.items():
+            m = ROLLOUT_ENVS * w * (M3AE_TOKENS - 1 if label == "m3ae_img" else M3AE_TOKENS)
+            cases[f"rollout_{label}_m{m}"] = (m, k, n, dtype, act, "dense", 1.05, True)
     errors = {}
     for label, (m, k, n, dtype, act, layout, margin, with_bias) in cases.items():
         x, a, wq, ws, bias, wq_t = k2_inputs(m, k, n, dtype, gen, quant, layout, margin)
@@ -584,7 +612,8 @@ def phase_k2(vi, quant) -> dict:
               f"K2 {label}: {timings[label]['ms']} ms is not faster than the bf16 matmul with the same "
               f"epilogue, {timings[label]['bf16_matmul_ms']} ms")
     return {"max_abs_err": max(e["max_abs_err"] for e in errors.values()),
-            "max_bf16_ulps": max(e["ulps"] for e in errors.values()), "timings": timings}
+            "max_bf16_ulps": max(e["ulps"] for e in errors.values()), "timings": timings,
+            "checked": {k2_key(m, k, n, dtype, act) for m, k, n, dtype, act, *_ in cases.values()}}
 
 
 # K3's shapes under quantize_weights at batch 256 (M, K, N); ragged M, N and K last
@@ -823,28 +852,62 @@ def cosine(a, b) -> float:
     return float(a @ b / (a.norm() * b.norm() + 1e-12))
 
 
-class K1Recorder:
-    """Stands in for ``attention.flash_attention_fwd`` while in place, and notes (mask kind, N,
-    heads, head_dim, dtype, padding, whether q, k or v need a gradient) of every K1 launch; the
-    launch count stays the wrapper's own."""
+def k1_key(b, n, h, d, spec, padded: bool, dtype) -> str:
+    """A K1 shape as k1_check holds it and a path launches it."""
+    return (f"{spec.kind}/{spec.num_obs_token}/{spec.num_token_per_step} b={b} n={n} h={h} d={d} "
+            f"{str(dtype).removeprefix('torch.')}{' padded' if padded else ''}")
 
-    def __init__(self, attn):
-        self.attn, self.real, self.shapes = attn, attn.flash_attention_fwd, []
 
-    def __call__(self, q, k, v, spec, kv_padding=None):
-        self.shapes.append((spec.kind, q.shape[1], q.shape[2], q.shape[3], str(q.dtype).removeprefix("torch."),
-                            kv_padding is not None, any(x.requires_grad for x in (q, k, v))))
-        return self.real(q, k, v, spec, kv_padding)
+def k2_key(m, k, n, dtype, act) -> str:
+    """A K2 shape as k2_check holds it and a path launches it."""
+    return f"m={m} k={k} n={n} {str(dtype).removeprefix('torch.')} {act}"
 
-    launches = property(lambda self: self.real.launches,  # the wrapper counts through its module's name
-                        lambda self, n: setattr(self.real, "launches", n))
+
+class KernelStandIn:
+    """While in place, ``k1(real, *args)`` stands in for K1's wrapper (``attention.flash_attention_fwd``)
+    and ``k2(real, *args)`` for K2's (``vit_infer.fused_int8_matmul`` and ``m3ae_infer``'s import of it);
+    None leaves a kernel alone.  The launch counts stay the wrappers' own."""
+
+    class _Fn:
+        def __init__(self, real, fn):
+            self.real, self.fn = real, fn
+
+        def __call__(self, *args, **kwargs):
+            return self.fn(self.real, *args, **kwargs)
+
+        launches = property(lambda self: self.real.launches,  # a wrapper counts through its module's name
+                            lambda self, n: setattr(self.real, "launches", n))
+
+    def __init__(self, k1=None, k2=None):
+        from arp_tpu_torch.ops import attention, m3ae_infer, vit_infer
+
+        self.sites = ([(attention, "flash_attention_fwd", k1)] if k1 else []) + (
+            [(vit_infer, "fused_int8_matmul", k2), (m3ae_infer, "fused_int8_matmul", k2)] if k2 else [])
 
     def __enter__(self):
-        self.attn.flash_attention_fwd = self
+        self.saved = [(mod, name, getattr(mod, name)) for mod, name, _ in self.sites]
+        for mod, name, fn in self.sites:
+            setattr(mod, name, self._Fn(getattr(mod, name), fn))
         return self
 
     def __exit__(self, *exc):
-        self.attn.flash_attention_fwd = self.real
+        for mod, name, real in reversed(self.saved):
+            setattr(mod, name, real)
+
+
+class K1Recorder(KernelStandIn):
+    """While in place, notes (mask kind, N, heads, head_dim, dtype, padding, whether q, k or v need a
+    gradient) of every K1 launch; the launch count stays the wrapper's own."""
+
+    def __init__(self):
+        self.shapes = []
+
+        def k1(real, q, k, v, spec, kv_padding=None):
+            self.shapes.append((spec.kind, q.shape[1], q.shape[2], q.shape[3], str(q.dtype).removeprefix("torch."),
+                                kv_padding is not None, any(x.requires_grad for x in (q, k, v))))
+            return real(q, k, v, spec, kv_padding)
+
+        super().__init__(k1=k1)
 
     def counts(self) -> dict:
         out = defaultdict(int)
@@ -852,6 +915,37 @@ class K1Recorder:
             out["{} n={} h={} d={} {}{}{}".format(*shape[:5], " padded" if shape[5] else "",
                                                    " grad" if shape[6] else "")] += 1
         return dict(out)
+
+
+class LaunchShapes(KernelStandIn):
+    """While in place, counts K1's and K2's calls (on the card: launches) by ``k1_key`` / ``k2_key``."""
+
+    def __init__(self):
+        self.k1, self.k2 = Counter(), Counter()
+
+        def k1(real, q, k, v, spec, kv_padding=None):
+            self.k1[k1_key(*q.shape, spec, kv_padding is not None, q.dtype)] += 1
+            return real(q, k, v, spec, kv_padding)
+
+        def k2(real, x, a_scale, wq, w_scale, bias=None, act="none", wq_t=None):
+            self.k2[k2_key(*x.shape, wq.shape[1], x.dtype, act)] += 1
+            return real(x, a_scale, wq, w_scale, bias, act, wq_t=wq_t)
+
+        super().__init__(k1, k2)
+
+
+def plain_kernels(k1: bool = True, k2: bool = True) -> KernelStandIn:
+    """K1 and K2 replaced by their plain versions on whatever device the tensors are (K1's: float32
+    scores and softmax, out in q's dtype); nothing launches."""
+    from arp_tpu_torch.ops import attention, vit_infer
+
+    def plain_k1(real, q, k, v, spec, kv_padding=None):
+        return attention.reference_attention(q.float(), k.float(), v.float(), spec, kv_padding).to(q.dtype)
+
+    def plain_k2(real, x, a_scale, wq, w_scale, bias=None, act="none", wq_t=None):
+        return vit_infer.fused_int8_matmul_reference(x, a_scale, wq, w_scale, bias, act)
+
+    return KernelStandIn(plain_k1 if k1 else None, plain_k2 if k2 else None)
 
 
 DEVICE = "cuda"  # where the policy path's phases run (a CPU rehearsal of their control flow sets "cpu")
@@ -946,7 +1040,7 @@ def phase_m3ae(counters, attn, m3ae_lib, m3ae_infer, flax_m3ae_to_torch) -> dict
                 sync()
                 for fn in counters.values():
                     fn.launches = 0
-                with K1Recorder(attn) as rec:
+                with K1Recorder() as rec:
                     got = gpu_run(p, **on_card)
                 sync()
                 launches = launch_counts(counters)
@@ -1042,7 +1136,7 @@ def phase_policy(counters, attn, policy_lib, flax_m3ae_to_torch) -> tuple[dict, 
             sync()
             for fn in counters.values():
                 fn.launches = 0
-            with K1Recorder(attn) as rec:
+            with K1Recorder() as rec:
                 out = model(on_card, deterministic=True)
             sync()
             launches = launch_counts(counters)
@@ -1268,7 +1362,7 @@ def phase_train(counters, attn, policy_lib, flax_m3ae_to_torch) -> dict:
         sync()
         for fn in counters.values():
             fn.launches = 0
-        with K1Recorder(attn) as rec:
+        with K1Recorder() as rec:
             _, aux = step(state, on_card, gen)
         sync()
         launches = launch_counts(counters)
@@ -1780,24 +1874,412 @@ def f2_measurement(eng, frames, want, rows, vit_infer) -> dict:
     tensors, called in K2's place for this check only; the reward MAE between the two runs, and each
     run's against the CPU engine on the rows it recomputed."""
     with_k2 = eng.text_rewards(frames, FT_TEXT)
-    real = vit_infer.fused_int8_matmul
-
-    def plain(x, a_scale, wq, w_scale, bias=None, act="none", wq_t=None):
-        return vit_infer.fused_int8_matmul_reference(x, a_scale, wq, w_scale, bias, act)
-
-    vit_infer.fused_int8_matmul = plain
-    try:
-        before = real.launches
+    before = vit_infer.fused_int8_matmul.launches
+    with plain_kernels(k1=False):
         with_plain = eng.text_rewards(frames, FT_TEXT)
-        check(real.launches == before, "F2: the plain run launched K2")
-    finally:
-        vit_infer.fused_int8_matmul = real
+    check(vit_infer.fused_int8_matmul.launches == before, "F2: the plain run launched K2")
     result = dict(frames=len(frames), k2_vs_plain_on_card_mae=float(np.abs(with_k2 - with_plain).mean()),
                   k2_vs_plain_on_card_max=float(np.abs(with_k2 - with_plain).max()),
                   k2_vs_cpu_mae=float(np.abs(with_k2[rows] - want).mean()),
                   plain_on_card_vs_cpu_mae=float(np.abs(with_plain[rows] - want).mean()), rows=len(rows))
     emit("f2", **result)
     return result
+
+
+# --- stage 5: rollout eval with on-the-fly rewards ---------------------------------------------------
+
+ROLLOUT_EPISODE_LEN = 64  # steps an episode: the flagship's 500 (jobs/train_procgen.sh:37) cut to fit the run
+ROLLOUT_ENVS = 10  # the flagship's num_test_episodes: one wave of eval_parallel_envs=10
+ROLLOUT_SEQ_EPISODES = 2  # the sequential batch_rollout: one env, two episodes
+ROLLOUT_FT_STEPS = 16  # the clip_ft rollout: ROLLOUT_ENVS envs for this many steps
+ROLLOUT_PROFILE_STEPS = 8  # the profiled window: ROLLOUT_ENVS envs for this many steps
+ROLLOUT_CPU_ENVS, ROLLOUT_CPU_STEPS = 4, 6  # the card against the CPU, float32 towers
+ROLLOUT_RETURN_TO_GO = 1000.0  # the dataset stand-in's return-to-go (the JAX default when a dataset has none)
+ROLLOUT_ENGINE_BATCH = 64  # the reward engine's batch in build_test_step (arp_tpu_torch/train/common.py)
+# The card's greedy action must be the CPU's wherever the CPU's two largest logits are further apart
+# than this (float32 towers on both: sums in other orders through 12 layers, ~1e-5 on the logits).
+# Each step's rewards must agree within BASELINE.json's 1e-4 (F32_REWARD_MAE, on every reward); the
+# rtg windows then within steps * (1e-4 / scale + a float32 ulp of the first rtg) (rollout_rtg_atol).
+ROLLOUT_MARGIN = 1e-3
+# One rollout step's policy logits through the kernels against the same step with K1 and K2 replaced by
+# their plain versions on the card: only the kernels' own roundings differ (K1 within K1_ATOL, K2 within
+# one bf16 ulp, which can move an int8 value one step).  The card against the CPU in frozen_int8, which
+# has those and every other rounding, gives a cosine of 0.9998 (the policy phase); a wrong tile or row
+# at the rollout's shapes gives an env's logits far off.  Each env's logits: cosine at least this.
+ROLLOUT_PLAIN_MIN_COSINE = 0.999
+
+
+def rollout_rtg_atol(scale: float, steps: int, first_rtg: float) -> float:
+    return steps * (F32_REWARD_MAE / scale + float(np.spacing(np.float32(first_rtg))))
+
+
+class RolloutDataset:
+    """What build_test_step reads of the training dataset (return_to_go, scale, reward_min), in memory:
+    the card's machine has no h5py."""
+
+    return_to_go = ROLLOUT_RETURN_TO_GO
+    reward_min = 0.0
+
+    def __init__(self):
+        from arp_tpu_torch.data.procgen_dataset import compute_scale
+
+        self.scale = compute_scale(self.return_to_go)
+
+    def tokenizer(self, text):
+        raise RuntimeError("use_text is off on the flagship configuration")
+
+
+def write_engine_spec(path: str, variables: dict, cfg: dict, image_size: int) -> str:
+    """An engine spec in the JAX package's ClipRewardEngine.save_npz layout (config, tokenizer tag, image
+    size and the Flax variables flattened by "/"), for ``--vl_checkpoint <spec>.npz``."""
+    flat = {}
+
+    def walk(tree, prefix):
+        for key, value in tree.items():
+            name = f"{prefix}/{key}" if prefix else key
+            if isinstance(value, dict):
+                walk(value, name)
+            else:
+                flat[name] = np.asarray(value)
+
+    walk(variables, "")
+    meta = {"clip_config": dict(cfg), "tokenizer": "fallback", "image_size": image_size}
+    np.savez(path, __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8), **flat)
+    return path
+
+
+def rollout_flags(spec: str, mode: dict, **over):
+    """The trainer's flags at the flagship configuration (jobs/train_procgen.sh:29-38) with a fake-env
+    rollout eval whose rewards come from ``spec``."""
+    from arp_tpu_torch.config import Config
+    from arp_tpu_torch.models.policy import get_policy_default_config
+    from arp_tpu_torch.train.main import flag_defaults
+
+    flags = Config(flag_defaults())
+    flags.update(dict(game_name="coinrun", use_vl=True, vl_type="clip", vl_checkpoint=spec, eval_env="fake",
+                      window_size=POLICY_WINDOW, episode_length=ROLLOUT_EPISODE_LEN, num_test_episodes=ROLLOUT_ENVS,
+                      eval_parallel_envs=ROLLOUT_ENVS, patch_dim=16, device=DEVICE), **over)
+    flags.model = get_policy_default_config(dict(POLICY_CFG, m3ae=M3AE_CFG, **mode))
+    return flags
+
+
+def clone_inputs(batch: dict) -> dict:
+    return {k: ({kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict)
+                else v.clone() if isinstance(v, torch.Tensor) else v) for k, v in batch.items()}
+
+
+class RolloutMeter:
+    """While in place, times the policy's forwards and the engine's encodes (each synced) on ``model`` and
+    ``engine``, and notes each policy call's envs and newest rtg."""
+
+    def __init__(self, model, engine, keep=()):
+        self.ms = {"policy_ms": 0.0, "reward_ms": 0.0}
+        self.calls, self.env_steps, self.rtg = 0, 0, []
+        self.keep, self.kept = keep, []  # copies of the inputs of the policy calls numbered in ``keep`` (from 1)
+        self._undo = [(model, "greedy_action")]
+        self._wrap(model, "greedy_action", "policy_ms", note=True)
+        if engine is not None:
+            for name in ("encode_text_features", "_batched_image_features"):
+                self._wrap(engine, name, "reward_ms")
+                self._undo.append((engine, name))
+
+    def _wrap(self, obj, name, field, note=False):
+        real = getattr(obj, name)
+
+        def run(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            sync()
+            self.ms[field] += (time.perf_counter() - t0) * 1e3
+            if note:
+                batch = args[0]
+                self.calls += 1
+                self.env_steps += int(batch["action"].shape[0])
+                self.rtg.append(batch["rtg"]["ob"][:, -1, 0].float().cpu().numpy().copy())  # the window rolls in place
+                if self.calls in self.keep:
+                    self.kept.append(clone_inputs(batch))
+            return out
+
+        setattr(obj, name, run)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name in self._undo:
+            delattr(obj, name)  # the class's method again
+
+    def summary(self, wall_ms: float) -> dict:
+        rtg = np.concatenate(self.rtg) if self.rtg else np.zeros(0)
+        return dict(policy_calls=self.calls, env_steps=self.env_steps, wall_ms=wall_ms,
+                    steps_per_s=self.calls / wall_ms * 1e3, env_steps_per_s=self.env_steps / wall_ms * 1e3,
+                    ms_a_step=wall_ms / max(self.calls, 1),
+                    policy_ms_a_step=self.ms["policy_ms"] / max(self.calls, 1),
+                    reward_ms_a_step=self.ms["reward_ms"] / max(self.calls, 1),
+                    env_and_transform_ms_a_step=(wall_ms - self.ms["policy_ms"] - self.ms["reward_ms"])
+                    / max(self.calls, 1),
+                    rtg_first=float(rtg[0]) if rtg.size else None, rtg_min=float(rtg.min()) if rtg.size else None,
+                    rtg_max=float(rtg.max()) if rtg.size else None)
+
+
+def rollout_policy(flags, pt, trained, qpack, small, device):
+    """The flagship ARPDT of ``flags`` on ``device`` through the trainer's build_model: the frozen tower
+    ``pt``, the trained weights ``trained`` (None: the seed's own, returned)."""
+    from arp_tpu_torch.train.common import build_model
+
+    torch.manual_seed(SEED)
+    model = build_model(flags, 15, frozen_qpack=qpack, pt_variables=pt).to(device).eval()
+    with torch.no_grad():
+        model(small, deterministic=True)  # the lazy layers take their shapes
+        if trained is not None:
+            model.load_trained_state_dict(trained)
+    return model
+
+
+def metered_rollout(label, model, engine, counters, shapes, run, keep=(), **info) -> tuple[dict, list]:
+    """``run()`` (a rollout, returning its metric and what else to record) once with the policy's forwards
+    and the engine's encodes timed, the kernels' launches counted from 0 and their shapes noted in
+    ``shapes`` (a LaunchShapes); checks the metrics and that
+    the rtg moved, emits the record; returns the launches and copies of the inputs of the policy calls
+    numbered in ``keep``."""
+    with RolloutMeter(model, engine, keep) as meter, shapes:
+        sync()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        metric, extra = run()
+        sync()
+        wall = (time.perf_counter() - t0) * 1e3
+        launches = launch_counts(counters)
+    record = dict(run=label, **info, **extra, metric={k: float(v) for k, v in metric.items()}, launches=launches,
+                  recipe=engine.encode_recipe, **meter.summary(wall))
+    check(all(np.isfinite(v) for v in record["metric"].values()), f"rollout {label}: metrics {record['metric']}")
+    check(record["rtg_min"] < record["rtg_first"] or record["rtg_max"] > record["rtg_first"],
+          f"rollout {label}: the rtg trace never moved from {record['rtg_first']}")
+    emit("rollout", **record)
+    return launches, meter.kept
+
+
+def run_test_step(label, flags, model, counters, shapes, keep=()):
+    """One call of build_test_step's eval at ``flags`` with ``model`` on the card, metered; returns (its
+    launches, the engine build_test_step built, the instruction it scores against, the kept inputs)."""
+    from arp_tpu_torch.ops.augment import make_eval_transform
+    from arp_tpu_torch.train import common
+
+    built = []
+    real = common.build_reward_engine
+    common.build_reward_engine = lambda *a, **k: built.append(real(*a, **k)) or built[-1]
+    try:
+        transform = make_eval_transform(image_size=common.model_image_size(flags), device=DEVICE)
+        step_fn = common.build_test_step(flags, model, RolloutDataset(), transform, False, device=DEVICE)
+    finally:
+        common.build_reward_engine = real
+    engine, text = built[0]
+    check(engine is not None, f"rollout {label}: no reward engine: a rollout with a constant rtg proves nothing")
+
+    def run():
+        metric, _, videos = step_fn(model, SEED)
+        return metric, {"videos": len(videos)}
+
+    launches, kept = metered_rollout(label, model, engine, counters, shapes, run, keep, envs=flags.eval_parallel_envs or 1,
+                                     episodes=flags.num_test_episodes, episode_length=flags.episode_length, text=text)
+    return launches, engine, text, kept
+
+
+def hold_against_plain(label, model, steps, counters) -> dict:
+    """The policy's forward on the rollout inputs ``steps`` through the kernels, and again with K1 and K2
+    replaced by their plain versions on the same device; each env's logits (every slot) compared."""
+    with torch.no_grad():
+        got = [model(x, deterministic=True)["action_pred"].float() for x in steps]
+        before = launch_counts(counters)
+        with plain_kernels():
+            want = [model(x, deterministic=True)["action_pred"].float() for x in steps]
+        check(launch_counts(counters) == before, f"rollout {label} vs plain: the plain run launched a kernel")
+    env_cos = [cosine(g[i], w[i]) for g, w in zip(got, want) for i in range(g.shape[0])]
+    result = dict(run=label, windows=[int(x["action"].shape[1]) for x in steps], envs=int(got[0].shape[0]),
+                  min_env_cosine=min(env_cos), bound=ROLLOUT_PLAIN_MIN_COSINE,
+                  max_abs_err=max((g - w).abs().max().item() for g, w in zip(got, want)),
+                  greedy_differing=sum(int((g[:, -1].argmax(-1) != w[:, -1].argmax(-1)).sum()) for g, w in zip(got, want)))
+    emit("rollout_vs_plain", **result)
+    check(result["min_env_cosine"] >= ROLLOUT_PLAIN_MIN_COSINE,
+          f"rollout {label}: an env's logits through the kernels have cosine {result['min_env_cosine']} with the "
+          f"plain versions' < {ROLLOUT_PLAIN_MIN_COSINE}")
+    return result
+
+
+def greedy_with_logits(model, inputs):
+    with torch.no_grad():
+        logits = model(inputs, deterministic=True)["action_pred"][:, -1, :].float()
+    return logits.argmax(-1), logits
+
+
+def compare_rollout_with_cpu(flags, pt, trained, small, spec, text) -> dict:
+    """The float32 flagship rollout of ROLLOUT_CPU_ENVS envs for ROLLOUT_CPU_STEPS steps on the CPU, then on
+    the card with the CPU's actions (so both see one trajectory): every step's rewards, every call's greedy
+    action where the CPU's top-2 logit margin exceeds ROLLOUT_MARGIN, and the rtg windows.  The card's
+    engine runs at build_test_step's batch; the CPU's at the envs' (the padding rows are scored by
+    neither)."""
+    from arp_tpu_torch.envs.fake import FakeProcgen
+    from arp_tpu_torch.envs.rollout import parallel_rollout
+    from arp_tpu_torch.ops.augment import make_eval_transform
+    from arp_tpu_torch.reward.engine import ClipRewardEngine
+
+    ds = RolloutDataset()
+    runs = {}
+    for side, device in (("cpu", "cpu"), ("card", DEVICE)):
+        model = rollout_policy(flags, pt, trained, None, small, device)
+        engine = ClipRewardEngine.from_npz(spec, batch_size=ROLLOUT_CPU_ENVS if side == "cpu" else ROLLOUT_ENGINE_BATCH,
+                                           resize_mode="pil", use_crop=False, device=device)
+        notes, rewards = [], []
+        cpu_notes = runs.get("cpu")
+
+        def scored(frames, txt_feat, real=engine.text_rewards_with_features, rewards=rewards):
+            out = real(frames, txt_feat)
+            rewards.append(np.array(out, copy=True))
+            return out
+
+        engine.text_rewards_with_features = scored
+
+        def policy_fn(inputs, rngs):
+            action, logits = greedy_with_logits(model, inputs)
+            notes.append(dict(rtg=inputs["rtg"]["ob"].float().cpu().numpy().copy(), logits=logits.cpu().numpy(),
+                              action=action.cpu().numpy()))
+            # the card follows the CPU's trajectory, so that every later step compares like with like
+            return action if cpu_notes is None else torch.from_numpy(cpu_notes[len(notes) - 1]["action"])
+
+        t0 = time.perf_counter()
+        parallel_rollout(rng=SEED, envs=[FakeProcgen("coinrun", {"episode_length": ROLLOUT_CPU_STEPS,
+                                                                 "record_video": False})
+                                         for _ in range(ROLLOUT_CPU_ENVS)],
+                         policy_fn=policy_fn, transform_obs_fn=make_eval_transform(256, device=device),
+                         episode_length=ROLLOUT_CPU_STEPS, window_size=flags.window_size,
+                         return_to_go=ds.return_to_go, scale=ds.scale, reward_engine=engine, vl_type="clip",
+                         text=text, use_crop=flags.use_crop, device=device)
+        runs[side], runs[f"{side}_seconds"], runs[f"{side}_rewards"] = notes, time.perf_counter() - t0, rewards
+        del model, engine
+    cpu, card = runs["cpu"], runs["card"]
+    check(len(cpu) == len(card) == ROLLOUT_CPU_STEPS, f"rollout vs cpu: {len(cpu)} and {len(card)} policy calls")
+    check(len(runs["cpu_rewards"]) == len(runs["card_rewards"]) == ROLLOUT_CPU_STEPS,
+          f"rollout vs cpu: {len(runs['cpu_rewards'])} and {len(runs['card_rewards'])} reward calls")
+    reward_err = max(float(np.abs(g - c).max()) for c, g in zip(runs["cpu_rewards"], runs["card_rewards"]))
+    rtg_atol = rollout_rtg_atol(ds.scale, ROLLOUT_CPU_STEPS, ds.return_to_go / ds.scale)
+    decided = below = differ = 0
+    rtg_err = logit_err = 0.0
+    for c, g in zip(cpu, card):
+        top2 = np.sort(c["logits"], axis=-1)[:, -2:]
+        margin = top2[:, 1] - top2[:, 0]
+        sure = margin > ROLLOUT_MARGIN
+        decided += int(sure.sum())
+        below += int((~sure).sum())
+        differ += int((g["action"][sure] != c["action"][sure]).sum())
+        rtg_err = max(rtg_err, float(np.abs(g["rtg"] - c["rtg"]).max()))
+        logit_err = max(logit_err, float(np.abs(g["logits"] - c["logits"]).max()))
+    rtg_moved = float(np.abs(cpu[-1]["rtg"][:, -1] - cpu[0]["rtg"][:, -1]).max())
+    result = dict(envs=ROLLOUT_CPU_ENVS, steps=ROLLOUT_CPU_STEPS, engine_batch=ROLLOUT_ENGINE_BATCH,
+                  env_steps_above_margin=decided, env_steps_below_margin=below, actions_differing_above_margin=differ,
+                  margin=ROLLOUT_MARGIN, reward_max_abs_err=reward_err, reward_atol=F32_REWARD_MAE,
+                  reward_range=[float(np.min(runs["cpu_rewards"])), float(np.max(runs["cpu_rewards"]))],
+                  rtg_max_abs_err=rtg_err, rtg_atol=rtg_atol, rtg_moved=rtg_moved,
+                  logits_max_abs_err=logit_err, cpu_seconds=runs["cpu_seconds"], card_seconds=runs["card_seconds"])
+    emit("rollout_vs_cpu", **result)
+    check(differ == 0, f"rollout vs cpu: {differ} greedy actions differ above the margin {ROLLOUT_MARGIN}")
+    check(reward_err <= F32_REWARD_MAE, f"rollout vs cpu: rewards {reward_err} apart > {F32_REWARD_MAE}")
+    check(rtg_err <= rtg_atol, f"rollout vs cpu: rtg windows {rtg_err} apart > {rtg_atol}")
+    check(rtg_moved > 0, "rollout vs cpu: the rtg never moved")
+    return result
+
+
+def phase_rollout(counters, weights, policy_lib, flax_m3ae_to_torch) -> dict:
+    """Stage 5 at the flagship configuration through build_test_step (jobs/train_procgen.sh:29-38: vit_base
+    ARPDT over the frozen m3ae_vit_b16 tower, adapter, window 4, 15 actions; vl_type clip, rewards from a
+    CLIP ViT-B/16 engine spec of random weights; 10 test episodes), on FakeProcgen at 64 x 64 with episodes
+    cut to ROLLOUT_EPISODE_LEN steps: (a) the sequential batch_rollout, 1 env and 2 episodes, frozen_bf16;
+    (b) one wave of 10 lockstep envs in frozen_bf16 and in frozen_int8; (c) 10 envs for ROLLOUT_FT_STEPS
+    steps with the clip_ft engine on the fine-tuning phase's adapter; then one profiled window, and (d) the
+    card against the CPU.  The steps of (b) at the first and the full window are held against the same
+    steps through the kernels' plain versions.  Returns each kernel's launches over (a)-(c), and the
+    shapes K1 and K2 ran at over (a)-(c) and the profiled window (LaunchShapes)."""
+    import tempfile
+
+    from arp_tpu_torch.envs.fake import FakeProcgen
+    from arp_tpu_torch.envs.rollout import parallel_rollout
+    from arp_tpu_torch.finetune.reward import ClipFtRewardEngine
+    from arp_tpu_torch.models.clip import CLIP
+    from arp_tpu_torch.ops.augment import make_eval_transform
+    from arp_tpu_torch.train.common import maybe_build_frozen_qpack
+
+    cfg, clip_state, adapter_state, _ = weights
+    t0 = time.perf_counter()
+    pt = flax_m3ae_to_torch(random_m3ae_variables(M3AE_DIMS, 16, BERT_VOCAB, SEED))
+    raw, batch = policy_batch(2, POLICY_WINDOW, SEED)
+    small = head_batch(batch, 1)
+    totals = dict.fromkeys(counters, 0)
+    keep = (1, POLICY_WINDOW)  # the policy calls held against the plain versions: the first and a full window
+    shapes = LaunchShapes()  # in place over (a)-(c) and the profiled window only
+    with tempfile.TemporaryDirectory() as tmp:
+        spec = write_engine_spec(f"{tmp}/clip_{FT_CLIP}.npz", random_clip_variables(cfg, 224, SEED), cfg, 224)
+        emit("rollout_setup", clip=FT_CLIP, spec_bytes=os.path.getsize(spec), policy=dict(POLICY_CFG, m3ae=M3AE_CFG),
+             episode_length=ROLLOUT_EPISODE_LEN, envs=ROLLOUT_ENVS, seconds=time.perf_counter() - t0)
+        flags = {name: rollout_flags(spec, mode) for name, mode in POLICY_MODES.items()}
+        trained = rollout_policy(flags["float32"], pt, None, None, small, "cpu").trained_state_dict()
+
+        bf16 = rollout_policy(flags["frozen_bf16"], pt, trained, None, small, DEVICE)
+        seq = rollout_flags(spec, POLICY_MODES["frozen_bf16"], eval_parallel_envs=0,
+                            num_test_episodes=ROLLOUT_SEQ_EPISODES)
+        launches, _, text, _ = run_test_step("a_sequential_frozen_bf16", seq, bf16, counters, shapes)
+        for name, n in launches.items():
+            totals[name] += n
+        launches, engine, _, kept = run_test_step("b_parallel_frozen_bf16", flags["frozen_bf16"], bf16, counters, shapes, keep)
+        for name, n in launches.items():
+            totals[name] += n
+        hold_against_plain("b_parallel_frozen_bf16", bf16, kept, counters)
+        qpack = maybe_build_frozen_qpack(flags["frozen_int8"], head_batch(raw, 2), use_goal=False, device=DEVICE,
+                                         m3ae_loader=lambda name: pt)
+        int8 = rollout_policy(flags["frozen_int8"], pt, trained, qpack, small, DEVICE)
+        launches, _, _, kept = run_test_step("b_parallel_frozen_int8", flags["frozen_int8"], int8, counters, shapes, keep)
+        for name, n in launches.items():
+            totals[name] += n
+        hold_against_plain("b_parallel_frozen_int8", int8, kept, counters)
+        del int8, qpack, kept
+
+        # (c) the clip_ft engine on the fine-tuning phase's adapter, as build_test_step builds it from a
+        # --vl_checkpoint (module trunk, batch 64, the rollout crops on the host)
+        clip = CLIP(**cfg, image_size=224)
+        clip.load_state_dict(clip_state)
+        ft = ClipFtRewardEngine(adapter_state, model=clip, clip_config=cfg, batch_size=ROLLOUT_ENGINE_BATCH,
+                                use_crop=False, device=DEVICE)
+        ds, env_conf = RolloutDataset(), {"episode_length": ROLLOUT_FT_STEPS, "record_video": False}
+        common = dict(transform_obs_fn=make_eval_transform(256, device=DEVICE), window_size=POLICY_WINDOW,
+                      return_to_go=ds.return_to_go, scale=ds.scale, text=text, use_crop=True, device=DEVICE)
+
+        def greedy(inputs, rngs):
+            return bf16.greedy_action(inputs)
+
+        with torch.no_grad():
+            launches, _ = metered_rollout(
+                "c_parallel_clip_ft_frozen_bf16", bf16, ft, counters, shapes, lambda: (parallel_rollout(
+                    rng=SEED, envs=[FakeProcgen("coinrun", dict(env_conf)) for _ in range(ROLLOUT_ENVS)],
+                    policy_fn=greedy, episode_length=ROLLOUT_FT_STEPS, reward_engine=ft, vl_type="clip_ft",
+                    **common), {}), envs=ROLLOUT_ENVS, episode_length=ROLLOUT_FT_STEPS)
+        for name, n in launches.items():
+            totals[name] += n
+        del ft, clip
+
+        # one profiled window of the lockstep eval (frozen_bf16, the CLIP engine of (b))
+        with torch.no_grad(), shapes:
+            emit("profile", mode="rollout_parallel_frozen_bf16", envs=ROLLOUT_ENVS, steps=ROLLOUT_PROFILE_STEPS,
+                 **device_profile(lambda: parallel_rollout(
+                     rng=SEED, envs=[FakeProcgen("coinrun", {"episode_length": ROLLOUT_PROFILE_STEPS,
+                                                             "record_video": False}) for _ in range(ROLLOUT_ENVS)],
+                     policy_fn=greedy, episode_length=ROLLOUT_PROFILE_STEPS, reward_engine=engine,
+                     vl_type="clip", **common)))
+        del bf16, engine
+        emit("rollout_kernel_shapes", k1=dict(shapes.k1), k2=dict(shapes.k2))
+        compare_rollout_with_cpu(flags["float32"], pt, trained, small, spec, text)
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return totals, shapes
 
 
 def kernel_entry(name: str, launches: int, max_abs_err: float, timing: dict, **extra) -> dict:
@@ -1868,7 +2350,11 @@ def main() -> int:
     weights = ft_weights()
     path_launches["finetune"] = phase_finetune(counters, weights)
     path_launches["slice_ft"] = phase_slice_ft(counters, weights, label_group, vit_infer)
+    # stage 5: rollout eval with on-the-fly rewards through build_test_step
+    path_launches["rollout"], shapes = phase_rollout(counters, weights, policy_lib, flax_m3ae_to_torch)
     del weights
+    unheld = sorted(set(shapes.k1) - k1["checked"]) + sorted(set(shapes.k2) - k2["checked"])
+    check(not unheld, f"the rollout launched kernels at shapes that no check held against the plain version: {unheld}")
     path_kernels = {"finetune": ("flash_attn_fwd",)}  # every other path runs K1 and K2
     for path, counts in path_launches.items():
         for name in path_kernels.get(path, ("flash_attn_fwd", "int8_gemm")):

@@ -232,7 +232,7 @@ def test_k1_recorder_notes_shapes_and_keeps_the_count():
     fake.launches = 5
     attn.flash_attention_fwd = fake
     try:
-        with chip_smoke.K1Recorder(attn) as rec:
+        with chip_smoke.K1Recorder() as rec:
             q = torch.zeros(2, 12, 8, 16)
             attn.flash_attention_fwd(q, q, q, MaskSpec("dt", 1, 3), None)
             attn.flash_attention_fwd(q, q, q, MaskSpec("dt", 1, 3), torch.zeros(2, 12))
@@ -241,6 +241,62 @@ def test_k1_recorder_notes_shapes_and_keeps_the_count():
         assert rec.counts() == {"dt n=12 h=8 d=16 float32": 1, "dt n=12 h=8 d=16 float32 padded": 1}
     finally:
         attn.flash_attention_fwd = real
+
+
+def test_launch_shapes_note_each_kernel_call_and_keep_the_counts():
+    """LaunchShapes stands in for K1's and K2's wrappers (K2's under both module names), notes each call by
+    the key k1_check / k2_check give their cases, leaves the launch counts the wrappers' own, and restores."""
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import m3ae_infer, vit_infer
+    from arp_tpu_torch.ops.masks import MaskSpec
+
+    real_k1, real_k2 = attn.flash_attention_fwd, vit_infer.fused_int8_matmul
+    fake_k1 = lambda q, k, v, spec, pad=None: q  # noqa: E731
+    fake_k1.launches = 3
+    attn.flash_attention_fwd = fake_k1
+    try:
+        x = torch.randn(6, 64)
+        wq = torch.randint(-127, 128, (64, 16), dtype=torch.int8)
+        a, ws = torch.tensor(3.0), torch.full((1, 16), 0.01)
+        with chip_smoke.LaunchShapes() as shapes:
+            q = torch.zeros(2, 12, 8, 16)
+            attn.flash_attention_fwd(q, q, q, MaskSpec("dt", 1, 3), None)
+            attn.flash_attention_fwd.launches += 1  # as the wrapper counts, through its module's name
+            m3ae_infer.fused_int8_matmul(x, a, wq, ws, None, "gelu_tanh")
+            vit_infer.fused_int8_matmul(x.bfloat16(), a, wq, ws)
+        assert attn.flash_attention_fwd is fake_k1 and fake_k1.launches == 4
+        assert vit_infer.fused_int8_matmul is real_k2 and m3ae_infer.fused_int8_matmul is real_k2
+        assert dict(shapes.k1) == {chip_smoke.k1_key(2, 12, 8, 16, MaskSpec("dt", 1, 3), False, torch.float32): 1}
+        assert dict(shapes.k2) == {chip_smoke.k2_key(6, 64, 16, torch.float32, "gelu_tanh"): 1,
+                                   chip_smoke.k2_key(6, 64, 16, torch.bfloat16, "none"): 1}
+        assert chip_smoke.k1_key(2, 12, 8, 16, MaskSpec("dt", 1, 3), True, torch.bfloat16) == "dt/1/3 b=2 n=12 h=8 d=16 bfloat16 padded"
+    finally:
+        attn.flash_attention_fwd = real_k1
+
+
+def test_plain_kernels_compute_what_the_kernels_compute_and_restore():
+    """plain_kernels puts each kernel's plain version in the wrapper's place: K1's with float32 scores, out in
+    q's dtype; K2's the reference; the wrappers come back after."""
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import m3ae_infer, vit_infer
+    from arp_tpu_torch.ops.masks import MaskSpec
+
+    real_k1, real_k2 = attn.flash_attention_fwd, vit_infer.fused_int8_matmul
+    gen = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(2, 9, 4, 16, generator=gen).bfloat16() for _ in range(3))
+    x = torch.randn(5, 64, generator=gen)
+    wq = torch.randint(-127, 128, (64, 16), dtype=torch.int8, generator=gen)
+    a, ws = torch.tensor(3.0), torch.full((1, 16), 0.01)
+    with chip_smoke.plain_kernels():
+        got = attn.flash_attention_fwd(q, k, v, MaskSpec("causal"))
+        out = m3ae_infer.fused_int8_matmul(x, a, wq, ws, None, "gelu_tanh")
+    want = attn.reference_attention(q.float(), k.float(), v.float(), MaskSpec("causal")).bfloat16()
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+    assert torch.equal(out, vit_infer.fused_int8_matmul_reference(x, a, wq, ws, None, "gelu_tanh"))
+    assert attn.flash_attention_fwd is real_k1 and vit_infer.fused_int8_matmul is real_k2
+    assert m3ae_infer.fused_int8_matmul is real_k2
+    with chip_smoke.plain_kernels(k1=False):
+        assert attn.flash_attention_fwd is real_k1 and vit_infer.fused_int8_matmul is not real_k2
 
 
 def test_policy_path_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
@@ -354,3 +410,80 @@ def test_finetune_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert all(r["reward_mae_vs_cpu"] < 1e-5 and r["frames"] == 9 for r in by_phase["slice_ft"])
     f2 = by_phase["f2"][0]
     assert f2["frames"] == 9 and f2["k2_vs_plain_on_card_mae"] == 0.0  # on the CPU both runs are the plain version
+
+
+def test_engine_spec_is_the_jax_package_s_layout(tmp_path):
+    """write_engine_spec writes what ClipRewardEngine.save_npz writes: both packages' from_npz read it and
+    score as an engine on the same variables does."""
+    from arp_tpu.reward.engine import ClipRewardEngine as JEngine
+
+    variables = chip_smoke.random_clip_variables(TINY_CLIP_CFG, TINY_CLIP_IMG_SIZE, seed=3)
+    spec = chip_smoke.write_engine_spec(str(tmp_path / "tiny.npz"), variables, TINY_CLIP_CFG, TINY_CLIP_IMG_SIZE)
+    frames = np.random.default_rng(0).integers(0, 256, size=(5, 48, 48, 3), dtype=np.uint8)
+    jengine, tengine = JEngine.from_npz(spec, batch_size=8), ClipRewardEngine.from_npz(spec, batch_size=8, device="cpu")
+    direct = ClipRewardEngine(model=CLIP(**TINY_CLIP_CFG, image_size=TINY_CLIP_IMG_SIZE), variables=variables,
+                              batch_size=8, device="cpu", image_size=TINY_CLIP_IMG_SIZE)
+    ids = np.asarray(Char97Tokenizer()("collect the coin."))
+    want = direct.text_rewards(frames, ids)
+    np.testing.assert_allclose(tengine.text_rewards(frames, ids), want, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(jengine.text_rewards(frames, ids)), want, atol=1e-4)
+
+
+def test_rollout_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """The rollout phase end to end on the CPU at a tiny tower and CLIP width, few envs and steps: build_test_step
+    sequential and in a wave, frozen_bf16 and frozen_int8, the clip_ft rollout, the card-vs-CPU comparison
+    (the same device twice: equal).  What only the card can show (the kernels' launches, the profile) is left
+    out."""
+    import json
+
+    from arp_tpu_torch.models import policy as policy_lib
+    from arp_tpu_torch.models.clip import model as tclip_model
+    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import quantization, vit_infer
+
+    tiny = dict(embed_dim=16, vocab_size=600, vision_num_layers=3, vision_features=64, vision_patch_size=16,
+                text_features=16, text_num_heads=4, text_num_layers=2)
+    monkeypatch.setitem(tclip_model.CONFIGS, "tiny_smoke", tiny)
+    for name, value in dict(DEVICE="cpu", FT_CLIP="tiny_smoke", M3AE_DIMS=TINY_M3AE,
+                            M3AE_CFG=dict(model_type=None, **TINY_M3AE), BERT_VOCAB=211, POLICY_WINDOW=2,
+                            ROLLOUT_EPISODE_LEN=3, ROLLOUT_ENVS=2, ROLLOUT_SEQ_EPISODES=1, ROLLOUT_FT_STEPS=2,
+                            ROLLOUT_PROFILE_STEPS=2, ROLLOUT_CPU_ENVS=2, ROLLOUT_CPU_STEPS=2).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(policy_lib.models, "BERT_VOCAB_SIZE", 211)
+    monkeypatch.setattr(chip_smoke, "device_profile", lambda run: (run(), {"rehearsal": True})[1])
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
+                "int8_matmul": quantization.int8_matmul}
+    _, shapes = chip_smoke.phase_rollout(counters, chip_smoke.ft_weights(), policy_lib, flax_m3ae_to_torch)
+    by_phase = {}
+    for line in capsys.readouterr().out.splitlines():
+        if line.startswith("{"):
+            record = json.loads(line)
+            by_phase.setdefault(record["phase"], []).append(record)
+    runs = {r["run"]: r for r in by_phase["rollout"]}
+    assert list(runs) == ["a_sequential_frozen_bf16", "b_parallel_frozen_bf16", "b_parallel_frozen_int8",
+                          "c_parallel_clip_ft_frozen_bf16"]
+    assert runs["a_sequential_frozen_bf16"]["envs"] == 1 and runs["a_sequential_frozen_bf16"]["videos"] == 1
+    assert runs["b_parallel_frozen_int8"]["env_steps"] == 2 * runs["b_parallel_frozen_int8"]["policy_calls"]
+    for r in runs.values():
+        assert r["rtg_min"] < r["rtg_first"] or r["rtg_max"] > r["rtg_first"]
+        assert r["policy_ms_a_step"] > 0 and r["reward_ms_a_step"] > 0 and r["steps_per_s"] > 0
+    assert runs["b_parallel_frozen_bf16"]["recipe"].startswith("torch;float32")
+    assert runs["c_parallel_clip_ft_frozen_bf16"]["recipe"].startswith("torch;clip_ft;module;float32")
+    compared = by_phase["rollout_vs_cpu"][0]
+    assert compared["actions_differing_above_margin"] == 0 and compared["rtg_max_abs_err"] == 0.0
+    assert compared["reward_max_abs_err"] <= 1e-5 and compared["reward_range"][0] < compared["reward_range"][1]
+    assert compared["env_steps_above_margin"] + compared["env_steps_below_margin"] == 4 and compared["rtg_moved"] > 0
+    assert compared["engine_batch"] == 64
+    assert by_phase["profile"][0]["mode"] == "rollout_parallel_frozen_bf16"
+    # the steps at the first and the full window held against the plain versions (on the CPU: the same)
+    held = {r["run"]: r for r in by_phase["rollout_vs_plain"]}
+    assert list(held) == ["b_parallel_frozen_bf16", "b_parallel_frozen_int8"]
+    assert all(r["windows"] == [1, 2] and r["envs"] == 2 and r["min_env_cosine"] > 1 - 1e-9 for r in held.values())
+    # the shapes noted over the metered runs: K2 only in the int8 wave (on the CPU attention never reaches K1's
+    # wrapper), at every site for each window; the bf16 runs' launches were not counted
+    assert not shapes.k1 and by_phase["rollout_kernel_shapes"][0]["k2"] == dict(shapes.k2)
+    tokens = 257  # 256 px frames in 16 px patches, and the CLS token
+    sites = {(int(key.split()[0][2:]), key.split()[-1]) for key in shapes.k2}
+    assert {m for m, _ in sites} == {2 * w * t for w in (1, 2) for t in (tokens, tokens - 1)}
+    assert {act for _, act in sites} == {"none", "gelu_tanh"}

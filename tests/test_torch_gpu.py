@@ -684,3 +684,73 @@ def test_finetune_step_on_the_card_matches_the_cpu(cuda, monkeypatch):
     clip_state, adapter_state = _ft_weights()
     result = chip_smoke.compare_ft_step_with_cpu(FT_TINY, clip_state, adapter_state, chip_smoke.ft_tokens())
     assert result["loss_rel_err"] <= chip_smoke.FT_LOSS_REL
+
+
+@pytest.mark.parametrize("kind", ["batch", "parallel"])
+def test_rollout_on_the_card_matches_the_cpu(cuda, kind):
+    """A rollout with a tiny-tower ARPDT (float32, K1 in the tower and under the dt mask) and a tiny float32 CLIP
+    engine (K1) on FakeProcgen: the windows stay on the card; the CPU's run first, then the card's with the CPU's
+    actions fed back, so both see one trajectory.  Greedy actions equal wherever the CPU's top-2 logits are more
+    than chip_smoke.ROLLOUT_MARGIN apart, every reward within chip_smoke.F32_REWARD_MAE, rtg windows within
+    chip_smoke.rollout_rtg_atol, K1 launched."""
+    from arp_tpu_torch.envs import rollout
+    from arp_tpu_torch.envs.fake import FakeProcgen
+    from arp_tpu_torch.models import policy as policy_lib
+    from arp_tpu_torch.ops.augment import make_eval_transform
+
+    dims = dict(emb_dim=64, depth=2, num_heads=4, mlp_ratio=2)
+    state = policy_lib.flax_m3ae_to_torch(chip_smoke.random_m3ae_variables(dims, 16, chip_smoke.BERT_VOCAB, seed=3))
+    cfg = dict(chip_smoke.POLICY_CFG, m3ae=dict(model_type=None, **dims))
+    clip_vars = chip_smoke.random_clip_variables(TINY, 32, seed=4)
+    conf = {"episode_length": 5, "image_size": 64, "grid": 4, "record_video": False}
+    runs, trained = {}, None
+    for side, dev in (("cpu", "cpu"), ("card", cuda)):
+        torch.manual_seed(0)
+        model = policy_lib.ARPDT(cfg, num_actions=15, patch_dim=16, pt_variables=state).to(dev).eval()
+        small = {"image": {"ob": np.zeros((1, 1, 64, 64, 3), np.float32)}, "rtg": {"ob": np.ones((1, 1, 1), np.float32)},
+                 "action": np.zeros((1, 1), np.int32), "instruct": None, "text_padding_mask": None}
+        with torch.no_grad():
+            model(small, deterministic=True)
+            trained = trained or model.trained_state_dict()
+            model.load_trained_state_dict(trained)
+        engine = ClipRewardEngine(model=CLIP(**TINY, image_size=32), variables=clip_vars, tokenizer=Char97Tokenizer(),
+                                  batch_size=4, device=dev, image_size=32)
+        notes, cpu_notes, rewards = [], runs.get("cpu"), []
+
+        def scored(frames, txt_feat, real=engine.text_rewards_with_features, rewards=rewards):
+            rewards.append(np.array(real(frames, txt_feat), copy=True))  # both rollouts score through it
+            return rewards[-1]
+
+        engine.text_rewards_with_features = scored
+
+        def policy_fn(inputs, rngs):
+            assert inputs["image"]["ob"].device.type == torch.device(dev).type
+            action, logits = chip_smoke.greedy_with_logits(model, inputs)
+            notes.append(dict(rtg=inputs["rtg"]["ob"].cpu().numpy().copy(), logits=logits.cpu().numpy(),
+                              action=action.cpu().numpy()))
+            return action if cpu_notes is None else torch.from_numpy(cpu_notes[len(notes) - 1]["action"])
+
+        k1 = attn.flash_attention_fwd.launches
+        kw = dict(transform_obs_fn=make_eval_transform(64, device=dev), episode_length=5, window_size=3,
+                  return_to_go=30.0, scale=10.0, reward_engine=engine, text="collect the coin.", use_crop=True,
+                  device=dev)
+        if kind == "batch":
+            rollout.batch_rollout(rng=0, data_aug_rng=0, env=FakeProcgen("coinrun", dict(conf)), policy_fn=policy_fn,
+                                  num_episodes=1, **kw)
+        else:
+            rollout.parallel_rollout(rng=0, envs=[FakeProcgen("coinrun", dict(conf)) for _ in range(3)],
+                                     policy_fn=policy_fn, **kw)
+        runs[side], runs[f"{side}_rewards"] = notes, rewards
+        if side == "card":
+            assert attn.flash_attention_fwd.launches > k1
+    assert len(runs["cpu"]) == len(runs["card"]) > 1
+    assert len(runs["cpu_rewards"]) == len(runs["card_rewards"]) == len(runs["cpu"])
+    for c, g in zip(runs["cpu_rewards"], runs["card_rewards"]):
+        np.testing.assert_allclose(g, c, atol=chip_smoke.F32_REWARD_MAE, rtol=0)
+    rtg_atol = chip_smoke.rollout_rtg_atol(10.0, len(runs["cpu"]), 30.0 / 10.0)
+    for c, g in zip(runs["cpu"], runs["card"]):
+        top2 = np.sort(c["logits"], axis=-1)[:, -2:]
+        sure = top2[:, 1] - top2[:, 0] > chip_smoke.ROLLOUT_MARGIN
+        np.testing.assert_array_equal(g["action"][sure], c["action"][sure])
+        np.testing.assert_allclose(g["rtg"], c["rtg"], atol=rtg_atol, rtol=0)
+    assert np.abs(runs["cpu"][-1]["rtg"][:, -1] - runs["cpu"][0]["rtg"][:, -1]).max() > 0  # the rewards moved it

@@ -1,7 +1,12 @@
 """The PyTorch port imports no JAX: every arp_tpu_torch module (the policy, its server and
-chip_smoke.py too) loads with jax, flax, ml_collections, orbax, optax and arp_tpu blocked."""
+chip_smoke.py too) loads with jax, flax, ml_collections, orbax, optax and arp_tpu blocked.  Nor
+does it read the JAX package's files: no code of the port names a path under ``arp_tpu/``, and the
+eval path (envs, the native engine's build, rollouts, videos) opens, loads and compiles nothing
+there."""
 
+import ast
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -40,13 +45,14 @@ def test_port_imports_without_jax_or_flax():
     )
     assert out.returncode == 0, out.stderr + out.stdout
     n, *names = out.stdout.split("IMPORTED")[1].split()
-    assert int(n) >= 48, out.stdout  # every module of the package, not an empty walk
+    assert int(n) >= 57, out.stdout  # every module of the package, not an empty walk
     for module in ("serve", "config", "utils", "models.layers", "models.m3ae", "models.impala", "models.policy.models",
                    "models.policy.convert", "ops.m3ae_infer", "ops.augment", "train.main", "train.common",
                    "parallel.step", "parallel.prefetch", "data.procgen_dataset", "data.loader", "data.validate",
                    "data.instructions", "checkpoint", "logging_utils", "profiling", "resilience", "models.clip.model",
                    "models.clip.convert", "finetune", "finetune.adapter_model", "finetune.convert", "finetune.dataset",
-                   "finetune.decoder", "finetune.train", "finetune.reward"):
+                   "finetune.decoder", "finetune.train", "finetune.reward", "envs", "envs.fake", "envs.state_codec",
+                   "envs.gym3_stub", "envs.native_engine", "envs.procgen", "envs.rollout", "train.eval", "video"):
         assert f"arp_tpu_torch.{module}" in names, module
 
 
@@ -127,6 +133,100 @@ def test_train_step_runs_without_jax_or_the_jax_package():
         state, aux = step(state, batch, torch.Generator().manual_seed(0))
         assert np.isfinite(float(aux["loss"])) and state.step == 1
         bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED + ("h5py",))
+        assert not bad, bad
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+def _docstring_nodes(tree) -> set:
+    ids = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value, ast.Constant) and isinstance(first.value.value, str):
+                ids.add(id(first.value))
+    return ids
+
+
+def test_port_names_no_path_into_the_jax_package():
+    """No string of the port's code (docstrings aside: they say what a module ports) is the JAX package's
+    directory or a path in it, and no C++ / CUDA source includes or names one in a string (the port keeps
+    its own copies, native/gridenv.cpp among them)."""
+    into_jax = re.compile(r"(?<![\\w.])arp_tpu[/\\]")
+    hits = []
+    for root, _, files in os.walk(os.path.join(REPO, "arp_tpu_torch")):
+        if "__pycache__" in root:
+            continue
+        for name in files:
+            path = os.path.join(root, name)
+            if name.endswith(".py"):
+                with open(path, encoding="utf-8") as f:
+                    tree = ast.parse(f.read())
+                docs = _docstring_nodes(tree)
+                hits += [(path, node.lineno, node.value) for node in ast.walk(tree)
+                         if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in docs
+                         and (node.value == "arp_tpu" or into_jax.search(node.value))]
+            elif name.endswith((".cpp", ".cu", ".cuh", ".sh")):
+                with open(path, encoding="utf-8") as f:
+                    hits += [(path, i, line.strip()) for i, line in enumerate(f, 1)
+                             if into_jax.search(line) and (line.lstrip().startswith("#include") or '"' in line)]
+    assert not hits, hits
+
+
+def test_eval_path_reads_nothing_of_the_jax_package(tmp_path):
+    """With the JAX stack blocked and an audit hook on every open, library load and process start: the
+    native engine builds from the port's own source, the envs step, both rollouts run with a policy and a
+    reward engine, a video is written; nothing under arp_tpu/ is touched."""
+    script = _SCRIPT + textwrap.dedent(
+        f"""
+        import os, numpy as np, torch
+        JAX_DIR = os.path.join({REPO!r}, "arp_tpu") + os.sep
+        touched = []
+
+        def audit(event, args):
+            if event in ("open", "ctypes.dlopen", "subprocess.Popen", "os.listdir", "os.scandir"):
+                for a in args:
+                    items = a if isinstance(a, (list, tuple)) else [a]
+                    for x in items:
+                        if isinstance(x, (str, bytes, os.PathLike)):
+                            p = os.path.realpath(os.fsdecode(x))
+                            if p.startswith(JAX_DIR):
+                                touched.append((event, p))
+
+        sys.addaudithook(audit)
+        os.environ["ARP_TPU_FAKE_ENGINE"] = "native"
+        from arp_tpu_torch.envs import FakeProcgen, Procgen
+        from arp_tpu_torch.envs.native_engine import native_lib
+        from arp_tpu_torch.envs.rollout import batch_rollout, parallel_rollout
+        from arp_tpu_torch.models.clip import CLIP
+        from arp_tpu_torch.models.policy import ARPDT
+        from arp_tpu_torch.ops.augment import make_eval_transform
+        from arp_tpu_torch.reward.engine import ClipRewardEngine
+        from arp_tpu_torch.video import save_video
+        native_lib()
+        env = Procgen("coinrun", {{"episode_length": 4}}, image_resolution="low")
+        env.reset(1)
+        env.set_state(env.get_state())
+        model = ARPDT(dict(model_type="vit_debug", emb_dim=32, depth=1, num_heads=4, use_discrete_action=True),
+                      num_actions=15, patch_dim=16).eval()
+        engine = ClipRewardEngine(model=CLIP(embed_dim=16, vocab_size=49408, vision_num_layers=1, vision_features=64,
+                                             vision_patch_size=16, text_features=16, text_num_heads=4,
+                                             text_num_layers=1, image_size=32), batch_size=4, device="cpu")
+        policy = lambda inputs, rngs: model.greedy_action(inputs)
+        conf = {{"episode_length": 3, "image_size": 32, "grid": 4}}
+        kw = dict(transform_obs_fn=make_eval_transform(32, device="cpu"), episode_length=3, window_size=2,
+                  reward_engine=engine, text="collect the coin.", device="cpu")
+        with torch.no_grad():
+            metric, _, videos = batch_rollout(0, 0, FakeProcgen("coinrun", conf), policy, **kw)
+            parallel_rollout(0, [FakeProcgen("coinrun", conf) for _ in range(2)], policy, **kw)
+        save_video(videos[0], os.path.join({str(tmp_path)!r}, "v.mp4"))
+        assert np.isfinite(metric["return"])
+        assert not touched, touched
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not bad, bad
         """
     )

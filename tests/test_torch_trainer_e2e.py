@@ -5,7 +5,8 @@ synthetic labeled demo file: a run stopped after one epoch and resumed for
 the second ends with the parameters and optimizer state of an uninterrupted
 two-epoch run, bit for bit; the policy server serves the checkpoint the
 trainer wrote; a NaN batch is detected and rolled back (or halts); the
-profiler writes a trace; the flags whose paths are not ported raise.
+profiler writes a trace; the flags whose paths are not ported raise.  (The rollout eval,
+``--eval_env=fake``, is tests/test_torch_eval.py's.)
 """
 
 import json
@@ -120,8 +121,7 @@ def test_profile_dir_writes_a_trace(demos, tmp_path):
     assert (trace / "trace.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("flag,item", [("--eval_env=fake", "item 5"), ("--eval_env=procgen", "item 5"),
-                                       ("--mesh_dp=2", "item 12"), ("--mesh_tp=2", "item 12"),
+@pytest.mark.parametrize("flag,item", [("--mesh_dp=2", "item 12"), ("--mesh_tp=2", "item 12"),
                                        ("--load_checkpoint=x.pkl", "item 10"), ("--data.use_arps=True", "item 6")])
 def test_unported_flags_raise(demos, tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
