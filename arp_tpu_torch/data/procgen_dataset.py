@@ -8,11 +8,14 @@ instruction tokenization.  Its ``ConfigDict`` is the port's
 opened, so that the train step's modules import where it is missing.
 
 Per-host sharding: ``start_offset_ratio = process_index / process_count``.
-Not ported: ``use_arps`` (the ARPS shard reader, ROADMAP); it raises.
+``use_arps``: the image keys are converted once into ARPS shards beside the
+file (``<file>.hdf5.arps/{key}.arps``, data/arps.py) and their records read
+through the native reader.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import numpy as np
@@ -112,7 +115,7 @@ class ProcgenDataset:
         config.use_vl = False
         config.vl_type = "clip"
         config.inst_type = "none"
-        # the ARPS shard reader: not ported (raises)
+        # read image records through ARPS shards (converted once beside the HDF5; C++ decompression)
         config.use_arps = False
         # precomputed frozen-encoder embeddings ({key}_{name}_emb) instead of raw frames
         config.use_cached_embeddings = False
@@ -123,8 +126,6 @@ class ProcgenDataset:
         import h5py
 
         self.config = self.get_default_config(update)
-        if self.config.use_arps:
-            raise NotImplementedError("data.use_arps (the ARPS shard reader) is not ported yet (ROADMAP Queue 1, item 6)")
         assert self.config.path != ""
         self.dataset_name = dataset_name
         self.split = split
@@ -155,6 +156,9 @@ class ProcgenDataset:
         else:
             self.random_start_offset = 0
         self.idx_to_traj = self.index_to_traj()
+        self._arps = {}
+        if self.config.use_arps:
+            self._init_arps(path)
         if self.config.use_vl and not self.config.use_task_reward:
             # task-reward mode reads h5["rtg"] and never the VL rtgs
             self.rtgs = self.preprocess_rtgs()
@@ -167,7 +171,24 @@ class ProcgenDataset:
         """Seed of the per-item stream (hindsight goals); the loader sets it once an epoch."""
         self._epoch_seed = int(seed)
 
+    def _init_arps(self, h5_path: str) -> None:
+        from .arps import ArpsReader, convert_hdf5
+
+        shard_dir = h5_path + ".arps"
+        keys = self.config.image_key.split(", ")
+        if not all(os.path.exists(os.path.join(shard_dir, f"{k}.arps")) for k in keys):
+            convert_hdf5(h5_path, shard_dir, keys=keys)
+        for k in keys:
+            self._arps[k] = ArpsReader(os.path.join(shard_dir, f"{k}.arps"))
+
+    def _read_frames(self, key: str, index: int):
+        if key in self._arps:
+            return self._arps[key].read_batch([index])[0]
+        return self.h5_file[key][index]
+
     def close(self) -> None:
+        for reader in self._arps.values():
+            reader.close()
         self.h5_file.close()
 
     def __len__(self):
@@ -258,8 +279,8 @@ class ProcgenDataset:
                 res["image_emb"][key] = emb_window(emb_key, index)
                 res["goal_emb"][key] = emb_window(emb_key, goal_indices[key])
         for key in image_keys:
-            res["image"][key] = self.h5_file[key][index][-self.window_size:]
-            res["goal"][key] = self.h5_file[key][goal_indices[key]][-self.window_size:]
+            res["image"][key] = self._read_frames(key, index)[-self.window_size:]
+            res["goal"][key] = self._read_frames(key, goal_indices[key])[-self.window_size:]
             if self.config.use_vl:
                 if self.config.use_task_reward:
                     rtg = (

@@ -25,41 +25,21 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import numpy as np
 
+from ..native import BUILD_DIR, SOURCE_DIR, build_library
 from .gym3_stub import FakeProcgenGym3
 
-SOURCE = Path(__file__).resolve().parent.parent / "native" / "gridenv.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "arp_tpu_torch" / "native"
-GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-pthread")  # no -march=native: a checkout may move to another host
+SOURCE = SOURCE_DIR / "gridenv.cpp"
 
 
 def build_native() -> Path:
     """Compile ``native/gridenv.cpp`` unless already built; returns the library's path.
 
     Raises RuntimeError when ``g++`` is missing or the build fails."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libgridenv-{digest}.so"
-    if lib.exists():
-        return lib
-    gxx = shutil.which("g++")
-    if gxx is None:
-        raise RuntimeError("g++ not found on PATH: the native grid engine is built from arp_tpu_torch/native/gridenv.cpp")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [gxx, *GXX_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed ({proc.returncode}) building {SOURCE}:\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)  # complete before it appears under its name
-    return lib
+    return build_library(SOURCE, "gridenv", BUILD_DIR)
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,8 +10,9 @@ name is its Flax path joined with dots, and the leaves map as:
 
 The input is what ``arp_tpu`` holds: ``{"params": {...}}`` as nested
 mappings (a Flax FrozenDict works) or flattened ``"params/a/b/c"`` keys, as
-``arp_tpu``'s ``ClipRewardEngine.save_npz`` writes them.  Values are anything
-``numpy.asarray`` takes.  Reading a spec needs only numpy.
+``ClipRewardEngine.save_npz`` writes them (both packages').  Values are
+anything ``numpy.asarray`` takes.  Reading a spec needs only numpy.
+:func:`torch_to_flax` is the inverse: a state dict back to the Flax tree.
 
 :func:`convert_torch_clip_vars` is the other way in: an OpenAI CLIP state dict
 (``torch.jit.load(...).state_dict()``, fused ``in_proj`` attention, a Conv2d
@@ -59,6 +60,34 @@ def flax_to_torch(variables_np: Mapping) -> dict[str, torch.Tensor]:
             leaf = "weight"
         state[".".join([*mods, leaf])] = torch.tensor(arr)
     return state
+
+
+def torch_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
+    """A CLIP ViT state dict -> ``{"params": ...}`` in the Flax layout, float32 numpy: the inverse of
+    :func:`flax_to_torch`.  A 2-D ``weight`` is a Dense kernel (transposed), or the token embedding's
+    table; a 1-D one a LayerNorm scale.  A numeric name part joins the one before it
+    (``resblocks.0``), as in the Flax names."""
+    params: dict = {}
+    for name, value in state.items():
+        parts = []
+        for part in name.split("."):
+            if part.isdigit() and parts:
+                parts[-1] = f"{parts[-1]}.{part}"
+            else:
+                parts.append(part)
+        *mods, leaf = parts
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if arr.ndim == 2:
+                leaf, arr = ("embedding", arr) if mods[-1] == "token_embedding" else ("kernel", arr.T)
+            elif arr.ndim == 1:
+                leaf = "scale"
+            else:
+                raise NotImplementedError(f"{name}: a {arr.ndim}-D weight has no Flax counterpart here")
+        elif leaf not in ("bias", "class_embedding", "positional_embedding", "logit_scale"):
+            raise NotImplementedError(f"{name}: only a float CLIP ViT's parameters convert (not int8 weights)")
+        _set(params, [*mods, leaf], np.array(arr, order="C"))
+    return {"params": params}
 
 
 def _set(tree: dict, path: list, value) -> None:

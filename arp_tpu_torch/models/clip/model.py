@@ -191,6 +191,11 @@ class CLIP(nn.Module):
         super().__init__()
         if not isinstance(vision_num_layers, int):
             raise NotImplementedError("the ModifiedResNet image towers are not ported yet")
+        # the constructor's widths, as an engine spec records them (ClipRewardEngine.save_npz)
+        self.config = dict(vocab_size=vocab_size, embed_dim=embed_dim, text_features=text_features,
+                           text_num_layers=text_num_layers, text_num_heads=text_num_heads,
+                           vision_features=vision_features, vision_num_layers=vision_num_layers,
+                           vision_patch_size=vision_patch_size)
         self.vision_patch_size = vision_patch_size
         self.vision_features = vision_features
         self.image_size = image_size

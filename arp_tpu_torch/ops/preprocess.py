@@ -14,12 +14,16 @@ antialiased bicubic, :func:`arp_tpu_torch.ops.augment.resize_image`).  Its
 
 :func:`resize_bicubic_pil_reference` is the plain version of the resize: the
 same fixed-point arithmetic in numpy int64, needing no Pillow.
+:func:`resize_bicubic_pil_host` is the same resize on the host, in C++
+(``native/arps.cpp::pil_resize_batch``), for the engine's ``resize_mode="host"``.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
+import os
 
 import numpy as np
 import torch
@@ -218,6 +222,35 @@ def resize_bicubic_pil_reference(images: np.ndarray, out_h: int, out_w: int) -> 
     x = np.swapaxes(x.reshape(b, out_w, h, c), 1, 2).reshape(b, h, out_w * c)
     x = _pass(x, idx_h, kk_h)  # (B, outH, outW*C)
     return x.reshape(b, out_h, out_w, c).astype(np.uint8)
+
+
+def resize_bicubic_pil_host(images: np.ndarray, out_h: int, out_w: int, num_threads: int = 0) -> np.ndarray:
+    """Pillow-bit-exact bicubic resize on the host, threaded over the batch in C++.
+
+    The coefficient tables of :func:`resize_bicubic_pil_packed` (:func:`_pil_coeffs`), so the
+    result is byte for byte the card's and :func:`resize_bicubic_pil_reference`'s; only
+    ``out_h x out_w`` bytes a frame then cross to the card.  The library is built with ``g++`` at
+    first use (``data/arps.py::native_lib``); a failed build raises.
+
+    images: (B, H, W, C) uint8 -> (B, out_h, out_w, C) uint8.
+    """
+    from ..data.arps import native_lib
+
+    images = np.ascontiguousarray(images, dtype=np.uint8)
+    b, h, w, c = images.shape
+    idx_w, kk_w = (np.ascontiguousarray(a, np.int32) for a in _pil_coeffs(w, out_w))
+    idx_h, kk_h = (np.ascontiguousarray(a, np.int32) for a in _pil_coeffs(h, out_h))
+    out = np.empty((b, out_h, out_w, c), np.uint8)
+    if num_threads <= 0:
+        num_threads = min(16, os.cpu_count() or 1)
+    u8p, i32p = ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int32)
+    native_lib().pil_resize_batch(
+        images.ctypes.data_as(u8p), out.ctypes.data_as(u8p), b, h, w, c, out_h, out_w,
+        idx_w.ctypes.data_as(i32p), kk_w.ctypes.data_as(i32p), idx_w.shape[1],
+        idx_h.ctypes.data_as(i32p), kk_h.ctypes.data_as(i32p), idx_h.shape[1],
+        num_threads,
+    )
+    return out
 
 
 def center_crop_np(images: np.ndarray, crop_h: int, crop_w: int) -> np.ndarray:

@@ -32,22 +32,30 @@ cast to bf16; the text tower and ``logit_scale`` stay float32, as in the JAX
 engine, which casts only inside its image-encode program.
 
 Frames take the packed Pillow-exact path above when ``resize_mode`` is "pil"
-and ``use_crop`` is off.  Otherwise (``resize_mode="fast"``, ``use_crop``)
-they take :func:`arp_tpu_torch.ops.preprocess.clip_preprocess` on (B, H, W, C),
-and the image tower runs the CLIP module: as in the JAX engine, the packed
-``fast_encode`` / ``fast_int8`` paths need the packed preprocessing, and ask
-for them there warns and runs the standard path.  The fine-tuned engine
-(finetune/reward.py) builds its packed trunk on the unpacked preprocessing.
+and ``use_crop`` is off, or "host": there the producer thread crops (under
+``use_crop``) and resizes each chunk on the host in C++
+(:func:`arp_tpu_torch.ops.preprocess.resize_bicubic_pil_host`, the same bytes),
+so only ``image_size``² pixels a frame cross to the card, which then
+normalizes and patchifies.  Otherwise (``resize_mode="fast"``, or "pil" with
+``use_crop``) they take :func:`arp_tpu_torch.ops.preprocess.clip_preprocess`
+on (B, H, W, C), and the image tower runs the CLIP module: as in the JAX
+engine, the packed ``fast_encode`` / ``fast_int8`` paths need the packed
+preprocessing, and ask for them there warns and runs the standard path.  The
+fine-tuned engine (finetune/reward.py) builds its packed trunk on the unpacked
+preprocessing.
 
-Not ported yet (each raises ``NotImplementedError``): the ``host`` resize mode
-(ROADMAP Queue 1, item 6) and ``mesh`` (item 12).  The TPU's 64-multiple batch
-guard is left out.  Without ``variables`` or ``model`` the engine reads the
-OpenAI checkpoint of ``model_name`` from a local file
+:meth:`ClipRewardEngine.save_npz` writes the engine's spec (config, tokenizer
+tag, image size, float32 weights in the Flax layout) for both packages'
+``from_npz``.  Not ported yet: ``mesh`` (ROADMAP Queue 1, item 12) raises
+``NotImplementedError``.  The TPU's 64-multiple batch guard is left out.
+Without ``variables`` or ``model`` the engine reads the OpenAI checkpoint of
+``model_name`` from a local file
 (:func:`arp_tpu_torch.models.clip.load_model_vars`), as the JAX engine does.
 """
 
 from __future__ import annotations
 
+import json
 import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -57,12 +65,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..models.clip.convert import flax_to_torch, read_engine_spec
+from ..models.clip.convert import _flatten, flax_to_torch, read_engine_spec, torch_to_flax
 from ..models.clip.model import CLIP, IMAGE_RESOLUTION, MODELS, CLIPAttention, load_model_vars
 from ..models.clip.tokenizer import Char97Tokenizer, build_tokenizer
 from ..models.m3ae import extract_patches
 from ..ops import vit_infer
-from ..ops.preprocess import clip_preprocess, clip_preprocess_packed_patches
+from ..ops.preprocess import (center_crop_np, clip_preprocess, clip_preprocess_packed_patches,
+                              resize_bicubic_pil_host)
 from ..ops.quantization import quantize_linears
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -79,8 +88,9 @@ class ClipRewardEngine:
         None with a ``model``: the model's own weights; None without one:
         ``load_model_vars(model_name)``, a local OpenAI checkpoint.
       batch_size: fixed device batch; inputs are padded to multiples.
-      resize_mode: "pil" (Pillow's bicubic, bit for bit) or "fast" (the
-        antialiased float bicubic); "host" is not ported.
+      resize_mode: "pil" (Pillow's bicubic, bit for bit, on the device),
+        "host" (the same bytes, resized on the host before the copy) or
+        "fast" (the antialiased float bicubic).
       use_crop: center-crop each frame to half its side before the resize.
       compute_dtype: torch.float32 or torch.bfloat16 for the image tower.
       device: where the towers run, e.g. "cuda" or "cpu".  CUDA without a GPU
@@ -123,9 +133,7 @@ class ClipRewardEngine:
         image_size: Optional[int] = None,
         mesh=None,
     ):
-        if resize_mode == "host":
-            raise NotImplementedError("ClipRewardEngine(resize_mode='host') is not ported yet (ROADMAP Queue 1, item 6)")
-        if resize_mode not in ("pil", "fast"):
+        if resize_mode not in ("pil", "fast", "host"):
             raise ValueError(f"resize_mode must be 'pil', 'fast' or 'host', got {resize_mode!r}")
         if mesh is not None:
             raise NotImplementedError("ClipRewardEngine(mesh) is not ported yet (ROADMAP Queue 1, item 12)")
@@ -157,9 +165,12 @@ class ClipRewardEngine:
             quantize_linears(model)
         model.eval().to(self.device)
         self.model = model
+        self._quantized = quantize_weights
         self.resize_mode, self.use_crop = resize_mode, use_crop
-        # the packed Pillow-exact preprocessing, which the packed encode paths need
-        self._packed = resize_mode == "pil" and not use_crop
+        # the packed Pillow-exact preprocessing, which the packed encode paths need; "host" keeps it
+        # under use_crop, since the host crops before it resizes
+        self._host_resize = resize_mode == "host"
+        self._packed = (resize_mode == "pil" and not use_crop) or self._host_resize
         self._fast = self._fast_q = None
         self._fast_int8 = False
         if fast and self._packed:
@@ -168,8 +179,12 @@ class ClipRewardEngine:
                                     fast_int8_attn)
         elif fast:
             warnings.warn(
-                "fast_encode requires the packed ViT pipeline (pil resize, no engine-side crop); "
+                "fast_encode requires the packed ViT pipeline (pil/host resize, no engine-side crop); "
                 "using the standard path", stacklevel=2)
+        # the float32 image tower as save_npz writes it, kept on the host where the card's is cast
+        self._visual_f32 = None
+        if compute_dtype != torch.float32:
+            self._visual_f32 = {k: v.detach().to("cpu", copy=True) for k, v in model.visual.state_dict().items()}
         model.visual.to(compute_dtype)
         self.logit_scale = float(np.exp(model.logit_scale.item()))
         self.batch_size = batch_size
@@ -203,9 +218,13 @@ class ClipRewardEngine:
         dtype_name = "int8" if self._fast_int8 else str(self._fast_dtype).removeprefix("torch.")
         return f"{dtype_name};score={str(ran).removeprefix('torch.')};int8_attn={int(self._int8_attn)}"
 
+    # the CLIP constructor fields a spec records, in the JAX engine's order
+    _SPEC_FIELDS = ("vocab_size", "embed_dim", "text_features", "text_num_layers", "text_num_heads",
+                    "vision_features", "vision_num_layers", "vision_patch_size")
+
     @classmethod
     def from_npz(cls, path: str, **engine_kwargs):
-        """Rebuild an engine from an ``arp_tpu`` ``ClipRewardEngine.save_npz`` spec.
+        """Rebuild an engine from a ``ClipRewardEngine.save_npz`` spec (either package's).
 
         ``engine_kwargs`` set runtime knobs (batch_size, compute_dtype,
         device, ...); the model config, weights, tokenizer and image size come
@@ -221,6 +240,20 @@ class ClipRewardEngine:
         model = CLIP(**cfg, image_size=meta["image_size"])
         engine_kwargs.setdefault("image_size", meta["image_size"])
         return cls(model=model, variables=flat, tokenizer=tokenizer, **engine_kwargs)
+
+    def save_npz(self, path: str) -> None:
+        """Write a self-contained engine spec, as the JAX engine's ``save_npz`` does: the CLIP config
+        (``_SPEC_FIELDS``), the tokenizer tag, the image size and the float32 variables in the Flax
+        layout flattened by "/", read by :meth:`from_npz` of either package."""
+        if self._quantized:
+            raise ValueError("save_npz writes float weights: build the engine without quantize_weights")
+        state = self.model.state_dict()
+        if self._visual_f32 is not None:
+            state.update({f"visual.{k}": v for k, v in self._visual_f32.items()})
+        flat = {"/".join(k): v for k, v in _flatten(torch_to_flax(state)).items()}
+        meta = {"clip_config": {k: self.model.config[k] for k in self._SPEC_FIELDS},
+                "tokenizer": self.tokenizer_identity, "image_size": self.image_size}
+        np.savez_compressed(path, __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8), **flat)
 
     # -- tokenization ---------------------------------------------------------
 
@@ -286,7 +319,8 @@ class ClipRewardEngine:
         """Encode (N, H, W, C) uint8 frames in fixed-size padded batches.
 
         ``frames`` is anything that slices like an array (an ndarray, or the
-        labeler's lazy HDF5 window).
+        labeler's lazy HDF5 window).  A producer thread slices, pads and (``resize_mode="host"``)
+        crops and resizes the next chunks while the device works on this one.
         """
         n = frames.shape[0]
         if n == 0:
@@ -299,8 +333,13 @@ class ClipRewardEngine:
             if chunk.shape[0] < bs:
                 pad = np.repeat(chunk[-1:], bs - chunk.shape[0], axis=0)
                 chunk = np.concatenate([chunk, pad], axis=0)
-            # (B, H, W, C) -> packed (B, H, W*C)
-            chunk = torch.from_numpy(np.ascontiguousarray(chunk).reshape(bs, chunk.shape[1], -1))
+            if self._host_resize:
+                if self.use_crop:
+                    chunk = center_crop_np(chunk, chunk.shape[1] // 2, chunk.shape[2] // 2)
+                if chunk.shape[1:3] != (self.image_size, self.image_size):
+                    chunk = resize_bicubic_pil_host(chunk, self.image_size, self.image_size)
+            # (B, H, W, C) -> packed (B, H, W*C); a read-only buffer (a request's bytes) is copied
+            chunk = torch.from_numpy(np.require(chunk, requirements=("C", "W")).reshape(bs, chunk.shape[1], -1))
             return chunk.pin_memory() if pin else chunk
 
         outputs = []

@@ -25,7 +25,7 @@ the card with the policy; its return is the score ``best.pt`` keeps
 
 Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
 several devices (``--mesh_*`` above 1), ``--load_checkpoint`` (reference
-pickles), ``--data.use_arps``.
+pickles).
 """
 
 from __future__ import annotations

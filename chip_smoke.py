@@ -91,6 +91,18 @@ Phases, each printing one JSON line:
                steps with float32 towers on both from one set of weights and seeds, the card
                following the CPU's actions; greedy actions equal wherever the CPU's top-2 logits
                are more than 1e-3 apart, rtg windows within 1e-4.
+ 16. reward_serve — the reward server (arp_tpu_torch/reward/serve.py) on 127.0.0.1 at full CLIP ViT-B/16
+               width over engines at its batch of 64: float32 with resize_mode "pil", float32 with "host" (the
+               C++ resize on the host), fast_int8 warmed (calibrated) on FakeProcgen frames.  4 client threads
+               send text requests in the three wire formats (JSON lists, base64, raw bytes) and goal requests
+               with and without a goal, 16 frames of 64 x 64 each: every served reward against the direct engine
+               call (1e-6), each mode against a CPU engine of the same mode on 4 frames (float32 1e-4, int8
+               0.05 x exp(logit_scale), both calibrated on the same frames), host against pil (equal), the host
+               resize against the numpy reference and the card's resize (0 bytes); median latency per format,
+               requests/s, frames/s, the engine's busy share from /v1/health; ARPS records written and read
+               back through the native reader (zlib).  Then the labeling demo group
+               with resize_mode "host" beside "pil": frames/s, equal rewards.  K1 and K2 shapes noted
+               (LaunchShapes) and held by k1_check / k2_check, as the rollout's are.
 Each timed shape of k1, k2 and k3 also carries ``bound_ms``: the least time the
 card could take, the larger of the bytes the function must move over the memory
 rate and its operations over the peak rate of their type (PEAK below).
@@ -383,6 +395,10 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
             cases[f"rollout_tower_b{b * w}"] = (b * w, M3AE_TOKENS, 12, 64, MaskSpec("none"), None)
             cases[f"rollout_policy_b{b}_n{3 * w}"] = (b, 3 * w, 8, 16, MaskSpec("dt", 1, 3), None)
     cases["rollout_engine_vit"] = (ROLLOUT_ENGINE_BATCH, TOKENS, 12, 64, MaskSpec("none"), None)
+    # the reward server: its engine's ViT at (SERVE_BATCH, 197), float32 and (calibrating fast_int8) bf16, and
+    # the text tower at one instruction (slice_ft_text's shape) or a list of two
+    cases["reward_serve_vit"] = (SERVE_BATCH, TOKENS, 12, 64, MaskSpec("none"), None)
+    cases["reward_serve_text_b2"] = (2, 77, 8, 64, MaskSpec("causal"), pad_from_lengths(77, [12, 9]))
 
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -483,6 +499,12 @@ K2_M3AE_SITES = {
 }
 
 
+# K2's sites under the reward server's fast_int8 engine at its batch of 64 (reward/serve.py): M = 64 * 197
+SERVE_BATCH = 64
+K2_SERVE_SITES = {f"serve_{label}": (SERVE_BATCH * TOKENS, k, n, dtype, act)
+                  for label, (_, k, n, dtype, act) in K2_SITES.items() if label in ("qkv", "attn_out", "fc", "proj")}
+
+
 def k2_inputs(m, k, n, dtype, gen, quant, layout="dense", margin=1.05):
     """x (m, k), its scale, the int8 weight with scales, a bias, the (n, k) weight.
 
@@ -535,6 +557,8 @@ def phase_k2(vi, quant) -> dict:
     for m in (1, 129, 1003):  # the tanh-GELU over ragged rows, and beyond the scale
         cases[f"ragged_m{m}_gelu_tanh"] = (m, 768, 3072, torch.bfloat16, "gelu_tanh", "dense", 1.05, True)
     cases["m1003_k768_n3072_gelu_tanh_clamped_f32"] = (1003, 768, 3072, torch.float32, "gelu_tanh", "dense", 0.4, True)
+    for label, (m, k, n, dtype, act) in K2_SITES.items():  # every site of the reward server's fast_int8 engine
+        cases[f"reward_serve_{label}"] = (m // BATCH * SERVE_BATCH, k, n, dtype, act, "dense", 1.05, True)
     for w in range(1, POLICY_WINDOW + 1):  # the frozen_int8 tower in a rollout wave while the window fills
         for label, (_, k, n, dtype, act) in K2_M3AE_SITES.items():
             m = ROLLOUT_ENVS * w * (M3AE_TOKENS - 1 if label == "m3ae_img" else M3AE_TOKENS)
@@ -571,7 +595,7 @@ def phase_k2(vi, quant) -> dict:
 
     timings = {}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for label, (m, k, n, dtype, act) in {**K2_SITES, **K2_M3AE_SITES}.items():
+    for label, (m, k, n, dtype, act) in {**K2_SITES, **K2_M3AE_SITES, **K2_SERVE_SITES}.items():
         x, a, wq, ws, bias, wq_t = k2_inputs(m, k, n, dtype, gen, quant)
         w16 = quant.dequantize_array(wq, ws).bfloat16()
 
@@ -1930,21 +1954,14 @@ class RolloutDataset:
 
 
 def write_engine_spec(path: str, variables: dict, cfg: dict, image_size: int) -> str:
-    """An engine spec in the JAX package's ClipRewardEngine.save_npz layout (config, tokenizer tag, image
-    size and the Flax variables flattened by "/"), for ``--vl_checkpoint <spec>.npz``."""
-    flat = {}
+    """An engine spec (config, tokenizer tag, image size and the Flax variables flattened by "/"), for
+    ``--vl_checkpoint <spec>.npz``: written by the port's ClipRewardEngine.save_npz, in the JAX package's
+    layout."""
+    from arp_tpu_torch.models.clip import CLIP
+    from arp_tpu_torch.reward.engine import ClipRewardEngine
 
-    def walk(tree, prefix):
-        for key, value in tree.items():
-            name = f"{prefix}/{key}" if prefix else key
-            if isinstance(value, dict):
-                walk(value, name)
-            else:
-                flat[name] = np.asarray(value)
-
-    walk(variables, "")
-    meta = {"clip_config": dict(cfg), "tokenizer": "fallback", "image_size": image_size}
-    np.savez(path, __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8), **flat)
+    ClipRewardEngine(model=CLIP(**cfg, image_size=image_size), variables=variables, batch_size=1,
+                     device="cpu").save_npz(path)
     return path
 
 
@@ -2282,6 +2299,254 @@ def phase_rollout(counters, weights, policy_lib, flax_m3ae_to_torch) -> dict:
     return totals, shapes
 
 
+# --- the reward server: reward/serve.py over the labeling engines -------------------------------------
+
+SERVE_CLIP = "vit_b16"  # the reference's reward model
+SERVE_IMAGE = 224
+SERVE_REQUEST_FRAMES, SERVE_FRAME = 16, 64  # a rollout worker's request: 16 frames of 64 x 64 x 3
+SERVE_CLIENTS = 4  # concurrent client threads
+SERVE_CPU_FRAMES, SERVE_WARM_FRAMES = 4, 8  # the CPU engine's frames; the frames the servers warm up (int8: calibrate) on
+SERVE_LABEL_FRAMES, SERVE_LABEL_SIZE = LABEL_FRAMES, 256  # the host-vs-pil labeling run: the slice's demo group
+SERVE_TEXTS = ("the goal is to collect the coin.", ["the goal is to collect the coin.", "reach the end of the level."])
+# label -> engine knobs; every mode on the engine batch of reward/serve.py
+SERVE_MODES = {"f32_pil": dict(resize_mode="pil"), "f32_host": dict(resize_mode="host"),
+               "fast_int8": dict(fast_int8=True)}
+SERVE_FORMATS = ("lists", "b64", "raw")
+# Served rewards against the direct engine call on the same frames: the same computation (bit-equal expected).
+SERVED_ATOL = 1e-6
+
+
+def serve_frames(n: int, seed: int) -> np.ndarray:
+    """Real-like observations: FakeProcgen's rendered levels (a grid world's agent and goal blocks), n seeds."""
+    from arp_tpu_torch.envs.fake import FakeProcgen
+
+    env = FakeProcgen("coinrun", {"image_size": SERVE_FRAME, "record_video": False})
+    return np.stack([env.reset(seed * 10_000 + i)["image"]["ob"] for i in range(n)])
+
+
+def reward_request(kind: str, fmt: str, frames: np.ndarray, text=None, goal=None) -> tuple:
+    """(path, body bytes, headers) of one reward request in one wire format."""
+    import base64
+    from urllib.parse import quote
+
+    def b64(a):
+        return base64.b64encode(np.ascontiguousarray(a).tobytes()).decode()
+
+    if fmt == "raw":
+        headers = {"X-Frames-Shape": ",".join(map(str, frames.shape))}
+        body = frames.tobytes()
+        if kind == "text":
+            headers["X-Text"] = quote(text)
+        elif goal is not None:
+            headers["X-Goal-Shape"] = ",".join(map(str, goal.shape))
+            body += goal.tobytes()
+        return f"/v1/reward/{kind}_raw", body, headers
+    payload = {"frames": frames.tolist()} if fmt == "lists" else {"frames_b64": b64(frames),
+                                                                    "frames_shape": list(frames.shape)}
+    if kind == "text":
+        payload["text"] = text
+    elif goal is not None:
+        payload.update({"goal": goal.tolist()} if fmt == "lists" else {"goal_b64": b64(goal),
+                                                                       "goal_shape": list(goal.shape)})
+    return f"/v1/reward/{kind}", json.dumps(payload).encode(), {"Content-Type": "application/json"}
+
+
+def serve_requests(client: int) -> list:
+    """One client's requests: in each wire format a text request, a goal request with a goal and one
+    without (the goal is then the last frame); raw text must be one string (X-Text)."""
+    frames = serve_frames(SERVE_REQUEST_FRAMES * 3 * len(SERVE_FORMATS) + 1, SEED + 1 + client)
+    out, k = [], 0
+    for i, fmt in enumerate(SERVE_FORMATS):
+        text = SERVE_TEXTS[0] if fmt == "raw" else SERVE_TEXTS[(client + i) % 2]
+        for kind, goal in (("text", None), ("goal", frames[-1]), ("goal", None)):
+            batch = frames[k: k + SERVE_REQUEST_FRAMES]
+            k += SERVE_REQUEST_FRAMES
+            out.append(dict(kind=kind, fmt=fmt, frames=batch, text=text if kind == "text" else None, goal=goal,
+                            request=reward_request(kind, fmt, batch, text, goal)))
+    return out
+
+
+def drive_reward_server(server, url: str) -> tuple[list, float]:
+    """SERVE_CLIENTS threads send their requests at once; returns [(request, rewards, latency s)], wall s."""
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    plans = [serve_requests(c) for c in range(SERVE_CLIENTS)]
+
+    def client(plan):
+        done = []
+        for req in plan:
+            path, body, headers = req["request"]
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(urllib.request.Request(url + path, data=body, headers=headers),
+                                        timeout=300) as resp:
+                rewards = json.loads(resp.read())["rewards"]
+            done.append((req, np.asarray(rewards, np.float32), time.perf_counter() - t0))
+        return done
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+        results = [r for done in pool.map(client, plans) for r in done]
+    sync()
+    return results, time.perf_counter() - t0
+
+
+def direct_rewards(engine, req) -> np.ndarray:
+    if req["kind"] == "text":
+        out = engine.text_rewards(req["frames"], req["text"])
+    elif req["goal"] is not None:
+        out = engine.goal_rewards_vs(req["frames"], req["goal"])
+    else:
+        out = engine.goal_rewards(req["frames"], goal_index=-1)
+    return np.asarray(out, np.float32)
+
+
+def phase_reward_serve(counters, preprocess) -> tuple[dict, "LaunchShapes"]:
+    """The reward server (reward/serve.py) at full CLIP ViT-B/16 width on 127.0.0.1, over engines at
+    its batch of 64: float32 with the card's resize (pil), float32 with the host's (host), fast_int8 warmed
+    (calibrated) on real-like frames.  SERVE_CLIENTS client threads send text requests in the three wire
+    formats and goal requests with and without a goal, 16 frames of 64 x 64 each.  Every served reward
+    against the direct engine call; each mode against a CPU engine of the same mode; host against pil; the
+    host resize byte for byte; the ARPS reader on frames.  Then one labeling run of the slice's demo group
+    with resize_mode "host" beside "pil".  Returns each kernel's launches over the server drives and the
+    labeling runs, and the shapes K1 and K2 ran at over them (LaunchShapes)."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    from arp_tpu_torch.data import arps
+    from arp_tpu_torch.models.clip import CLIP, CONFIGS, flax_to_torch
+    from arp_tpu_torch.reward.engine import ClipRewardEngine
+    from arp_tpu_torch.reward.labeler import label_group
+    from arp_tpu_torch.reward.serve import RewardServer
+
+    cfg = CONFIGS[SERVE_CLIP]
+    state = flax_to_torch(random_clip_variables(cfg, SERVE_IMAGE, SEED))
+
+    def engine(device, batch_size, **knobs):
+        model = CLIP(**cfg, image_size=SERVE_IMAGE)
+        model.load_state_dict(state)
+        return ClipRewardEngine(model=model, batch_size=batch_size, device=device, **knobs)
+
+    # the host resize: the numpy reference's bytes, and the card's packed resize's
+    rng = np.random.default_rng(SEED)
+    for size in (SERVE_FRAME, SERVE_LABEL_SIZE):
+        frames = rng.integers(0, 256, size=(8, size, size, 3), dtype=np.uint8)
+        host = preprocess.resize_bicubic_pil_host(frames, SERVE_IMAGE, SERVE_IMAGE)
+        ref = preprocess.resize_bicubic_pil_reference(frames, SERVE_IMAGE, SERVE_IMAGE)
+        card = preprocess.resize_bicubic_pil_packed(torch.from_numpy(frames.reshape(8, size, size * 3)).to(DEVICE), 3,
+                                                    SERVE_IMAGE, SERVE_IMAGE).cpu().numpy()
+        diff_ref, diff_card = int((host != ref).sum()), int((host.reshape(card.shape) != card).sum())
+        emit("host_resize", frames=list(frames.shape), out=[SERVE_IMAGE, SERVE_IMAGE], bytes_differing_from_reference=diff_ref,
+             bytes_differing_from_card=diff_card)
+        check(diff_ref == 0 and diff_card == 0, f"host resize {size}->{SERVE_IMAGE}: {diff_ref} bytes off the "
+              f"reference, {diff_card} off the card's")
+
+    warm = serve_frames(SERVE_WARM_FRAMES, SEED)
+    probe = serve_frames(SERVE_CPU_FRAMES, SEED + 100)
+    # the ARPS reader's library (linked with zlib) builds on this machine and reads back what was written
+    with tempfile.TemporaryDirectory() as tmp:
+        shard = os.path.join(tmp, "ob.arps")
+        arps.write_arps(shard, np.concatenate([warm, probe]))
+        reader = arps.ArpsReader(shard)
+        back = reader.read_batch(np.arange(len(warm) + len(probe))[::-1])
+        reader.close()
+    emit("arps", records=len(back), library=str(arps.native_lib()._name))
+    check(np.array_equal(back[::-1], np.concatenate([warm, probe])), "ARPS records read back differ")
+    totals, shapes, served = dict.fromkeys(counters, 0), LaunchShapes(), {}
+    for mode, knobs in SERVE_MODES.items():
+        # the CPU engine of the same mode; an int8 one calibrated on the warm-up frames, as the card's server is
+        int8 = bool(knobs.get("fast_int8"))
+        cpu = engine("cpu", SERVE_WARM_FRAMES if int8 else SERVE_CPU_FRAMES, **knobs)
+        if int8:
+            cpu.encode_image_features(warm)
+        want = cpu.text_rewards(probe, SERVE_TEXTS[0])
+        del cpu
+        eng = engine(DEVICE, SERVE_BATCH, **knobs)
+        server = RewardServer(eng)
+        t0 = time.perf_counter()
+        server.warmup(warm)  # the warm-up frames pad to the batch with copies of the last: the same amaxes
+        sync()
+        warm_s = time.perf_counter() - t0
+        httpd = server.make_http_server("127.0.0.1", 0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        url = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            for fn in counters.values():
+                fn.launches = 0
+            with shapes:
+                results, wall = drive_reward_server(server, url)
+                launches = launch_counts(counters)
+            health = json.loads(urllib.request.urlopen(url + "/v1/health", timeout=60).read())
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join(timeout=30)
+        check(not thread.is_alive(), f"{mode}: the server thread did not stop")
+        served[mode] = [r for _, r, _ in results]
+        off = max(float(np.abs(got - direct_rewards(eng, req)).max()) for req, got, _ in results)
+        mae = float(np.abs(direct_rewards(eng, dict(kind="text", frames=probe, text=SERVE_TEXTS[0])) - want).mean())
+        bound = INT8_COS_MAE * eng.logit_scale if int8 else F32_REWARD_MAE
+        latencies = defaultdict(list)
+        for req, _, seconds in results:
+            latencies[f"{req['kind']}_{req['fmt']}"].append(seconds * 1e3)
+            latencies["all"].append(seconds * 1e3)
+        frames_served = sum(len(req["frames"]) for req, _, _ in results)
+        emit("reward_serve", mode=mode, recipe=eng.encode_recipe, batch_size=SERVE_BATCH, clients=SERVE_CLIENTS,
+             requests=len(results), frames=frames_served, seconds=wall, requests_per_s=len(results) / wall,
+             frames_per_s=frames_served / wall, warmup_s=warm_s,
+             latency_ms_median={k: float(np.median(v)) for k, v in latencies.items()},
+             latency_ms_max=float(max(latencies["all"])), health=health,
+             engine_busy_share=health["busy_seconds"] / wall, launches=launches,
+             served_vs_direct_max_abs_err=off, served_bound=SERVED_ATOL, reward_mae_vs_cpu=mae, mae_bound=bound,
+             cpu_frames=SERVE_CPU_FRAMES)
+        check(all(np.isfinite(r).all() and r.shape == (SERVE_REQUEST_FRAMES,) for r in served[mode]),
+              f"{mode}: served rewards not finite or of the wrong shape")
+        check(health["frames_served"] == frames_served and health["cached_texts"] == len(SERVE_TEXTS),
+              f"{mode}: health {health}")
+        check(off <= SERVED_ATOL, f"{mode}: served rewards {off} from the direct engine call (bound {SERVED_ATOL})")
+        check(mae <= bound, f"{mode}: reward MAE vs the CPU engine {mae} > {bound}")
+        check(launches["flash_attn_fwd"] > 0, f"{mode}: the requests never launched K1")
+        if int8:
+            check(launches["int8_gemm"] > 0, f"{mode}: the requests never launched K2")
+        for name, n in launches.items():
+            totals[name] += n
+        del eng, server
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    differ = sum(int((a != b).sum()) for a, b in zip(served["f32_host"], served["f32_pil"]))
+    emit("reward_serve_host_vs_pil", rewards_differing=differ, of=sum(len(r) for r in served["f32_pil"]))
+    check(differ == 0, f"{differ} rewards of the host engine differ from the pil engine's")
+
+    # labeling the slice's demo group with the host resize, beside the card's
+    g_src = demo_group(SERVE_LABEL_FRAMES, 2, SERVE_LABEL_SIZE, SEED)
+    labeled = {}
+    for mode in ("pil", "host"):
+        eng = engine(DEVICE, BATCH, resize_mode=mode)
+        eng.text_rewards(g_src["ob"][:BATCH, -1], SERVE_TEXTS[0])  # warm-up batch
+        g = MemoryGroup((k, g_src[k]) for k in ("ob", "act", "done"))
+        sync()
+        for fn in counters.values():
+            fn.launches = 0
+        with shapes:
+            stats = label_group(g, SERVE_TEXTS[0], eng, progress=False)
+            launches = launch_counts(counters)
+        labeled[mode] = np.asarray(g["ob_clip_reward"])
+        emit("label_host_vs_pil", resize_mode=mode, frames=stats["frames"], seconds=stats["seconds"], fps=stats["fps"],
+             batch_size=BATCH, launches=launches, recipe=eng.encode_recipe)
+        check(launches["flash_attn_fwd"] > 0, f"labeling with resize_mode={mode} never launched K1")
+        for name, n in launches.items():
+            totals[name] += n
+        del eng
+    check(np.array_equal(labeled["host"], labeled["pil"]), "labeling with the host resize differs from the card's: "
+          f"{int((labeled['host'] != labeled['pil']).sum())} rewards")
+    emit("reward_serve_kernel_shapes", k1=dict(shapes.k1), k2=dict(shapes.k2))
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return totals, shapes
+
+
 def kernel_entry(name: str, launches: int, max_abs_err: float, timing: dict, **extra) -> dict:
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -2353,8 +2618,12 @@ def main() -> int:
     # stage 5: rollout eval with on-the-fly rewards through build_test_step
     path_launches["rollout"], shapes = phase_rollout(counters, weights, policy_lib, flax_m3ae_to_torch)
     del weights
-    unheld = sorted(set(shapes.k1) - k1["checked"]) + sorted(set(shapes.k2) - k2["checked"])
-    check(not unheld, f"the rollout launched kernels at shapes that no check held against the plain version: {unheld}")
+    # the reward server over the labeling engines, and labeling with the host resize
+    path_launches["reward_serve"], serve_shapes = phase_reward_serve(counters, preprocess)
+    for path, noted in (("rollout", shapes), ("reward_serve", serve_shapes)):
+        unheld = sorted(set(noted.k1) - k1["checked"]) + sorted(set(noted.k2) - k2["checked"])
+        check(not unheld, f"the {path} runs launched kernels at shapes that no check held against the plain "
+              f"version: {unheld}")
     path_kernels = {"finetune": ("flash_attn_fwd",)}  # every other path runs K1 and K2
     for path, counts in path_launches.items():
         for name in path_kernels.get(path, ("flash_attn_fwd", "int8_gemm")):
@@ -2382,7 +2651,8 @@ def main() -> int:
                      bf16_matmul_ms=fc["bf16_matmul_ms"], max_bf16_ulps=k2["max_bf16_ulps"],
                      launches_by_path={"labeling": launches["int8_gemm"] - sum(c["int8_gemm"] for c in path_launches.values()),
                                        **{path: c["int8_gemm"] for path, c in path_launches.items()}},
-                     policy_path=shapes(k2["timings"], tuple(K2_M3AE_SITES))),
+                     policy_path=shapes(k2["timings"], tuple(K2_M3AE_SITES)),
+                     serve_path=shapes(k2["timings"], tuple(K2_SERVE_SITES))),
         kernel_entry("int8_matmul", launches["int8_matmul"], k3["max_abs_err"],
                      k3["timings"]["fc_768x3072_float32"], dtype="float32"),
     ]}), flush=True)

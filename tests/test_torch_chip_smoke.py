@@ -487,3 +487,65 @@ def test_rollout_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     sites = {(int(key.split()[0][2:]), key.split()[-1]) for key in shapes.k2}
     assert {m for m, _ in sites} == {2 * w * t for w in (1, 2) for t in (tokens, tokens - 1)}
     assert {act for _, act in sites} == {"none", "gelu_tanh"}
+
+
+def test_reward_serve_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """The reward_serve phase end to end on the CPU at a tiny CLIP width, few frames and clients: the host
+    resize's bytes, the server over the three engines behind real HTTP with every wire format, the direct
+    calls, the CPU comparisons (the same device twice: equal), host against pil, and the labeling run.  What
+    only the card can show (the kernels' launches and shapes) is left out."""
+    import json
+
+    from arp_tpu_torch.models.clip import model as tclip_model
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import preprocess, quantization, vit_infer
+
+    tiny = dict(embed_dim=16, vocab_size=49408, vision_num_layers=1, vision_features=64, vision_patch_size=16,
+                text_features=16, text_num_heads=4, text_num_layers=1)
+    monkeypatch.setitem(tclip_model.CONFIGS, "tiny_smoke", tiny)
+    for name, value in dict(DEVICE="cpu", SERVE_CLIP="tiny_smoke", SERVE_IMAGE=32, SERVE_BATCH=8, BATCH=4,
+                            SERVE_REQUEST_FRAMES=5, SERVE_FRAME=48, SERVE_CLIENTS=2, SERVE_LABEL_FRAMES=9,
+                            SERVE_LABEL_SIZE=40).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    real_check = chip_smoke.check
+    monkeypatch.setattr(chip_smoke, "check", lambda ok, what: real_check(ok or "launch" in what, what))
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
+                "int8_matmul": quantization.int8_matmul}
+    launches, shapes = chip_smoke.phase_reward_serve(counters, preprocess)
+    # on the CPU attention never reaches K1's wrapper; K2's takes its plain version, noted at the int8 engine's sites
+    assert set(launches) == set(counters) and not shapes.k1
+    assert {key.split()[0] for key in shapes.k2} == {"m=8", "m=32", "m=40"}  # final (batch 8), conv1, the layers
+    by_phase = {}
+    for line in capsys.readouterr().out.splitlines():
+        if line.startswith("{"):
+            record = json.loads(line)
+            by_phase.setdefault(record["phase"], []).append(record)
+    assert [r["frames"][1] for r in by_phase["host_resize"]] == [48, 40] and by_phase["arps"][0]["records"] == 12
+    assert all(r["bytes_differing_from_reference"] == r["bytes_differing_from_card"] == 0 for r in by_phase["host_resize"])
+    runs = {r["mode"]: r for r in by_phase["reward_serve"]}
+    assert list(runs) == list(chip_smoke.SERVE_MODES)
+    for mode, r in runs.items():
+        assert r["requests"] == 2 * 9 and r["frames"] == 2 * 9 * 5 and r["health"]["frames_served"] == r["frames"]
+        assert r["served_vs_direct_max_abs_err"] == 0.0 and r["reward_mae_vs_cpu"] == 0.0, mode
+        assert set(r["latency_ms_median"]) == {"all"} | {f"{kind}_{fmt}" for kind in ("text", "goal")
+                                                        for fmt in chip_smoke.SERVE_FORMATS}
+        assert 0 < r["engine_busy_share"] <= 1 and r["requests_per_s"] > 0
+    assert "resize=host" in runs["f32_host"]["recipe"] and runs["fast_int8"]["recipe"].startswith("torch;packed;int8")
+    assert by_phase["reward_serve_host_vs_pil"][0] == {"phase": "reward_serve_host_vs_pil", "rewards_differing": 0,
+                                                       "of": 2 * 9 * 5}
+    labeled = {r["resize_mode"]: r for r in by_phase["label_host_vs_pil"]}
+    assert set(labeled) == {"pil", "host"} and all(r["frames"] == 9 for r in labeled.values())
+
+
+def test_reward_serve_cases_are_held_by_the_kernel_checks():
+    """Every K2 site of the server's fast_int8 engine at its batch of 64, and the timed serve sites, are shapes
+    K2 takes; the requests' wire formats are the server's routes."""
+    import json
+
+    for label, (m, k, n, dtype, act) in chip_smoke.K2_SERVE_SITES.items():
+        assert m == 64 * 197 == 12_608 and k % 32 == 0 and n % 8 == 0, label
+    path, body, headers = chip_smoke.reward_request("goal", "raw", np.zeros((2, 4, 4, 3), np.uint8),
+                                                    goal=np.ones((4, 4, 3), np.uint8))
+    assert path == "/v1/reward/goal_raw" and len(body) == 3 * 48 and headers["X-Goal-Shape"] == "4,4,3"
+    path, body, headers = chip_smoke.reward_request("text", "b64", np.zeros((2, 4, 4, 3), np.uint8), text="a b")
+    assert path == "/v1/reward/text" and json.loads(body)["frames_shape"] == [2, 4, 4, 3]

@@ -172,15 +172,16 @@ def test_native_engine_stream_is_the_python_stub_s():
 
 def test_native_engine_build_failure_raises(monkeypatch, tmp_path):
     """No compiler, or a failing build: the engine raises with the reason, as JAX's refuses to construct."""
+    from arp_tpu_torch import native
     from arp_tpu_torch.envs import native_engine
 
     monkeypatch.setattr(native_engine, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(native_engine.shutil, "which", lambda name: None)
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
     native_engine.native_lib.cache_clear()
     try:
         with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
             native_engine.NativeProcgenGym3(**STUB)
-        monkeypatch.setattr(native_engine.shutil, "which", lambda name: "/bin/false")
+        monkeypatch.setattr(native.shutil, "which", lambda name: "/bin/false")
         with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
             native_engine.build_native()
         assert not list(tmp_path.iterdir())  # no half-written library left behind

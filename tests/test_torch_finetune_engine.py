@@ -385,5 +385,3 @@ def test_unported_paths_raise(tmp_path):
     (orbax_like / "best").mkdir(parents=True)
     with pytest.raises(NotImplementedError, match="item 10"):
         load_adapter_params(str(orbax_like))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ClipRewardEngine(model=CLIP(**TINY_CLIP_CFG, image_size=TINY_CLIP_IMG_SIZE), resize_mode="host", device="cpu")

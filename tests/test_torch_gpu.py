@@ -754,3 +754,68 @@ def test_rollout_on_the_card_matches_the_cpu(cuda, kind):
         np.testing.assert_array_equal(g["action"][sure], c["action"][sure])
         np.testing.assert_allclose(g["rtg"], c["rtg"], atol=rtg_atol, rtol=0)
     assert np.abs(runs["cpu"][-1]["rtg"][:, -1] - runs["cpu"][0]["rtg"][:, -1]).max() > 0  # the rewards moved it
+
+
+# --- the reward server and the host resize -------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", list(chip_smoke.SERVE_MODES))
+def test_reward_server_on_the_card_matches_the_cpu(cuda, mode):
+    """The server's routes in every wire format on the card against the same server on the CPU (float32 within
+    1e-4, fast_int8 within 0.05 x exp(logit_scale), both warmed, so calibrated, on the same frames)."""
+    from arp_tpu_torch.reward.serve import RewardServer
+
+    knobs = chip_smoke.SERVE_MODES[mode]
+    state = flax_to_torch(chip_smoke.random_clip_variables(TINY, 32, seed=3))
+
+    def server(device):
+        model = CLIP(**TINY, image_size=32)
+        model.load_state_dict(state)
+        return RewardServer(ClipRewardEngine(model=model, batch_size=8, tokenizer=Char97Tokenizer(), device=device,
+                                             **knobs))
+
+    warm = chip_smoke.serve_frames(8, 0)
+    frames = chip_smoke.serve_frames(5, 1)
+    cpu, card = server("cpu"), server(cuda)
+    cpu.warmup(warm)
+    counters = (attn.flash_attention_fwd, vit_infer.fused_int8_matmul)
+    for fn in counters:
+        fn.launches = 0
+    card.warmup(warm)
+    bound = chip_smoke.INT8_COS_MAE * card.engine.logit_scale if "int8" in mode else chip_smoke.F32_REWARD_MAE
+    for kind, goal in (("text", None), ("goal", frames[0]), ("goal", None)):
+        for fmt in chip_smoke.SERVE_FORMATS:
+            path, body, headers = chip_smoke.reward_request(kind, fmt, frames, "collect the coin.", goal)
+            if fmt == "raw":
+                call = (card.text_rewards_raw if kind == "text" else card.goal_rewards_raw), \
+                       (cpu.text_rewards_raw if kind == "text" else cpu.goal_rewards_raw)
+                got, want = (fn(headers, body)["rewards"] for fn in call)
+            else:
+                import json
+
+                payload = json.loads(body)
+                call = (card.text_rewards, cpu.text_rewards) if kind == "text" else (card.goal_rewards, cpu.goal_rewards)
+                got, want = (fn(payload)["rewards"] for fn in call)
+            assert np.abs(np.asarray(got) - np.asarray(want)).mean() <= bound, (kind, fmt, goal is None)
+    k1, k2 = (fn.launches for fn in counters)
+    assert k1 > 0 and (k2 > 0) == ("int8" in mode)
+
+
+def test_host_resize_and_host_engine_on_the_card(cuda):
+    """The host's resize is the card's byte for byte, and the host engine's rewards on the card are the pil
+    engine's (the same bytes reach the tower)."""
+    frames = np.random.default_rng(9).integers(0, 256, size=(6, 64, 64, 3), dtype=np.uint8)
+    host = preprocess.resize_bicubic_pil_host(frames, 32, 32)
+    card = preprocess.resize_bicubic_pil_packed(torch.from_numpy(frames.reshape(6, 64, 192)).to(cuda), 3, 32, 32)
+    assert np.array_equal(host.reshape(6, 32, 96).astype(np.float32), card.cpu().numpy())
+    state = flax_to_torch(chip_smoke.random_clip_variables(TINY, 32, seed=3))
+
+    def engine(mode):
+        model = CLIP(**TINY, image_size=32)
+        model.load_state_dict(state)
+        return ClipRewardEngine(model=model, batch_size=4, tokenizer=Char97Tokenizer(), device=cuda, resize_mode=mode)
+
+    attn.flash_attention_fwd.launches = 0
+    got = engine("host").text_rewards(frames, "collect the coin.")
+    assert attn.flash_attention_fwd.launches > 0
+    np.testing.assert_array_equal(got, engine("pil").text_rewards(frames, "collect the coin."))

@@ -1,8 +1,9 @@
 """The PyTorch port imports no JAX: every arp_tpu_torch module (the policy, its server and
 chip_smoke.py too) loads with jax, flax, ml_collections, orbax, optax and arp_tpu blocked.  Nor
 does it read the JAX package's files: no code of the port names a path under ``arp_tpu/``, and the
-eval path (envs, the native engine's build, rollouts, videos) opens, loads and compiles nothing
-there."""
+eval path (envs, the native engine's build, rollouts, videos), the reward server and the labeler's
+shard path (the ARPS reader's and the host resize's builds, several hosts, the merge) open, load and
+compile nothing there."""
 
 import ast
 import os
@@ -45,14 +46,15 @@ def test_port_imports_without_jax_or_flax():
     )
     assert out.returncode == 0, out.stderr + out.stdout
     n, *names = out.stdout.split("IMPORTED")[1].split()
-    assert int(n) >= 57, out.stdout  # every module of the package, not an empty walk
+    assert int(n) >= 61, out.stdout  # every module of the package, not an empty walk
     for module in ("serve", "config", "utils", "models.layers", "models.m3ae", "models.impala", "models.policy.models",
                    "models.policy.convert", "ops.m3ae_infer", "ops.augment", "train.main", "train.common",
                    "parallel.step", "parallel.prefetch", "data.procgen_dataset", "data.loader", "data.validate",
                    "data.instructions", "checkpoint", "logging_utils", "profiling", "resilience", "models.clip.model",
                    "models.clip.convert", "finetune", "finetune.adapter_model", "finetune.convert", "finetune.dataset",
                    "finetune.decoder", "finetune.train", "finetune.reward", "envs", "envs.fake", "envs.state_codec",
-                   "envs.gym3_stub", "envs.native_engine", "envs.procgen", "envs.rollout", "train.eval", "video"):
+                   "envs.gym3_stub", "envs.native_engine", "envs.procgen", "envs.rollout", "train.eval", "video",
+                   "native", "data.arps", "data.cache_embeddings", "reward.serve"):
         assert f"arp_tpu_torch.{module}" in names, module
 
 
@@ -225,6 +227,67 @@ def test_eval_path_reads_nothing_of_the_jax_package(tmp_path):
             parallel_rollout(0, [FakeProcgen("coinrun", conf) for _ in range(2)], policy, **kw)
         save_video(videos[0], os.path.join({str(tmp_path)!r}, "v.mp4"))
         assert np.isfinite(metric["return"])
+        assert not touched, touched
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_server_and_shard_path_read_nothing_of_the_jax_package(tmp_path):
+    """With the JAX stack blocked and the audit hook of the eval path's test: the reward server answers a raw
+    request over a host-resize engine (its library built from the port's source), a file is labeled by two
+    hosts and merged, its frames converted to ARPS shards and read back natively, and the embedding cache
+    written; nothing under arp_tpu/ is opened, loaded or compiled."""
+    script = _SCRIPT + textwrap.dedent(
+        f"""
+        import os, numpy as np, h5py, torch
+        JAX_DIR = os.path.join({REPO!r}, "arp_tpu") + os.sep
+        touched = []
+
+        def audit(event, args):
+            if event in ("open", "ctypes.dlopen", "subprocess.Popen", "os.listdir", "os.scandir"):
+                for a in args:
+                    items = a if isinstance(a, (list, tuple)) else [a]
+                    for x in items:
+                        if isinstance(x, (str, bytes, os.PathLike)):
+                            p = os.path.realpath(os.fsdecode(x))
+                            if p.startswith(JAX_DIR):
+                                touched.append((event, p))
+
+        sys.addaudithook(audit)
+        from arp_tpu_torch.data.arps import ArpsReader, convert_hdf5
+        from arp_tpu_torch.data.cache_embeddings import cache_clip_embeddings
+        from arp_tpu_torch.models.clip import CLIP
+        from arp_tpu_torch.models.clip.tokenizer import Char97Tokenizer
+        from arp_tpu_torch.reward.engine import ClipRewardEngine
+        from arp_tpu_torch.reward.labeler import label_rewards, merge_reward_shards
+        from arp_tpu_torch.reward.serve import RewardServer
+        tmp = {str(tmp_path)!r}
+        engine = ClipRewardEngine(model=CLIP(embed_dim=16, vocab_size=97, vision_num_layers=1, vision_features=64,
+                                             vision_patch_size=16, text_features=16, text_num_heads=4,
+                                             text_num_layers=1, image_size=32),
+                                  batch_size=4, device="cpu", resize_mode="host", tokenizer=Char97Tokenizer())
+        frames = np.random.default_rng(0).integers(0, 256, size=(3, 40, 40, 3), dtype=np.uint8)
+        out = RewardServer(engine).text_rewards_raw({{"X-Frames-Shape": "3,40,40,3", "X-Text": "coin"}},
+                                                    frames.tobytes())
+        assert len(out["rewards"]) == 3
+        path = os.path.join(tmp, "d.hdf5")
+        with h5py.File(path, "w") as g:
+            g.create_dataset("ob", data=np.zeros((6, 2, 40, 40, 3), np.uint8))
+            done = np.zeros((6, 2), bool)
+            done[[2, 5], -1] = True
+            g.create_dataset("done", data=done)
+        for h in range(2):
+            label_rewards(path, "coin", engine=engine, progress=False, num_hosts=2, host_index=h)
+        merge_reward_shards(path)
+        shard = convert_hdf5(path, os.path.join(tmp, "shards"), keys=["ob"])["ob"]
+        assert ArpsReader(shard).read_batch([5]).shape == (1, 2, 40, 40, 3)
+        cache_clip_embeddings(path, engine)
         assert not touched, touched
         bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not bad, bad

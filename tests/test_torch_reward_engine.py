@@ -98,11 +98,10 @@ def test_provenance(jax_engine, port_engine):
     assert port_engine.encode_recipe.split(";", 1)[1] == jax_engine.encode_recipe.split(";", 1)[1]
 
 
-@pytest.mark.parametrize("option", [
-    dict(resize_mode="host"), dict(mesh=object()),
-], ids=lambda o: next(iter(o)) + ("_" + o["resize_mode"] if "resize_mode" in o else ""))
+@pytest.mark.parametrize("option", [dict(mesh=object())], ids=lambda o: next(iter(o)))
 def test_unported_options_raise(jax_engine, option):
-    # resize_mode="fast" and use_crop are ported: tests/test_torch_finetune_engine.py holds them to JAX
+    # resize_mode "fast" and use_crop: tests/test_torch_finetune_engine.py holds them to JAX; "host":
+    # tests/test_torch_arps.py
     with pytest.raises(NotImplementedError):
         _port_engine(jax_engine, **option)
 

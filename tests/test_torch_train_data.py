@@ -105,11 +105,6 @@ def test_dataset_dirname_and_compute_scale():
         assert tds.compute_scale(rtg) == compute_scale(rtg)
 
 
-def test_use_arps_raises(files):
-    with pytest.raises(NotImplementedError, match="use_arps"):
-        tds.ProcgenDataset(dict(path=str(files), use_arps=True, window_size=4), dataset_name=NAME)
-
-
 def _corrupt(path, how):
     with h5py.File(path, "a") as g:
         if how == "truncated":

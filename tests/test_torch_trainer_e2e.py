@@ -122,7 +122,7 @@ def test_profile_dir_writes_a_trace(demos, tmp_path):
 
 
 @pytest.mark.parametrize("flag,item", [("--mesh_dp=2", "item 12"), ("--mesh_tp=2", "item 12"),
-                                       ("--load_checkpoint=x.pkl", "item 10"), ("--data.use_arps=True", "item 6")])
+                                       ("--load_checkpoint=x.pkl", "item 10")])
 def test_unported_flags_raise(demos, tmp_path, flag, item):
     with pytest.raises(NotImplementedError, match=item):
         tmain.main(argv(demos, str(tmp_path / "out"), "--epochs=1", flag))
