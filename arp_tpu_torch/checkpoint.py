@@ -18,8 +18,11 @@ renamed); the newest ``max_to_keep`` steps are kept.  The best model is
 ``best.pt`` (state and score in one file) with its score in ``best.json``.
 Saves are synchronous, so :meth:`CheckpointManager.wait` has nothing to wait for.
 
-Not ported: ``load_reference_checkpoint`` and the reference-pickle exporters
-(ROADMAP Queue 1, item 10).
+The reference's own format, a pickle of ``{"step", "epoch", "variant",
+"state"}`` with a flax TrainState, is read by :func:`load_pickle` /
+:func:`load_reference_checkpoint` and written by :func:`save_pickle` /
+:func:`save_reference_checkpoint`, all without flax, optax, jax or
+cloudpickle (arp_tpu_torch/_pickle_compat.py).
 """
 
 from __future__ import annotations
@@ -31,6 +34,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from . import _pickle_compat
 
 _STEP_FILE = re.compile(r"step_(\d+)\.pt$")
 
@@ -179,8 +184,76 @@ class CheckpointManager:
         """Saves are synchronous: nothing is in flight."""
 
 
-def load_reference_checkpoint(path: str):
-    """The reference's pickled checkpoints: not ported yet."""
-    raise NotImplementedError(
-        f"loading a reference-format checkpoint ({path}) is not ported yet (ROADMAP Queue 1, item 10)"
+def save_pickle(obj, path: str) -> None:
+    """Pickle ``obj`` to ``path`` in the reference's format: a :class:`_pickle_compat.ReferenceTrainState`
+    in it is written as flax's ``TrainState``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "wb") as f:
+        _pickle_compat.dump(obj, f)
+
+
+def load_pickle(path: str):
+    """Read a reference-format pickle (the JAX package's cloudpickle, or :func:`save_pickle`'s) without
+    flax, optax, jax or cloudpickle: a flax TrainState comes back as a ``ReferenceTrainState``, a
+    FrozenDict as a dict, a jax array as numpy, an optax object or a function as a placeholder."""
+    with open(path, "rb") as f:
+        return _pickle_compat.load(f)
+
+
+def _looks_like_reference_policy(params) -> bool:
+    try:
+        keys = set(params.keys())
+    except AttributeError:
+        return False
+    return "action_outputs_0" in keys or (
+        "policy" in keys and any(k.startswith("Block_") for k in params["policy"].keys())
     )
+
+
+def load_reference_checkpoint(path: str) -> dict:
+    """Load a reference-format pickle checkpoint (``{step, epoch, variant, state}``).
+
+    A reference policy tree (auto-named ``policy/Block_i/...``, one deduplicated ensemble head) is
+    converted to the port's Flax-layout tree (numpy), the head broadcast to 5 members whatever the
+    model's count, as the JAX package's loader does.  :func:`reference_policy_state` gives the
+    policy's state dict.
+    """
+    from .models.policy.convert import convert_reference_policy_params
+
+    data = load_pickle(path)
+    state = data.get("state") if isinstance(data, dict) else None
+    params = getattr(state, "params", None) if state is not None else None
+    if params is not None and _looks_like_reference_policy(params):
+        data["state"] = state.replace(params=convert_reference_policy_params(params)["params"])
+    return data
+
+
+def reference_policy_state(data: dict) -> dict:
+    """The policy's state dict (``BasePolicy.load_trained_state_dict`` input) of what
+    :func:`load_reference_checkpoint` returned: its ``state.params`` through the weight bridge."""
+    from .models.policy.convert import flax_policy_to_torch
+
+    state = data["state"]
+    params = state.params if hasattr(state, "params") else state["params"]
+    return flax_policy_to_torch(params)
+
+
+def save_reference_checkpoint(path: str, params, *, step: int = 0, epoch: int = 0, variant: Optional[dict] = None,
+                              ensemble_mode: str = "require_tied") -> None:
+    """Export policy params as a reference-format pickle checkpoint.
+
+    ``params``: the policy's state dict (``trained_state_dict()``).  Writes ``{"step", "epoch", "variant", "state"}``, ``state`` a flax ``TrainState`` when
+    unpickled with flax (the JAX package's ``load_reference_checkpoint`` and trainer, the
+    reference's eval driver read ``state.params``), with ``step`` 0 and the params renamed to the
+    reference's names as float32 numpy (models/policy/convert.py::export_reference_policy_params,
+    with its ``ensemble_mode`` collapse).
+
+    Unlike the JAX package's file, ``apply_fn``, ``tx`` and ``opt_state`` are None: the optax chain
+    cannot be written without optax.  The JAX package's export carries only a freshly initialized
+    optimizer state, and none of its readers uses it.
+    """
+    from .models.policy.convert import export_reference_policy_params, torch_policy_to_flax
+
+    exported = export_reference_policy_params(torch_policy_to_flax(params), ensemble_mode=ensemble_mode)
+    state = _pickle_compat.ReferenceTrainState(step=0, apply_fn=None, params=exported, tx=None, opt_state=None)
+    save_pickle({"step": int(step), "epoch": int(epoch), "variant": dict(variant or {}), "state": state}, path)

@@ -97,6 +97,14 @@ def _set(tree: dict, path: list, value) -> None:
     node[path[-1]] = np.asarray(value)
 
 
+def _unflatten(flat: dict) -> dict:
+    """{path tuple: leaf} -> nested dicts: the inverse of :func:`_flatten`."""
+    tree: dict = {}
+    for path, value in flat.items():
+        _set(tree, list(path), value)
+    return tree
+
+
 def _convert_transformer(out: dict, base_path: list, torch_prefix: str, sd: Mapping) -> None:
     """OpenAI resblocks -> the Flax tree: ``in_proj`` (3D, D) split into query / key / value Dense
     kernels (transposed), ``out_proj`` -> out, LayerNorm weight -> scale."""

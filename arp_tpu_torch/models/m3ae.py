@@ -5,10 +5,13 @@ The encoder side only: ``forward_representation`` and
 block outputs on request (the InstructRL-style multi-layer feature concat).
 The module tree mirrors the Flax one (``encoder.blocks_0.attn.qkv.kernel``).
 
-Not ported yet: the decoder, random masking, the losses, and the converters
-of the reference's pickled checkpoints (no such file ships with the
-repository).  :func:`load_m3ae_model_vars` reads the port's own format: a
-``torch.save``d state dict of one of the two modules here.
+Not ported yet: the decoder, random masking and the losses.
+:func:`load_m3ae_model_vars` reads the reference's pickled params
+(``m3ae_*_params.pkl``) as the JAX package does, through
+:func:`convert_reference_m3ae_params` and the weight bridge; an explicit
+``.pt`` path is the port's own format, a ``torch.save``d state dict of one of
+the two modules here.  :func:`export_reference_m3ae_params` writes this tree
+back under the reference's names.
 """
 
 from __future__ import annotations
@@ -16,12 +19,14 @@ from __future__ import annotations
 import os
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 
 from ..config import Config, update_config
 from ..ops.masks import MaskSpec
 from ..utils import get_1d_sincos_pos_embed, get_2d_sincos_pos_embed
+from .clip.convert import _flatten, _unflatten
 from .layers import Transformer, dense, resolve_compute_dtype
 
 
@@ -188,26 +193,114 @@ class MaskedAutoencoder(_ImageEncoder):
         return self.encoder(x, deterministic, MaskSpec("none"), return_intermediates=return_intermediates)
 
 
+# --- Reference-checkpoint ingestion (numpy trees in the Flax layout) ------------------------------
+
+
+def _params_tree(tree) -> dict:
+    tree = dict(tree)
+    return dict(tree["params"]) if "params" in tree else tree
+
+
+def convert_reference_m3ae_params(ref_params) -> dict:
+    """Map the reference's auto-named m3ae params onto this module tree, as numpy.
+
+    Reference naming (its m3ae/model.py, @nn.compact auto names):
+      encoder/Block_i/LayerNorm_0         -> encoder/blocks_i/norm1
+      encoder/Block_i/Attention_0/Dense_0 -> encoder/blocks_i/attn/qkv
+      encoder/Block_i/Attention_0/Dense_1 -> encoder/blocks_i/attn/attn_out
+      encoder/Block_i/LayerNorm_1         -> encoder/blocks_i/norm2
+      encoder/Block_i/TransformerMLP_0/*  -> encoder/blocks_i/mlp/*  (FeedForward_0 too)
+      encoder/LayerNorm_0                 -> encoder/norm
+    (the same for the decoder); every other name is kept.  Returns ``{"params": tree}``.
+    """
+    out = {}
+    for path, value in _flatten(_params_tree(ref_params)).items():
+        parts = list(path)
+        new_parts = []
+        for i, p in enumerate(parts):
+            if p.startswith("Block_"):
+                new_parts.append("blocks_" + p.split("_")[1])
+            elif p == "Attention_0":
+                new_parts.append("attn")
+            elif p in ("TransformerMLP_0", "FeedForward_0"):
+                new_parts.append("mlp")
+            elif p == "LayerNorm_0" and i > 0 and parts[i - 1].startswith("Block_"):
+                new_parts.append("norm1")
+            elif p == "LayerNorm_1" and i > 0 and parts[i - 1].startswith("Block_"):
+                new_parts.append("norm2")
+            elif p == "LayerNorm_0" and (i == 0 or parts[i - 1] in ("encoder", "decoder")):
+                new_parts.append("norm")  # the final norm of a Transformer stack (standalone or named)
+            elif p == "Dense_0" and new_parts and new_parts[-1] == "attn":
+                new_parts.append("qkv")
+            elif p == "Dense_1" and new_parts and new_parts[-1] == "attn":
+                new_parts.append("attn_out")
+            else:
+                new_parts.append(p)
+        out[tuple(new_parts)] = np.asarray(value)
+    return {"params": _unflatten(out)}
+
+
+def export_reference_m3ae_params(params) -> dict:
+    """Inverse of :func:`convert_reference_m3ae_params`: this module tree under the reference's
+    auto-generated names, as numpy (``FeedForward_0`` for the MLP).  Returns ``{"params": tree}``."""
+    out = {}
+    for path, value in _flatten(_params_tree(params)).items():
+        parts = list(path)
+        new_parts = []
+        for i, p in enumerate(parts):
+            if p.startswith("blocks_"):
+                new_parts.append("Block_" + p.split("_")[1])
+            elif p == "attn":
+                new_parts.append("Attention_0")
+            elif p == "mlp" and new_parts and new_parts[-1].startswith("Block_"):
+                new_parts.append("FeedForward_0")
+            elif p == "norm1":
+                new_parts.append("LayerNorm_0")
+            elif p == "norm2":
+                new_parts.append("LayerNorm_1")
+            elif p == "norm" and (i == 0 or parts[i - 1] in ("encoder", "decoder")):
+                new_parts.append("LayerNorm_0")
+            elif p == "qkv":
+                new_parts.append("Dense_0")
+            elif p == "attn_out":
+                new_parts.append("Dense_1")
+            else:
+                new_parts.append(p)
+        out[tuple(new_parts)] = np.asarray(value)
+    return {"params": _unflatten(out)}
+
+
 _CHECKPOINT_FILES = {
-    "vit_s16": "m3ae_small_params.pt",
-    "vit_b16": "m3ae_base_params.pt",
-    "vit_l16": "m3ae_large_params.pt",
+    "vit_s16": "m3ae_small_params.pkl",
+    "vit_b16": "m3ae_base_params.pkl",
+    "vit_l16": "m3ae_large_params.pkl",
 }
 
 
 def load_m3ae_model_vars(model_name_or_path: str, checkpoint_dir: Optional[str] = None) -> dict:
-    """Read an encoder's state dict (the port's own format, ``torch.save``d) from a
-    path, or by model name from ``checkpoint_dir`` / ``$ARP_TPU_CHECKPOINT_DIR``."""
+    """An encoder's state dict for this module tree (float32).
+
+    By model name, the reference's pickled params ``m3ae_{small,base,large}_params.pkl`` in
+    ``checkpoint_dir`` / ``$ARP_TPU_CHECKPOINT_DIR``, as the JAX package reads them; a path to
+    such a pickle likewise.  Both are read without flax or jax (checkpoint.py::load_pickle),
+    renamed by :func:`convert_reference_m3ae_params` and carried over by the weight bridge.  A
+    path ending in ``.pt`` is the port's own format, a ``torch.save``d state dict.
+    """
     path = model_name_or_path
     if model_name_or_path in _CHECKPOINT_FILES:
         base = checkpoint_dir or os.environ.get("ARP_TPU_CHECKPOINT_DIR", os.path.expanduser("~/.cache/arp_tpu"))
         path = os.path.join(base, _CHECKPOINT_FILES[model_name_or_path])
     if not os.path.exists(path):
         raise FileNotFoundError(
-            f"m3ae checkpoint not found at {path}; place the encoder's state dict there "
+            f"m3ae checkpoint not found at {path}; place the pickled params there "
             f"or pass an explicit path."
         )
-    return torch.load(path, map_location="cpu", weights_only=True)
+    if path.endswith(".pt"):
+        return torch.load(path, map_location="cpu", weights_only=True)
+    from ..checkpoint import load_pickle
+    from .policy.convert import flax_m3ae_to_torch
+
+    return flax_m3ae_to_torch(convert_reference_m3ae_params(load_pickle(path)))
 
 
 M3AE_MODEL_CONFIGS = {

@@ -1,4 +1,10 @@
-from .convert import flax_m3ae_to_torch, flax_policy_to_torch
+from .convert import (
+    convert_reference_policy_params,
+    export_reference_policy_params,
+    flax_m3ae_to_torch,
+    flax_policy_to_torch,
+    torch_policy_to_flax,
+)
 from .models import (
     ARPDT,
     BC,

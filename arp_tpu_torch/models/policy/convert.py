@@ -13,9 +13,22 @@ Flax path joined with dots, and the leaves map as:
 
 The input is what ``arp_tpu`` holds: a ``params`` tree of nested mappings (a
 Flax FrozenDict works), with or without the ``{"params": ...}`` wrapper.
-Values are anything ``numpy.asarray`` takes.  The converters of the
-reference's pickled checkpoints are not ported (no such file ships with the
-repository).
+Values are anything ``numpy.asarray`` takes.  :func:`torch_policy_to_flax`
+is the inverse of :func:`flax_policy_to_torch`.
+
+The reference's own policy checkpoints name their modules another way:
+:func:`convert_reference_policy_params` and
+:func:`export_reference_policy_params` rename numpy trees in the Flax layout
+between the two, as the JAX package's ``models/policy/convert.py`` does:
+
+  * the reference's policy transformer uses auto-generated names
+    (policy/Block_i/Attention_0/Dense_0 ...), the port's tree is named
+    (policy/blocks_i/attn/qkv ...);
+  * the reference's "ensemble" heads are ``[nn.Sequential(...)] * N``, a list
+    of ONE module instance, which flax deduplicates to one parameter set
+    (only ``action_outputs_0`` exists).  All N members are the same, so the
+    single head is broadcast into every slot of the port's EnsembleHeads,
+    which reproduces the reference's output exactly.
 """
 
 from __future__ import annotations
@@ -25,7 +38,8 @@ from typing import Mapping
 import numpy as np
 import torch
 
-from ..clip.convert import _flatten
+from ..clip.convert import _flatten, _unflatten
+from ..m3ae import convert_reference_m3ae_params
 
 
 def flax_params_to_torch(params: Mapping, skip=lambda path: False) -> dict[str, torch.Tensor]:
@@ -69,3 +83,159 @@ def flax_policy_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
     """
     return flax_params_to_torch(params, skip=lambda path: path[0] == "pt_model" and (
         path[1].startswith("decoder") or path[1].endswith("mask_embedding")))
+
+
+# the Embed modules: the discrete actions' (the reference's policies act in Procgen's 15) and the towers' tokens
+_EMBEDDINGS = ("action_input", "text_embedding", "token_embedding")
+
+
+def torch_policy_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
+    """A policy state dict -> its ``params`` tree in the Flax layout, float32 numpy: the inverse of
+    :func:`flax_policy_to_torch`, leaf for leaf.  A 2-D ``weight`` is a Dense kernel (transposed), or
+    an Embed table where its module is one of ``_EMBEDDINGS``; a 4-D one a Conv kernel; a 1-D one a
+    LayerNorm scale.  A numeric name part joins the one before it (``resblocks.0``), as in the Flax
+    names."""
+    flat = {}
+    for name, value in state.items():
+        parts = []
+        for part in name.split("."):
+            if part.isdigit() and parts:
+                parts[-1] = f"{parts[-1]}.{part}"
+            else:
+                parts.append(part)
+        *mods, leaf = parts
+        arr = value.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight":
+            if arr.ndim == 2:
+                leaf, arr = ("embedding", arr) if mods[-1] in _EMBEDDINGS else ("kernel", arr.T)
+            elif arr.ndim == 4:
+                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 1:
+                leaf = "scale"
+            else:
+                raise NotImplementedError(f"{name}: a {arr.ndim}-D weight has no Flax counterpart here")
+        flat[(*mods, leaf)] = np.array(arr, order="C")
+    return _unflatten(flat)
+
+
+def convert_reference_policy_params(ref_params, num_ensembles: int = 5) -> dict:
+    """Map reference ARPDT / BC / GCBC params onto the port's policy tree (Flax layout, numpy).
+
+    The single deduplicated head (``action_outputs_0``, ``return_outputs_0``) is broadcast to
+    ``num_ensembles`` members; a head deeper than two Dense layers raises.  Returns
+    ``{"params": tree}``, as the JAX package's does.
+    """
+    ref_params = dict(ref_params)
+    if "params" in ref_params:
+        ref_params = dict(ref_params["params"])
+    out_flat = {}
+    if "policy" in ref_params:
+        # the shared transformer: the m3ae auto-name mapper, its trailing LayerNorm_0 under 'policy' -> 'norm'
+        mapped = _flatten(convert_reference_m3ae_params({"policy": ref_params.pop("policy")})["params"])
+        for path, v in mapped.items():
+            out_flat[tuple("norm" if p == "LayerNorm_0" else p for p in path)] = v
+
+    def convert_heads(prefix: str):
+        head0 = ref_params.pop(f"{prefix}_0", None)
+        if head0 is None:
+            return
+        for i in range(1, num_ensembles):  # the other aliases, if a checkpoint materialized them
+            ref_params.pop(f"{prefix}_{i}", None)
+        flat = _flatten(head0)
+        layer_map = {"layers_0": "Dense_0", "layers_2": "Dense_1"}  # the ReLU between is no module
+        unknown = sorted({p[0] for p in flat if p[0] not in layer_map})
+        if unknown:
+            raise NotImplementedError(
+                f"head {prefix!r} has unmapped layers {unknown}: checkpoints "
+                "with output_head_depth > 0 need the head mapper extended "
+                "(models/policy/convert.py)"
+            )
+        for path, v in flat.items():
+            v = np.asarray(v)
+            out_flat[(prefix, "heads", layer_map[path[0]]) + path[1:]] = np.ascontiguousarray(
+                np.broadcast_to(v[None], (num_ensembles,) + v.shape))
+
+    convert_heads("action_outputs")
+    convert_heads("return_outputs")
+    # identically named leaves (action_input, rtg_input, state_input, patch_emb, image_text_input,
+    # residual_weight, the adapter, impala, ...)
+    for path, v in _flatten(ref_params).items():
+        out_flat[path] = np.asarray(v)
+    return {"params": _unflatten(out_flat)}
+
+
+def export_reference_policy_params(params, ensemble_mode: str = "require_tied") -> dict:
+    """Inverse of :func:`convert_reference_policy_params`: the port's tree under the reference's
+    names (numpy), the ensemble collapsed to the one head the reference holds.
+
+    ``ensemble_mode``: ``"require_tied"`` (the default) raises unless every member is the same,
+    and the export is then exact; ``"first"`` exports member 0; ``"mean"`` the parameters' mean
+    (which approximates, but does not equal, the ensemble's mean output through the head).
+    """
+    if ensemble_mode not in ("require_tied", "first", "mean"):
+        raise ValueError(f"unknown ensemble_mode {ensemble_mode!r}")
+    params = dict(params)
+    if "params" in params:
+        params = dict(params["params"])
+    out_flat = {}
+
+    def export_heads(prefix: str):
+        tree = params.pop(prefix, None)
+        if tree is None:
+            return
+        layer_map = {"Dense_0": "layers_0", "Dense_1": "layers_2"}
+        for path, v in _flatten(tree).items():
+            # path = ("heads", "Dense_i", leaf); the ensemble leads
+            if path[0] != "heads" or path[1] not in layer_map:
+                raise NotImplementedError(
+                    f"head {prefix!r} has unmapped subtree {path}: only the "
+                    "2-layer EnsembleHeads layout is exportable "
+                    "(models/policy/convert.py)"
+                )
+            v = np.asarray(v)
+            if ensemble_mode == "require_tied":
+                if not all(np.array_equal(v[0], v[i]) for i in range(1, v.shape[0])):
+                    raise ValueError(
+                        f"{prefix}/{'/'.join(path)}: ensemble members have "
+                        "diverged; the reference head cannot represent them "
+                        "exactly — re-export with ensemble_mode='first' or "
+                        "'mean' (lossy collapse)"
+                    )
+                member = v[0]
+            elif ensemble_mode == "first":
+                member = v[0]
+            else:
+                member = v.mean(axis=0)
+            out_flat[(f"{prefix}_0", layer_map[path[1]]) + path[2:]] = np.asarray(member)
+
+    export_heads("action_outputs")
+    export_heads("return_outputs")
+    policy = params.pop("policy", None)
+    if policy is not None:  # the named tree -> the reference's auto-generated names
+        for path, v in _flatten(policy).items():
+            new_parts = []
+            for i, p in enumerate(path):
+                prev_block = new_parts and new_parts[-1].startswith("Block_")
+                if p.startswith("blocks_"):
+                    new_parts.append("Block_" + p.split("_")[1])
+                elif p == "norm1" and prev_block:
+                    new_parts.append("LayerNorm_0")
+                elif p == "norm2" and prev_block:
+                    new_parts.append("LayerNorm_1")
+                elif p == "attn" and prev_block:
+                    new_parts.append("Attention_0")
+                elif p == "mlp" and prev_block:
+                    new_parts.append("FeedForward_0")
+                elif p == "qkv" and new_parts and new_parts[-1] == "Attention_0":
+                    new_parts.append("Dense_0")
+                elif p == "attn_out" and new_parts and new_parts[-1] == "Attention_0":
+                    new_parts.append("Dense_1")
+                elif p == "norm" and i == 0:
+                    new_parts.append("LayerNorm_0")  # the Transformer's trailing LayerNorm
+                else:
+                    new_parts.append(p)
+            out_flat[("policy",) + tuple(new_parts)] = np.asarray(v)
+    # identically named leaves pass through (action_input, rtg_input, patch_emb, the adapter, ...)
+    for path, v in _flatten(params).items():
+        out_flat[path] = np.asarray(v)
+    return _unflatten(out_flat)

@@ -754,16 +754,22 @@ class GCBC(BasePolicy):
 
 
 def _load_clip_model_vars(model_name: str, checkpoint_path: Optional[str] = None) -> dict:
-    """A CLIP tower's state dict (the port's own format, ``torch.save``d) from ``checkpoint_path``.
+    """A CLIP tower's state dict from a local OpenAI checkpoint, as the JAX package reads it.
 
-    The OpenAI checkpoint loader is not ported, so a path is required.
+    ``checkpoint_path`` is the OpenAI state dict as ``.npy`` or the ``.pt`` jit archive; without
+    one, ``$ARP_TPU_CHECKPOINT_DIR/{model_name}.npy`` (models/clip/model.py::load_model_vars), then
+    the weight bridge.  A ``.pt`` that ``torch.jit.load`` cannot open is read as the port's own
+    ``torch.save``d state dict of :class:`arp_tpu_torch.models.clip.CLIP`.
     """
-    if checkpoint_path is None:
-        raise FileNotFoundError(
-            f"no checkpoint for CLIP {model_name}: set clip_checkpoint_path to a state dict of "
-            "arp_tpu_torch.models.clip.CLIP, or pass pt_variables (the OpenAI loader is not ported)"
-        )
-    return torch.load(checkpoint_path, map_location="cpu", weights_only=True)
+    from ..clip.convert import flax_to_torch
+
+    try:
+        variables = clip_lib.load_model_vars(model_name, checkpoint_path=checkpoint_path)
+    except RuntimeError:  # torch.jit.load refused the .pt: the port's own state dict
+        if not (checkpoint_path or "").endswith(".pt"):
+            raise
+        return torch.load(checkpoint_path, map_location="cpu", weights_only=True)
+    return flax_to_torch(variables)
 
 
 def build_frozen_qpack(config_updates, sample_batch, patch_dim: int, image_size: int = 256, use_goal: bool = False,

@@ -27,7 +27,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, flop_count
 from .masks import MaskSpec, combine_padding, materialize_mask
 
 _BIG_NEG = -1e30
@@ -106,6 +106,7 @@ def flash_attention_fwd(
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         flash_attention_fwd.launches += 1
+        flop_count.note(4 * b * h * n * n * d)
         err = _build.load("flash_attn_fwd").arp_flash_attn_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if pad is None else pad.data_ptr(), out.data_ptr(),

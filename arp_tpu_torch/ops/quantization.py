@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from . import _build
+from . import _build, flop_count
 
 _X_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -134,6 +134,7 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         int8_matmul.launches += 1
+        flop_count.note(2 * m * k * n)
         err = _build.load("int8_matmul").arp_int8_matmul(
             x.data_ptr(), q.data_ptr(), scale.data_ptr(), out.data_ptr(),
             _X_DTYPES[x.dtype], m, n, k, x.stride(0), stream,

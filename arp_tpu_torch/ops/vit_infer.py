@@ -31,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from . import _build
+from . import _build, flop_count
 from .attention import dot_product_attention
 from .quantization import quantize_array, true_divide
 
@@ -436,6 +436,7 @@ def fused_int8_matmul(x, a_scale, wq, w_scale, bias=None, act: str = "none",
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         fused_int8_matmul.launches += 1
+        flop_count.note(2 * m * k * n)
         err = _build.load("int8_gemm").arp_int8_gemm(
             x.data_ptr(), a.data_ptr(), wq_t.data_ptr(), ws.data_ptr(),
             None if b is None else b.data_ptr(), out.data_ptr(),

@@ -130,6 +130,8 @@ def make_train_step(loss_fn: Callable, *, weight_decay: float = 0.0, learning_ra
             aux["learning_rate"] = float(learning_rate_fn(step))
         return state, aux
 
+    # (grads, aux) of the step without the update: the state is left as it was (flops_analysis counts this)
+    train_step.gradients = accumulate
     return train_step
 
 

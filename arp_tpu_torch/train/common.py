@@ -21,7 +21,8 @@ default) are the JAX package's; with a temperature the actions are drawn by
 seed, the policy call's index), reproducible under one seed but not the JAX
 key stream's draws.
 
-Not ported yet: ``flops_analysis`` (waits for the profiler's counts).
+:func:`flops_analysis` counts one step with ``FlopCounterMode``, the kernels'
+operations added by formula.
 """
 
 from __future__ import annotations
@@ -292,6 +293,27 @@ def _frames(tree: dict, fn, device) -> dict:
 def _aux(output) -> dict:
     return {"loss": output["loss"], "acc": output["acc"] * 100, "trans_loss": output.get("trans_loss", 0.0),
             "return_loss": output.get("return_loss", 0.0)}
+
+
+def flops_analysis(fn, *args) -> float:
+    """The floating-point operations of one call ``fn(*args)``: the ``cost/flops`` log entry.
+
+    ``torch.utils.flop_counter.FlopCounterMode`` counts the matmuls, convolutions and attention
+    products PyTorch dispatches; the kernels launched through ctypes add theirs by formula
+    (ops/flop_count.py), so the count is the same whether a kernel or its plain version runs.
+    Elementwise work is not counted (XLA's cost analysis, which the JAX package logs, counts it).
+    -1.0 when counting fails, as the JAX package returns.
+    """
+    try:
+        from torch.utils.flop_counter import FlopCounterMode
+
+        from ..ops.flop_count import kernel_flops
+
+        with FlopCounterMode(display=False) as counter, kernel_flops() as kernels:
+            fn(*args)
+        return float(counter.get_total_flops() + kernels[0])
+    except Exception:
+        return -1.0
 
 
 def make_loss_fn(model, augment_fn, image_size: int, use_goal: bool):

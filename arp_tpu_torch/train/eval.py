@@ -1,8 +1,10 @@
 """Standalone rollout evaluation — ``python -m arp_tpu_torch.train.eval`` (port of the JAX package's
 ``train/eval.py``; the reference's ``python -m arp_dt.local_run_procgen``).
 
-Restores a policy from the trainer's ``--checkpoint_dir`` (its newest
-``step_<n>.pt``; ``best.pt`` when it holds no step file), rebuilds the dataset
+Restores a policy from a reference-format pickle (``--load_checkpoint``, read
+as the JAX CLI reads it: ``state.params``) or from the trainer's
+``--checkpoint_dir`` (its newest ``step_<n>.pt``; ``best.pt`` when it holds no
+step file), rebuilds the dataset
 to recover return_to_go / scale, runs the rollout eval with on-the-fly CLIP
 rewards (train/common.py::build_test_step) and logs the returns and videos.
 
@@ -11,8 +13,7 @@ configs (``--model.transfer_type=m3ae_vit_b16``), plus ``--device`` (cuda
 unless ``cpu`` is asked for).  With ``--model.frozen_int8`` the tower's int8
 pack takes the scales the training run saved beside its checkpoints
 (``frozen_int8_amax.npz``) and calibrates on a training batch only when they
-are absent.  ``--load_checkpoint`` (reference pickles) raises with its ROADMAP
-item, as the trainer's does.
+are absent.
 """
 
 from __future__ import annotations
@@ -25,7 +26,13 @@ import sys
 import numpy as np
 import torch
 
-from ..checkpoint import latest_step, load_best_state, load_policy_state
+from ..checkpoint import (
+    latest_step,
+    load_best_state,
+    load_policy_state,
+    load_reference_checkpoint,
+    reference_policy_state,
+)
 from ..config import Config, flag_leaves, parse_flag_tree
 from ..data.instructions import get_m3ae_instruct
 from ..data.loader import DataLoader
@@ -83,10 +90,8 @@ def restore_policy_state(checkpoint_dir: str) -> tuple[dict, dict]:
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     flags = parse_flags(argv)
-    if flags.load_checkpoint:
-        raise NotImplementedError("--load_checkpoint (reference checkpoints) is not ported yet (ROADMAP Queue 1, item 10)")
-    if not flags.checkpoint_dir:
-        raise ValueError("pass --checkpoint_dir (the trainer's checkpoints)")
+    if not (flags.load_checkpoint or flags.checkpoint_dir):
+        raise ValueError("pass --load_checkpoint (pickle) or --checkpoint_dir (the trainer's checkpoints)")
     device = resolve_device(flags.device)
     np.random.seed(flags.seed)
     random.seed(flags.seed)
@@ -112,11 +117,16 @@ def main(argv=None):
     if flags.use_text:
         ids, pad = train_dataset.tokenizer(get_m3ae_instruct(flags.game_name) or "")
         dummy["instruct"], dummy["text_padding_mask"] = ids[None], pad[None]
-    state, meta = restore_policy_state(flags.checkpoint_dir)
+    if flags.load_checkpoint:
+        data = load_reference_checkpoint(flags.load_checkpoint)
+        state, source = reference_policy_state(data), flags.load_checkpoint
+        meta = {"step": data.get("step")}
+    else:
+        (state, meta), source = restore_policy_state(flags.checkpoint_dir), flags.checkpoint_dir
     with torch.no_grad():
         model(dummy, deterministic=True)  # the lazy layers take their shapes
         model.load_trained_state_dict(state)
-    log.info("restored step %s from %s", meta.get("step"), flags.checkpoint_dir)
+    log.info("restored step %s from %s", meta.get("step"), source)
 
     eval_transform = make_eval_transform(image_size=model_image_size(flags), device=device)
     test_step_fn = build_test_step(flags, model, train_dataset, eval_transform, flags.use_text, device=device)

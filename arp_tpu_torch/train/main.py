@@ -14,7 +14,9 @@ What differs from the JAX trainer, on purpose:
     generator seeded by (seed, step): a resumed run continues exactly as an
     uninterrupted one would (the JAX trainer resumes at the saved step, so it
     trains on that step's batch twice, and restarts its key chain);
-  * no ``flops_analysis`` (the cost/flops entry of the log);
+  * ``cost/flops`` is the first batch's gradient computation counted by
+    ``FlopCounterMode`` with the kernels' operations by formula
+    (train/common.py::flops_analysis), not XLA's cost analysis;
   * the rollout eval's temperature draws (``--eval_temperature`` > 0) come from
     a torch generator seeded by (seed + step, policy call), not JAX's keys.
 
@@ -23,9 +25,15 @@ and at the last step (train/common.py::build_test_step, envs/rollout.py), on
 the card with the policy; its return is the score ``best.pt`` keeps
 (``--checkpoint_dir``).
 
-Not ported, each raising ``NotImplementedError`` with its ROADMAP item:
-several devices (``--mesh_*`` above 1), ``--load_checkpoint`` (reference
-pickles).
+``--load_checkpoint`` starts from a reference-format pickle (the JAX
+package's ``save_reference_checkpoint``, the reference's own), as the JAX
+trainer does: the params from the file, the state's step from its
+``state.step``, the first step from its ``step``, and a fresh AdamW (count 0,
+zero moments), so the applied learning rate restarts from the schedule's
+start while the logged ``learning_rate`` reads the state's step.
+
+Not ported, raising ``NotImplementedError`` with its ROADMAP item: several
+devices (``--mesh_*`` above 1).
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import sys
 import numpy as np
 import torch
 
-from ..checkpoint import CheckpointManager
+from ..checkpoint import CheckpointManager, load_reference_checkpoint, reference_policy_state
 from ..config import Config, flag_leaves, parse_flag_tree
 from ..data.instructions import get_m3ae_instruct
 from ..data.loader import DataLoader
@@ -58,6 +66,7 @@ from .common import (
     build_model,
     build_optimizer,
     build_test_step,
+    flops_analysis,
     get_dummy_input,
     make_eval_loss_fn,
     make_loss_fn,
@@ -105,8 +114,18 @@ def check_ported(flags) -> None:
     for name in ("mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_pp", "mesh_dcn_dp"):
         if flags[name] > 1:
             raise NotImplementedError(f"--{name}={flags[name]}: several devices are not ported yet (ROADMAP Queue 1, item 12)")
-    if flags.load_checkpoint:
-        raise NotImplementedError("--load_checkpoint (reference checkpoints) is not ported yet (ROADMAP Queue 1, item 10)")
+
+
+def start_from_reference_checkpoint(state, path: str) -> int:
+    """``--load_checkpoint``: ``state`` (its model's first forward run, its optimizer fresh) takes the
+    params of the reference pickle at ``path`` and its ``state.step``, as the JAX trainer's
+    ``state.replace(params=..., step=...)``; the optimizer keeps count 0 and zero moments.  Returns
+    the first step of the run, the file's ``step``."""
+    data = load_reference_checkpoint(path)
+    with torch.no_grad():
+        state.model.load_trained_state_dict(reference_policy_state(data))
+    state.step = int(data["state"].step)
+    return int(data["step"])
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -191,7 +210,10 @@ def main(argv=None):
 
     ckpt = CheckpointManager(flags.checkpoint_dir) if flags.checkpoint_dir else None
     start_step = 0
-    if ckpt is not None and ckpt.latest_step() is not None:
+    if flags.load_checkpoint:
+        start_step = start_from_reference_checkpoint(state, flags.load_checkpoint)
+        log.info("loaded %s (step %d)", flags.load_checkpoint, start_step)
+    elif ckpt is not None and ckpt.latest_step() is not None:
         state, meta = ckpt.restore(state)
         start_step = int(meta["step"])
         log.info("resumed from step %d", start_step)
@@ -214,13 +236,17 @@ def main(argv=None):
         accum_steps=flags.accum_steps,
     )
     eval_step = make_eval_step(make_eval_loss_fn(model, eval_transform, use_goal))
+    pin = device.type == "cuda"
+    first = batch_to_device(pin_batch(_host_batch_to_arrays(next(iter(train_loader)), use_text, use_goal), pin), device)
+    # one step's gradient computation on the first batch; the state is left as it was
+    logger.log({"cost/flops": flops_analysis(train_step.gradients, state, first, step_generator(flags.seed, 0, device))})
+    del first
     # rollout eval (None for cached-embedding policies, which cannot encode env frames)
     test_step_fn = None
     if flags.eval_env != "none":
         test_step_fn = build_test_step(flags, model, train_dataset, eval_transform, use_text, device=device)
     best_eval_score = -np.inf
 
-    pin = device.type == "cuda"
     # exact resume: the loader fast-forwards past the batches already consumed
     train_iter = ThreadedPrefetch(
         (pin_batch(_host_batch_to_arrays(b, use_text, use_goal), pin) for b in train_loader.epochs(skip_batches=start_step)),

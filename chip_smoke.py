@@ -23,7 +23,8 @@ Phases, each printing one JSON line:
                batch 256 in float32 and bf16, and a ragged M, N and K; K3, the
                plain version and one matmul on the dequantized weight timed.
   6. resize  — the packed bit-exact resize on the card against the numpy
-               fixed-point reference, byte for byte.
+               fixed-point reference, byte for byte: 256 and 64 -> 224 (CLIP's
+               input) and 256 and 512 -> 64 (collect/downsize.py's).
   7. slice   — reward labeling at full CLIP ViT-B/16 width (random weights from
                a seed, in arp_tpu's Flax layout, through the weight bridge) on an
                in-memory demo group of 256 frames, in float32 and bfloat16; K1 must have been
@@ -103,6 +104,14 @@ Phases, each printing one JSON line:
                back through the native reader (zlib).  Then the labeling demo group
                with resize_mode "host" beside "pil": frames/s, equal rewards.  K1 and K2 shapes noted
                (LaunchShapes) and held by k1_check / k2_check, as the rollout's are.
+ 17. reference_checkpoint — the flagship ARPDT (the policy phase's configuration; 5 heads tied) written in
+               the reference's format by save_reference_checkpoint, its M3AE tower as m3ae_base_params.pkl in
+               a temporary $ARP_TPU_CHECKPOINT_DIR, and read back without flax: the tower by name, the policy
+               through the trainer's --load_checkpoint code (train/main.py::start_from_reference_checkpoint),
+               in frozen_bf16 and frozen_int8.  action_pred at 128 x 4 against the same model built from the
+               weights in memory (equal, or within that model's own run-to-run spread), one cost/flops count
+               with the kernels and with their plain versions (equal), two train steps timed; the pickles'
+               sizes and write / read times; launches and shapes noted and held, as the rollout's are.
 Each timed shape of k1, k2 and k3 also carries ``bound_ms``: the least time the
 card could take, the larger of the bytes the function must move over the memory
 rate and its operations over the peak rate of their type (PEAK below).
@@ -694,17 +703,19 @@ def phase_k3(quant) -> dict:
 
 
 def phase_resize(preprocess) -> None:
+    """The CLIP input sizes (256 and 64 -> 224) and collect/downsize.py's (256 and 512 -> 64, where a 4x and
+    an 8x downscale widen the bicubic filter's support)."""
     rng = np.random.default_rng(SEED)
-    for size in (256, 64):
+    for size, out in ((256, 224), (64, 224), (256, 64), (512, 64)):
         frames = rng.integers(0, 256, size=(8, size, size, 3), dtype=np.uint8)
         packed = torch.from_numpy(frames.reshape(8, size, size * 3)).cuda()
-        got = preprocess.resize_bicubic_pil_packed(packed, 3, 224, 224)
-        want = preprocess.resize_bicubic_pil_reference(frames, 224, 224).reshape(8, 224, 224 * 3)
+        got = preprocess.resize_bicubic_pil_packed(packed, 3, out, out)
+        want = preprocess.resize_bicubic_pil_reference(frames, out, out).reshape(8, out, out * 3)
         got = got.cpu().numpy()
         check(np.array_equal(got, want.astype(np.float32)),
-              f"resize {size}->224 on the card differs from the numpy reference "
+              f"resize {size}->{out} on the card differs from the numpy reference "
               f"({int((got != want).sum())} bytes)")
-        emit("resize", frames=[8, size, size, 3], out=[224, 224], byte_identical=True)
+        emit("resize", frames=[8, size, size, 3], out=[out, out], byte_identical=True)
 
 
 def phase_slice(attn, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, label_group) -> int:
@@ -1329,6 +1340,12 @@ def compare_step_with_cpu(flags, build, augment, small_cpu, small_card) -> dict:
     return trained
 
 
+def to_device(tree: dict, device) -> dict:
+    """A batch of numpy leaves (None kept) as tensors on ``device``."""
+    return {k: (to_device(v, device) if isinstance(v, dict) else None if v is None else torch.from_numpy(v).to(device))
+            for k, v in tree.items()}
+
+
 def phase_train(counters, attn, policy_lib, flax_m3ae_to_torch) -> dict:
     """ARPDT train steps at the flagship configuration in three tower modes, through the trainer's own
     functions (train/common.py, parallel/step.py); returns each kernel's launches in the counted steps."""
@@ -1342,11 +1359,7 @@ def phase_train(counters, attn, policy_lib, flax_m3ae_to_torch) -> dict:
     raw, _ = policy_batch(POLICY_BATCH, POLICY_WINDOW, SEED)
     small = head_batch(raw, CPU_FRAMES // POLICY_WINDOW)  # two sequences, the CPU run's share
 
-    def to(tree, device):
-        return {k: (to(v, device) if isinstance(v, dict) else None if v is None else torch.from_numpy(v).to(device))
-                for k, v in tree.items()}
-
-    on_card = to(raw, DEVICE)
+    on_card = to_device(raw, DEVICE)
     frames = POLICY_BATCH * POLICY_WINDOW
     totals, trained = dict.fromkeys(counters, 0), None
     for mode, over in POLICY_MODES.items():
@@ -1362,13 +1375,13 @@ def phase_train(counters, attn, policy_lib, flax_m3ae_to_torch) -> dict:
             torch.manual_seed(SEED)
             model = common.build_model(flags, 15, frozen_qpack=qpack, pt_variables=pt).to(device)
             with torch.no_grad():
-                model(to(head_batch(small, 1), device), deterministic=True)  # the lazy layers take their shapes
+                model(to_device(head_batch(small, 1), device), deterministic=True)  # the lazy layers take their shapes
                 if trained is not None:
                     model.load_trained_state_dict(trained)
             return model
 
         if mode == "float32":
-            trained = compare_step_with_cpu(flags, build, augment, to(small, "cpu"), to(small, DEVICE))
+            trained = compare_step_with_cpu(flags, build, augment, to_device(small, "cpu"), to_device(small, DEVICE))
 
         model = build(DEVICE)
         state = TrainState.create(model, common.build_optimizer(flags, schedule, model))
@@ -2547,6 +2560,153 @@ def phase_reward_serve(counters, preprocess) -> tuple[dict, "LaunchShapes"]:
     return totals, shapes
 
 
+REF_MODES = ("frozen_bf16", "frozen_int8")  # the towers of the policy built through --load_checkpoint
+REF_STEP, REF_EPOCH = 12000, 12  # where the exported run stood: the file's step and epoch
+
+
+def tie_heads(state: dict) -> dict:
+    """Every ensemble member of the heads set to member 0: the one head a reference checkpoint holds."""
+    return {k: (v[:1].expand_as(v).clone() if ".heads." in k else v) for k, v in state.items()}
+
+
+def phase_reference_checkpoint(counters, policy_lib, flax_m3ae_to_torch) -> tuple[dict, "LaunchShapes"]:
+    """The flagship ARPDT written in the reference's format and started from it, as a user holding the
+    reference's weights starts the port: the policy as a reference pickle (save_reference_checkpoint) and
+    its M3AE tower as m3ae_base_params.pkl in $ARP_TPU_CHECKPOINT_DIR, read back without flax (the tower
+    by name, the policy through the trainer's --load_checkpoint code), in frozen_bf16 and frozen_int8.
+    action_pred at batch 128 x window 4 against the same model built from the weights in memory, one
+    train step timed and counted (cost/flops, with and without the plain kernels); returns the launches of
+    the loaded models' forwards and steps, and their shapes."""
+    import pickle
+    import tempfile
+
+    from arp_tpu_torch.checkpoint import load_reference_checkpoint, save_reference_checkpoint
+    from arp_tpu_torch.models.m3ae import export_reference_m3ae_params, load_m3ae_model_vars
+    from arp_tpu_torch.ops.augment import make_augment_fn
+    from arp_tpu_torch.parallel.step import TrainState, make_train_step
+    from arp_tpu_torch.train import common
+    from arp_tpu_torch.train.main import start_from_reference_checkpoint
+
+    t_phase = time.perf_counter()
+    variables = random_m3ae_variables(M3AE_DIMS, 16, BERT_VOCAB, SEED)
+    pt = flax_m3ae_to_torch(variables)
+    raw, _ = policy_batch(POLICY_BATCH, POLICY_WINDOW, SEED)
+    small = head_batch(raw, CPU_FRAMES // POLICY_WINDOW)  # the int8 calibration's frames, as phase_train's
+    on_card = to_device(raw, DEVICE)
+    totals, noted, trained = dict.fromkeys(counters, 0), LaunchShapes(), None
+    saved_dir = os.environ.get("ARP_TPU_CHECKPOINT_DIR")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["ARP_TPU_CHECKPOINT_DIR"] = tmp
+        try:
+            policy_path, tower_path = os.path.join(tmp, "model_best.pkl"), os.path.join(tmp, "m3ae_base_params.pkl")
+            t0 = time.perf_counter()
+            with open(tower_path, "wb") as f:  # the reference's own pickle of its tower's params
+                pickle.dump(export_reference_m3ae_params(variables), f, protocol=4)
+            files = {"tower_write_s": time.perf_counter() - t0, "tower_bytes": os.path.getsize(tower_path)}
+            t0 = time.perf_counter()
+            tower_state = load_m3ae_model_vars("vit_b16")  # by name, as the policy's loader reads it
+            files["tower_read_s"] = time.perf_counter() - t0
+            check(tower_state.keys() == pt.keys() and all(torch.equal(tower_state[k], pt[k]) for k in pt),
+                  "reference_checkpoint: the tower read back from m3ae_base_params.pkl differs from its weights")
+            del tower_state
+            for mode in REF_MODES:
+                cfg = dict(POLICY_CFG, m3ae=M3AE_CFG, **POLICY_MODES[mode])
+                flags = train_flags(cfg)
+                schedule = common.build_lr_schedule(flags, TRAIN_STEPS_PER_EPOCH, TRAIN_STEPS_PER_EPOCH * flags.epochs)
+
+                def build(in_memory: bool):
+                    """The model as the trainer builds it; its tower from ``pt`` or (None) by name from the file."""
+                    loader = (lambda name: pt) if in_memory else None
+                    qpack = common.maybe_build_frozen_qpack(flags, small, use_goal=False, device=DEVICE,
+                                                            m3ae_loader=loader)
+                    torch.manual_seed(SEED)
+                    model = common.build_model(flags, 15, frozen_qpack=qpack,
+                                               pt_variables=pt if in_memory else None).to(DEVICE)
+                    with torch.no_grad():
+                        model(to_device(head_batch(small, 1), DEVICE), deterministic=True)  # the lazy layers
+                    return model
+
+                memory = build(True)
+                if trained is None:  # one set of trained weights (5 heads tied) for both modes, exported once
+                    trained = tie_heads(memory.trained_state_dict())
+                    t0 = time.perf_counter()
+                    save_reference_checkpoint(policy_path, trained, step=REF_STEP, epoch=REF_EPOCH,
+                                              variant=dict(transfer_type=cfg["transfer_type"]))
+                    files.update(policy_write_s=time.perf_counter() - t0, policy_bytes=os.path.getsize(policy_path))
+                    t0 = time.perf_counter()
+                    load_reference_checkpoint(policy_path)
+                    files["policy_read_s"] = time.perf_counter() - t0
+                with torch.no_grad():
+                    memory.load_trained_state_dict(trained)
+                with torch.inference_mode():
+                    want = memory(on_card, deterministic=True)["action_pred"].float()
+                    again = memory(on_card, deterministic=True)["action_pred"].float()
+                spread = float((again - want).abs().max())
+                tower_memory = {k: v.clone() for k, v in memory.pt_model.state_dict().items()}
+                qpack_memory = {k: v.clone() for k, v in _flat(memory.frozen_qpack or {}).items()}
+                del memory, again
+                t0 = time.perf_counter()
+                loaded = build(False)
+                state = TrainState.create(loaded, common.build_optimizer(flags, schedule, loaded))
+                start = start_from_reference_checkpoint(state, policy_path)
+                build_s, state_step = time.perf_counter() - t0, state.step
+                check(start == REF_STEP and state.step == 0 and state.opt_state.count == 0
+                      and not any(bool(m.any()) for m in state.opt_state.mu + state.opt_state.nu),
+                      f"reference_checkpoint {mode}: start {start}, step {state.step}, count {state.opt_state.count}")
+                tower_equal = all(torch.equal(v, tower_memory[k]) for k, v in loaded.pt_model.state_dict().items())
+                qpack_equal = all(torch.equal(v, qpack_memory[k]) for k, v in _flat(loaded.frozen_qpack or {}).items())
+                check(tower_equal, f"reference_checkpoint {mode}: the tower read by name differs from the in-memory one")
+                loss_fn = common.make_loss_fn(loaded, make_augment_fn(flags.data.augmentations, image_size=256,
+                                                                      source_size=flags.data.image_size), 256, False)
+                step = make_train_step(loss_fn, learning_rate_fn=schedule)
+                gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+                sync()
+                for fn in counters.values():
+                    fn.launches = 0
+                with noted:  # the main path: the loaded model's forward, its cost/flops and two train steps
+                    with torch.inference_mode():
+                        got = loaded(on_card, deterministic=True)["action_pred"].float()
+                    flops = common.flops_analysis(step.gradients, state, on_card, gen)
+                    times = []
+                    for _ in range(2):
+                        t0 = time.perf_counter()
+                        _, aux = step(state, on_card, gen)
+                        sync()
+                        times.append((time.perf_counter() - t0) * 1e3)
+                launches = launch_counts(counters)
+                with plain_kernels():
+                    flops_plain = common.flops_analysis(step.gradients, state, on_card, gen)
+                err = float((got - want).abs().max())
+                check(got.shape == (POLICY_BATCH, POLICY_WINDOW, 15) and bool(torch.isfinite(got).all()),
+                      f"reference_checkpoint {mode}: action_pred {tuple(got.shape)}")
+                check(err <= spread, f"reference_checkpoint {mode}: the loaded model's action_pred is {err} off the "
+                      f"in-memory model's, beyond its own run-to-run spread {spread}")
+                check(flops > 0 and flops == flops_plain,
+                      f"reference_checkpoint {mode}: cost/flops {flops} with the kernels, {flops_plain} with the plain versions")
+                check(np.isfinite(float(aux["loss"])), f"reference_checkpoint {mode}: loss {float(aux['loss'])}")
+                check(launches["flash_attn_fwd"] > 0 and (launches["int8_gemm"] > 0) == (mode == "frozen_int8"),
+                      f"reference_checkpoint {mode}: launches {launches}")
+                emit("reference_checkpoint", mode=mode, batch=POLICY_BATCH, window=POLICY_WINDOW,
+                     action_pred_max_abs_vs_in_memory=err, in_memory_run_to_run_max_abs=spread,
+                     tower_equal=tower_equal, qpack_equal=qpack_equal, start_step=start, state_step=state_step,
+                     build_and_load_s=build_s, step_ms=times[-1], first_step_ms=times[0], cost_flops=flops,
+                     cost_flops_plain_kernels=flops_plain, loss=float(aux["loss"]),
+                     learning_rate=aux["learning_rate"], launches=launches)
+                for name, n in launches.items():
+                    totals[name] += n
+                del loaded, state, step, loss_fn, tower_memory, qpack_memory
+                if DEVICE != "cpu":
+                    torch.cuda.empty_cache()
+        finally:
+            if saved_dir is None:
+                os.environ.pop("ARP_TPU_CHECKPOINT_DIR", None)
+            else:
+                os.environ["ARP_TPU_CHECKPOINT_DIR"] = saved_dir
+    emit("reference_checkpoint_phase", seconds=time.perf_counter() - t_phase, launches=totals,
+         k1_shapes=dict(noted.k1), k2_shapes=dict(noted.k2), **files)
+    return totals, noted
+
+
 def kernel_entry(name: str, launches: int, max_abs_err: float, timing: dict, **extra) -> dict:
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -2620,7 +2780,10 @@ def main() -> int:
     del weights
     # the reward server over the labeling engines, and labeling with the host resize
     path_launches["reward_serve"], serve_shapes = phase_reward_serve(counters, preprocess)
-    for path, noted in (("rollout", shapes), ("reward_serve", serve_shapes)):
+    # the flagship written in the reference's format and started from it (--load_checkpoint)
+    path_launches["reference_checkpoint"], ref_shapes = phase_reference_checkpoint(counters, policy_lib,
+                                                                                   flax_m3ae_to_torch)
+    for path, noted in (("rollout", shapes), ("reward_serve", serve_shapes), ("reference_checkpoint", ref_shapes)):
         unheld = sorted(set(noted.k1) - k1["checked"]) + sorted(set(noted.k2) - k2["checked"])
         check(not unheld, f"the {path} runs launched kernels at shapes that no check held against the plain "
               f"version: {unheld}")

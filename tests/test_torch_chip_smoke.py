@@ -549,3 +549,54 @@ def test_reward_serve_cases_are_held_by_the_kernel_checks():
     assert path == "/v1/reward/goal_raw" and len(body) == 3 * 48 and headers["X-Goal-Shape"] == "4,4,3"
     path, body, headers = chip_smoke.reward_request("text", "b64", np.zeros((2, 4, 4, 3), np.uint8), text="a b")
     assert path == "/v1/reward/text" and json.loads(body)["frames_shape"] == [2, 4, 4, 3]
+
+
+def test_reference_checkpoint_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """The reference_checkpoint phase end to end on the CPU at a tiny tower width and batch: the export of the
+    policy and its tower, the by-name and --load_checkpoint reads, action_pred against the in-memory model
+    (the same device: equal), cost/flops with and without the plain kernels (equal), the train steps.  What
+    only the card can show (a kernel's launches) is left out; $ARP_TPU_CHECKPOINT_DIR is restored."""
+    import json
+    import os
+
+    from arp_tpu_torch.models import policy as policy_lib
+    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import quantization, vit_infer
+
+    for name, value in dict(DEVICE="cpu", M3AE_DIMS=TINY_M3AE, M3AE_CFG=dict(model_type=None, **TINY_M3AE),
+                            CPU_FRAMES=2, BERT_VOCAB=211, POLICY_BATCH=2, POLICY_WINDOW=2).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(policy_lib.models, "BERT_VOCAB_SIZE", 211)
+    monkeypatch.setenv("ARP_TPU_CHECKPOINT_DIR", "/nonexistent/towers")
+    real_check = chip_smoke.check
+    monkeypatch.setattr(chip_smoke, "check", lambda ok, what: real_check(ok or "launch" in what, what))
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
+                "int8_matmul": quantization.int8_matmul}
+    totals, noted = chip_smoke.phase_reference_checkpoint(counters, policy_lib, flax_m3ae_to_torch)
+    assert os.environ["ARP_TPU_CHECKPOINT_DIR"] == "/nonexistent/towers"
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    runs = [line for line in lines if line["phase"] == "reference_checkpoint"]
+    assert [r["mode"] for r in runs] == ["frozen_bf16", "frozen_int8"]
+    for r in runs:
+        assert r["action_pred_max_abs_vs_in_memory"] == 0.0 and r["tower_equal"] and r["qpack_equal"]
+        assert r["start_step"] == chip_smoke.REF_STEP and r["state_step"] == 0
+        assert r["cost_flops"] == r["cost_flops_plain_kernels"] > 0 and r["step_ms"] > 0 and np.isfinite(r["loss"])
+    assert runs[1]["cost_flops"] == runs[0]["cost_flops"]  # the int8 tower makes the bf16 tower's products
+    phase = [line for line in lines if line["phase"] == "reference_checkpoint_phase"][0]
+    assert phase["tower_bytes"] > 0 and phase["policy_bytes"] > 0 and phase["policy_read_s"] > 0
+    # on the CPU attention never reaches K1's wrapper; K2's wrapper takes the int8 tower's sites, frames 2 x 2
+    assert not noted.k1 and {int(k.split()[0][2:]) for k in noted.k2} == {4 * 256, 4 * 257}  # patches; tokens
+    assert totals == dict.fromkeys(counters, 0)
+
+
+def test_downsize_shapes_are_resize_cases():
+    """phase_resize holds collect/downsize.py's 4x and 8x downscales, as the resize on the CPU gives them."""
+    from arp_tpu_torch.ops import preprocess
+
+    rng = np.random.default_rng(0)
+    for size in (256, 512):
+        frames = rng.integers(0, 256, size=(1, size, size, 3), dtype=np.uint8)
+        got = preprocess.resize_bicubic_pil_packed(torch.from_numpy(frames.reshape(1, size, size * 3)), 3, 64, 64)
+        want = preprocess.resize_bicubic_pil_reference(frames, 64, 64).reshape(1, 64, 64 * 3)
+        assert np.array_equal(got.numpy(), want.astype(np.float32))

@@ -15,6 +15,7 @@ import ast
 import json
 import logging
 import os
+import pickle
 import subprocess
 import sys
 from types import SimpleNamespace
@@ -301,7 +302,7 @@ def test_eval_cli_in_a_subprocess_evaluates_the_trainer_s_checkpoint(trained, ca
     assert set(got) == {"return", "episode_length", "success_rate"} and all(np.isfinite(v) for v in got.values())
     teval.main(argv)  # in-process on the same checkpoint: the same numbers
     assert ast.literal_eval(capsys.readouterr().out.strip().splitlines()[-1]) == got
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(FileNotFoundError, match="x.pkl"):  # the flag reads a reference pickle now
         teval.main(argv + ["--load_checkpoint=x.pkl"])
 
 
@@ -310,7 +311,7 @@ def test_eval_cli_frozen_int8_takes_the_training_run_s_scales(tmp_path, monkeypa
     builds its pack from them, as the JAX eval CLI does, and calibrates only when they are absent."""
     import chip_smoke
     from arp_tpu_torch.models import policy
-    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+    from arp_tpu_torch.models.m3ae import export_reference_m3ae_params
 
     built = []  # whether each pack came from saved scales
     real_build = policy.build_frozen_qpack
@@ -319,8 +320,8 @@ def test_eval_cli_frozen_int8_takes_the_training_run_s_scales(tmp_path, monkeypa
     dims = dict(emb_dim=32, depth=2, num_heads=4, mlp_ratio=2)
     towers = tmp_path / "towers"
     towers.mkdir()
-    torch.save(flax_m3ae_to_torch(chip_smoke.random_m3ae_variables(dims, 8, 30522, seed=1)),
-               towers / "m3ae_base_params.pt")
+    with open(towers / "m3ae_base_params.pkl", "wb") as f:  # the reference's pickle, as the JAX package reads it
+        pickle.dump(export_reference_m3ae_params(chip_smoke.random_m3ae_variables(dims, 8, 30522, seed=1)), f)
     monkeypatch.setenv("ARP_TPU_CHECKPOINT_DIR", str(towers))
     demos = str(tmp_path / "demos")
     make_labeled_dataset(demos, n=24)

@@ -46,7 +46,7 @@ def test_port_imports_without_jax_or_flax():
     )
     assert out.returncode == 0, out.stderr + out.stdout
     n, *names = out.stdout.split("IMPORTED")[1].split()
-    assert int(n) >= 61, out.stdout  # every module of the package, not an empty walk
+    assert int(n) >= 69, out.stdout  # every module of the package, not an empty walk
     for module in ("serve", "config", "utils", "models.layers", "models.m3ae", "models.impala", "models.policy.models",
                    "models.policy.convert", "ops.m3ae_infer", "ops.augment", "train.main", "train.common",
                    "parallel.step", "parallel.prefetch", "data.procgen_dataset", "data.loader", "data.validate",
@@ -54,7 +54,9 @@ def test_port_imports_without_jax_or_flax():
                    "models.clip.convert", "finetune", "finetune.adapter_model", "finetune.convert", "finetune.dataset",
                    "finetune.decoder", "finetune.train", "finetune.reward", "envs", "envs.fake", "envs.state_codec",
                    "envs.gym3_stub", "envs.native_engine", "envs.procgen", "envs.rollout", "train.eval", "video",
-                   "native", "data.arps", "data.cache_embeddings", "reward.serve"):
+                   "native", "data.arps", "data.cache_embeddings", "reward.serve", "_pickle_compat", "ops.flop_count",
+                   "collect", "collect.recorder", "collect.fuse", "collect.downsize", "collect.reward_normalizer",
+                   "testing"):
         assert f"arp_tpu_torch.{module}" in names, module
 
 
@@ -288,6 +290,79 @@ def test_server_and_shard_path_read_nothing_of_the_jax_package(tmp_path):
         shard = convert_hdf5(path, os.path.join(tmp, "shards"), keys=["ob"])["ob"]
         assert ArpsReader(shard).read_batch([5]).shape == (1, 2, 40, 40, 3)
         cache_clip_embeddings(path, engine)
+        assert not touched, touched
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_reference_checkpoint_and_collect_paths_read_nothing_of_the_jax_package(tmp_path):
+    """With the JAX stack (and cloudpickle) blocked and the audit hook of the eval path's test: a policy is
+    exported as a reference pickle and read back into a model, an M3AE tower is read by name from its
+    ``.pkl``, a step is counted for cost/flops, and stage 1 collects, fuses and downsizes demos; nothing
+    under arp_tpu/ is opened, loaded or compiled."""
+    script = _SCRIPT.replace('"optax", "arp_tpu")', '"optax", "arp_tpu", "cloudpickle")') + textwrap.dedent(
+        f"""
+        import os, pickle, numpy as np, torch
+        JAX_DIR = os.path.join({REPO!r}, "arp_tpu") + os.sep
+        touched = []
+
+        def audit(event, args):
+            if event in ("open", "ctypes.dlopen", "subprocess.Popen", "os.listdir", "os.scandir"):
+                for a in args:
+                    items = a if isinstance(a, (list, tuple)) else [a]
+                    for x in items:
+                        if isinstance(x, (str, bytes, os.PathLike)):
+                            p = os.path.realpath(os.fsdecode(x))
+                            if p.startswith(JAX_DIR):
+                                touched.append((event, p))
+
+        sys.addaudithook(audit)
+        from arp_tpu_torch.checkpoint import load_reference_checkpoint, reference_policy_state, save_reference_checkpoint
+        from arp_tpu_torch.collect.downsize import downsize_by_resize
+        from arp_tpu_torch.collect.fuse import fuse
+        from arp_tpu_torch.collect.recorder import collect_demonstrations
+        from arp_tpu_torch.config import Config
+        from arp_tpu_torch.envs import FakeProcgen
+        from arp_tpu_torch.models import m3ae
+        from arp_tpu_torch.models.policy import ARPDT
+        from arp_tpu_torch.parallel.step import TrainState, make_train_step
+        from arp_tpu_torch.testing import scripted_coin_expert
+        from arp_tpu_torch.train import common
+        tmp = {str(tmp_path)!r}
+        cfg = dict(model_type="vit_debug", emb_dim=32, depth=1, num_heads=4, use_discrete_action=True)
+        rng = np.random.default_rng(0)
+        batch = {{"image": {{"ob": rng.normal(size=(2, 2, 32, 32, 3)).astype(np.float32)}},
+                 "rtg": {{"ob": np.ones((2, 2, 1), np.float32)}}, "action": np.zeros((2, 2), np.int32),
+                 "instruct": None, "text_padding_mask": None}}
+        model = ARPDT(cfg, num_actions=15, patch_dim=16)
+        with torch.no_grad():
+            model(batch, deterministic=True)
+        save_reference_checkpoint(os.path.join(tmp, "p.pkl"), model.trained_state_dict(), step=3, ensemble_mode="first")
+        again = ARPDT(cfg, num_actions=15, patch_dim=16)
+        with torch.no_grad():
+            again(batch, deterministic=True)
+            again.load_trained_state_dict(reference_policy_state(load_reference_checkpoint(os.path.join(tmp, "p.pkl"))))
+        tower = m3ae.MaskedMultimodalAutoencoder(dict(model_type="custom", emb_dim=32, depth=1, num_heads=4),
+                                                 text_vocab_size=97, image_output_dim=768)
+        from arp_tpu_torch.models.policy import torch_policy_to_flax
+        with open(os.path.join(tmp, "m3ae_base_params.pkl"), "wb") as f:
+            pickle.dump(m3ae.export_reference_m3ae_params(torch_policy_to_flax(tower.state_dict())), f)
+        tower.load_state_dict(m3ae.load_m3ae_model_vars("vit_b16", checkpoint_dir=tmp))
+        state = TrainState.create(model, common.build_optimizer(Config(weight_decay=0.0, clip_gradient=1.0), lambda c: 1e-3, model))
+        step = make_train_step(common.make_loss_fn(model, None, 32, False))
+        assert common.flops_analysis(step.gradients, state, batch, torch.Generator().manual_seed(0)) > 0
+        for name in ("a", "b"):
+            env = FakeProcgen("coinrun", {{"episode_length": 20, "image_size": 32, "grid": 4}})
+            collect_demonstrations(env, scripted_coin_expert, os.path.join(tmp, name, "data.hdf5"), num_episodes=2,
+                                   num_frames=2)
+        fuse(os.path.join(tmp, "a", "data.hdf5"), os.path.join(tmp, "b", "data.hdf5"), os.path.join(tmp, "f.hdf5"))
+        downsize_by_resize(os.path.join(tmp, "f.hdf5"), os.path.join(tmp, "s.hdf5"), out_size=16, device="cpu")
         assert not touched, touched
         bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not bad, bad

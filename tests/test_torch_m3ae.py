@@ -2,6 +2,8 @@
 same weights through the bridge.  float32, atol 2e-5 (the JAX package's own bound
 between its two M3AE paths)."""
 
+import pickle
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,13 +162,30 @@ def test_m3ae_frozen_bf16_recipe(score):
 
 
 def test_load_m3ae_model_vars_reads_the_ports_own_state_dict(tmp_path, monkeypatch):
+    """The port's own format stays readable from an explicit ``.pt`` path; by name only the reference's
+    pickle is looked up (F6), never a ``.pt`` beside it."""
     _, _, tmodel = make_pair()
+    torch.save(tmodel.state_dict(), tmp_path / "tower.pt")
     torch.save(tmodel.state_dict(), tmp_path / "m3ae_base_params.pt")
     monkeypatch.setenv("ARP_TPU_CHECKPOINT_DIR", str(tmp_path))
-    by_name = tm3ae.load_m3ae_model_vars("vit_b16")
-    by_path = tm3ae.load_m3ae_model_vars(str(tmp_path / "m3ae_base_params.pt"))
-    for state in (by_name, by_path):
-        assert set(state) == set(tmodel.state_dict())
-        torch.testing.assert_close(state["cls_token"], tmodel.cls_token.detach(), atol=0, rtol=0)
+    by_path = tm3ae.load_m3ae_model_vars(str(tmp_path / "tower.pt"))
+    assert set(by_path) == set(tmodel.state_dict())
+    torch.testing.assert_close(by_path["cls_token"], tmodel.cls_token.detach(), atol=0, rtol=0)
+    with pytest.raises(FileNotFoundError, match="m3ae_base_params.pkl"):
+        tm3ae.load_m3ae_model_vars("vit_b16")
     with pytest.raises(FileNotFoundError, match="m3ae checkpoint not found"):
         tm3ae.load_m3ae_model_vars("vit_l16")
+
+
+def test_load_m3ae_model_vars_reads_the_reference_pickle_by_name(tmp_path, monkeypatch):
+    """F6: by name, ``m3ae_base_params.pkl`` in ``$ARP_TPU_CHECKPOINT_DIR`` (the JAX exporter's file),
+    renamed and bridged leaf for leaf."""
+    _, variables, tmodel = make_pair()
+    with open(tmp_path / "m3ae_base_params.pkl", "wb") as f:
+        pickle.dump(jm3ae.export_reference_m3ae_params(variables), f)
+    monkeypatch.setenv("ARP_TPU_CHECKPOINT_DIR", str(tmp_path))
+    state = tm3ae.load_m3ae_model_vars("vit_b16")
+    want = flax_m3ae_to_torch(jax.device_get(variables))
+    assert set(state) == set(want) == set(tmodel.state_dict())
+    for name, value in want.items():
+        torch.testing.assert_close(state[name], value, atol=0, rtol=0)

@@ -11,6 +11,7 @@ profiler writes a trace; the flags whose paths are not ported raise.  (The rollo
 
 import json
 import os
+import pickle
 
 import numpy as np
 import pytest
@@ -121,10 +122,13 @@ def test_profile_dir_writes_a_trace(demos, tmp_path):
     assert (trace / "trace.json").stat().st_size > 0
 
 
-@pytest.mark.parametrize("flag,item", [("--mesh_dp=2", "item 12"), ("--mesh_tp=2", "item 12"),
-                                       ("--load_checkpoint=x.pkl", "item 10")])
-def test_unported_flags_raise(demos, tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("flag,error,match", [
+    ("--mesh_dp=2", NotImplementedError, "item 12"), ("--mesh_tp=2", NotImplementedError, "item 12"),
+    # item 10 is ported: the flag reads a reference pickle, and a missing one raises
+    pytest.param("--load_checkpoint=x.pkl", FileNotFoundError, "x.pkl", id="--load_checkpoint=x.pkl-item 10")],
+    ids=["--mesh_dp=2-item 12", "--mesh_tp=2-item 12", None])
+def test_unported_flags_raise(demos, tmp_path, flag, error, match):
+    with pytest.raises(error, match=match):
         tmain.main(argv(demos, str(tmp_path / "out"), "--epochs=1", flag))
 
 
@@ -155,7 +159,7 @@ def test_frozen_int8_tower_keeps_its_calibration_with_the_checkpoints(demos, tmp
     a resume rebuilds the pack from them instead of calibrating again."""
     import chip_smoke
     from arp_tpu_torch.models import policy
-    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+    from arp_tpu_torch.models.m3ae import export_reference_m3ae_params
 
     built = []  # whether each pack came from saved scales
     real_build = policy.build_frozen_qpack
@@ -165,8 +169,8 @@ def test_frozen_int8_tower_keeps_its_calibration_with_the_checkpoints(demos, tmp
     dims = dict(emb_dim=32, depth=2, num_heads=4, mlp_ratio=2)
     towers = tmp_path / "towers"
     towers.mkdir()
-    torch.save(flax_m3ae_to_torch(chip_smoke.random_m3ae_variables(dims, 8, 30522, seed=1)),
-               towers / "m3ae_base_params.pt")
+    with open(towers / "m3ae_base_params.pkl", "wb") as f:  # the reference's pickle, as the JAX package reads it
+        pickle.dump(export_reference_m3ae_params(chip_smoke.random_m3ae_variables(dims, 8, 30522, seed=1)), f)
     monkeypatch.setenv("ARP_TPU_CHECKPOINT_DIR", str(towers))
     ckpt = tmp_path / "ckpt"
     extra = ["--model.transfer_type=m3ae_vit_b16", "--model.frozen_int8=True", "--model.use_adapter=True",
