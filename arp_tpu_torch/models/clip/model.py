@@ -1,4 +1,4 @@
-"""CLIP ViT image tower and text tower in PyTorch (port of arp_tpu/models/clip/model.py).
+"""CLIP image towers (ViT and ModifiedResNet) and text tower in PyTorch (port of arp_tpu/models/clip/model.py).
 
 The module tree mirrors the Flax one, so a parameter's name is its Flax path
 joined with dots (``visual.transformer.resblocks.0.attn.query.weight`` for
@@ -13,22 +13,33 @@ transpose of the Dense kernels.  As in the Flax model:
     (p_row, p_col, channel) order, not a Conv2d;
   * LayerNorm eps is 1e-5 and the MLP uses quick-GELU;
   * a tower's dtype is its parameters' dtype: cast the module and the inputs
-    to bfloat16 for a bf16 encode.
+    to bfloat16 for a bf16 encode (the ResNet's BatchNorm statistics too, as
+    the JAX engine's cast takes ``batch_stats`` with the params).
+
+The ModifiedResNet towers (``vision_num_layers`` a tuple) take (B, H, W, C)
+images like the Flax module and convolve channels-first inside: the 3-conv
+stem, Bottleneck blocks with anti-aliased average-pool downsampling, BatchNorm
+in eval mode (its running statistics are buffers, Flax's ``batch_stats``), and
+the attention pool, whose one query (the mean token) attends in plain torch as
+JAX computes it outside any Pallas kernel.  ``vision_return_map`` returns the
+feature map instead of the pooled embedding.
 
 :func:`load_model_vars` reads a local OpenAI checkpoint (a ``.npy`` of its
 state dict or the ``.pt`` jit archive) into arp_tpu's Flax layout, as the JAX
-package's does; fetching it is not ported.  The ModifiedResNet towers are not
-ported yet (ROADMAP Queue 1, item 11).
+package's does; fetching it is not ported.
 """
 
 from __future__ import annotations
 
 import functools
+import math
 import os
-from typing import Optional
+from collections import OrderedDict
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ...ops.attention import dot_product_attention
@@ -39,6 +50,11 @@ LayerNorm = functools.partial(nn.LayerNorm, eps=1e-5)
 MAX_TEXT_LENGTH = 77
 
 IMAGE_RESOLUTION = {
+    "resnet_50": 224,
+    "resnet_101": 224,
+    "resnet_50x4": 288,
+    "resnet_50x16": 384,
+    "resnet_50x64": 448,
     "vit_b32": 224,
     "vit_b16": 224,
     "vit_l14": 224,
@@ -46,7 +62,7 @@ IMAGE_RESOLUTION = {
     "vit_b16_clip4clip": 224,
 }
 
-# The ViT entries of arp_tpu's table (openai/model.py:59-135).
+# arp_tpu's table (openai/model.py:59-135).
 CONFIGS = {
     "vit_b32": dict(embed_dim=512, vocab_size=49408, vision_num_layers=12, vision_features=768,
                     vision_patch_size=32, text_features=512, text_num_heads=8, text_num_layers=12),
@@ -54,6 +70,16 @@ CONFIGS = {
                     vision_patch_size=16, text_features=512, text_num_heads=8, text_num_layers=12),
     "vit_l14": dict(embed_dim=768, vocab_size=49408, vision_num_layers=24, vision_features=1024,
                     vision_patch_size=14, text_features=768, text_num_heads=12, text_num_layers=12),
+    "resnet_50": dict(embed_dim=1024, vocab_size=49408, vision_num_layers=(3, 4, 6, 3), vision_features=64,
+                      text_features=512, text_num_heads=8, text_num_layers=12),
+    "resnet_101": dict(embed_dim=512, vocab_size=49408, vision_num_layers=(3, 4, 23, 3), vision_features=64,
+                       text_features=512, text_num_heads=8, text_num_layers=12),
+    "resnet_50x4": dict(embed_dim=640, vocab_size=49408, vision_num_layers=(4, 6, 10, 6), vision_features=80,
+                        text_features=640, text_num_heads=10, text_num_layers=12),
+    "resnet_50x16": dict(embed_dim=768, vocab_size=49408, vision_num_layers=(6, 8, 18, 8), vision_features=96,
+                         text_features=768, text_num_heads=12, text_num_layers=12),
+    "resnet_50x64": dict(embed_dim=1024, vocab_size=49408, vision_num_layers=(3, 15, 36, 10), vision_features=128,
+                         text_features=1024, text_num_heads=16, text_num_layers=12),
 }
 
 
@@ -128,7 +154,7 @@ class VisionTransformer(nn.Module):
     """ViT image tower over patch vectors (B, N, P*P*C) or images (B, H, W, C)."""
 
     def __init__(self, patch_size: int, features: int, num_layers: int, num_heads: int,
-                 out_features: int, image_size: int, channels: int = 3,
+                 out_features: Optional[int], image_size: int, channels: int = 3,
                  score_dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.patch_size = patch_size
@@ -140,7 +166,8 @@ class VisionTransformer(nn.Module):
         self.ln_pre = LayerNorm(features)
         self.transformer = CLIPTransformer(features, num_layers, num_heads, score_dtype)
         self.ln_post = LayerNorm(features)
-        self.proj = nn.Linear(features, out_features, bias=False)
+        # None: every token's ln_post output, no projection (the Flax tower's vision_return_map)
+        self.proj = None if out_features is None else nn.Linear(features, out_features, bias=False)
 
     def forward(self, x, return_intermediates: bool = False):
         p = self.patch_size
@@ -155,8 +182,126 @@ class VisionTransformer(nn.Module):
         x = x + self.positional_embedding[None, : x.shape[1]]
         x = self.ln_pre(x)
         x, inter = self.transformer(x, return_intermediates=True)
-        out = self.proj(self.ln_post(x[:, 0]))
+        out = self.ln_post(x) if self.proj is None else self.proj(self.ln_post(x[:, 0]))
         return (out, inter) if return_intermediates else out
+
+
+# --- ModifiedResNet -------------------------------------------------------------------------------
+
+
+class BatchNorm(nn.Module):
+    """Flax's ``BatchNorm(use_running_average=True)`` on channels-first input: ``weight`` is its
+    ``scale``, the running statistics are buffers (its ``batch_stats`` ``mean`` / ``var``), eps 1e-5."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x):
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
+
+
+def _avg_pool(x, stride: int):
+    """Flax's ``avg_pool(x, (s, s), (s, s))`` (VALID): the identity at stride 1."""
+    return F.avg_pool2d(x, stride) if stride > 1 else x
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, in_features: int, features: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.conv1 = nn.Conv2d(in_features, features, 1, bias=False)
+        self.bn1 = BatchNorm(features)
+        self.conv2 = nn.Conv2d(features, features, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm(features)
+        self.conv3 = nn.Conv2d(features, features * self.expansion, 1, bias=False)
+        self.bn3 = BatchNorm(features * self.expansion)
+        self.downsample = None
+        if stride > 1 or in_features != features * self.expansion:
+            # the Flax names downsample.0 / .1; the average pool before them has no parameters
+            self.downsample = nn.Sequential(OrderedDict([
+                ("0", nn.Conv2d(in_features, features * self.expansion, 1, bias=False)),
+                ("1", BatchNorm(features * self.expansion))]))
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(_avg_pool(out, self.stride)))
+        if self.downsample is not None:
+            x = self.downsample(_avg_pool(x, self.stride))
+        return F.relu(out + x)
+
+
+class AttentionPool(nn.Module):
+    """One query, the mean token, attending over the flattened feature map and itself."""
+
+    def __init__(self, features: int, num_heads: int, out_features: int, tokens: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.positional_embedding = nn.Parameter(torch.randn(tokens, features) / features ** 0.5)
+        self.query = nn.Linear(features, features)
+        self.key = nn.Linear(features, features)
+        self.value = nn.Linear(features, features)
+        self.out = nn.Linear(features, out_features)
+
+    def forward(self, x):
+        b, d = x.shape[0], x.shape[-1]
+        x = x.reshape(b, -1, d)
+        x = torch.cat([x.mean(dim=1, keepdim=True), x], dim=1)
+        x = x + self.positional_embedding[None, : x.shape[1]]
+        head_dim = d // self.num_heads
+        q = self.query(x[:, :1]).view(b, 1, self.num_heads, head_dim)
+        k = self.key(x).view(b, -1, self.num_heads, head_dim)
+        v = self.value(x).view(b, -1, self.num_heads, head_dim)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(head_dim)
+        p = torch.softmax(s, dim=-1)
+        out = torch.einsum("bhqk,bkhd->bqhd", p, v).reshape(b, 1, d)
+        return self.out(out)[:, 0]
+
+
+class ModifiedResNet(nn.Module):
+    """The ResNet image tower over (B, H, W, C) images: (pooled embedding or feature map, feature map),
+    the map (B, H / 32, W / 32, 32 * features) channels-last, as the Flax tower returns them."""
+
+    def __init__(self, features: int, out_features: Optional[int], num_layers: Sequence[int], num_heads: int,
+                 image_size: int):
+        super().__init__()
+        half = features // 2
+        self.conv1 = nn.Conv2d(3, half, 3, stride=2, padding=1, bias=False)
+        self.bn1 = BatchNorm(half)
+        self.conv2 = nn.Conv2d(half, half, 3, padding=1, bias=False)
+        self.bn2 = BatchNorm(half)
+        self.conv3 = nn.Conv2d(half, features, 3, padding=1, bias=False)
+        self.bn3 = BatchNorm(features)
+        in_features = features
+        for stage, (n_blocks, stride) in enumerate(zip(num_layers, (1, 2, 2, 2)), start=1):
+            feats = features * 2 ** (stage - 1)
+            blocks = [Bottleneck(in_features, feats, stride)]
+            in_features = feats * Bottleneck.expansion
+            blocks += [Bottleneck(in_features, feats) for _ in range(1, n_blocks)]
+            self.add_module(f"layer{stage}", nn.ModuleList(blocks))
+        self.num_stages = len(num_layers)
+        self.attnpool = None
+        if out_features is not None:
+            self.attnpool = AttentionPool(in_features, num_heads, out_features, (image_size // 32) ** 2 + 1)
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)
+        for i in (1, 2, 3):
+            x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))
+        x = F.avg_pool2d(x, 2)
+        for stage in range(1, self.num_stages + 1):
+            for block in getattr(self, f"layer{stage}"):
+                x = block(x)
+        feature_map = x.permute(0, 2, 3, 1)
+        out = feature_map if self.attnpool is None else self.attnpool(feature_map)
+        return out, feature_map
 
 
 class TextEncoder(nn.Module):
@@ -182,15 +327,20 @@ class TextEncoder(nn.Module):
 
 
 class CLIP(nn.Module):
-    """CLIP with ``encode_image`` / ``encode_text`` (L2-normalized by default)."""
+    """CLIP with ``encode_image`` / ``encode_text`` (L2-normalized by default).
+
+    ``vision_num_layers`` an int builds the ViT tower (``vision_patch_size`` needed), a sequence of
+    four the ModifiedResNet with ``vision_features * 32 // 64`` attention-pool heads, as the Flax
+    ``CLIP.setup`` dispatches.  ``image_size`` sizes the positional embedding of either tower."""
 
     def __init__(self, vocab_size: int, embed_dim: int, text_features: int, text_num_layers: int,
-                 text_num_heads: int, vision_features: int, vision_num_layers: int,
-                 vision_patch_size: int, image_size: int = 224,
-                 score_dtype: Optional[torch.dtype] = None):
+                 text_num_heads: int, vision_features: int, vision_num_layers: Union[int, Sequence[int]],
+                 vision_patch_size: Optional[int] = None, image_size: int = 224,
+                 score_dtype: Optional[torch.dtype] = None, vision_return_map: bool = False):
         super().__init__()
-        if not isinstance(vision_num_layers, int):
-            raise NotImplementedError("the ModifiedResNet image towers are not ported yet")
+        resnet = not isinstance(vision_num_layers, int)
+        if resnet:
+            vision_num_layers = tuple(int(n) for n in vision_num_layers)
         # the constructor's widths, as an engine spec records them (ClipRewardEngine.save_npz)
         self.config = dict(vocab_size=vocab_size, embed_dim=embed_dim, text_features=text_features,
                            text_num_layers=text_num_layers, text_num_heads=text_num_heads,
@@ -199,15 +349,25 @@ class CLIP(nn.Module):
         self.vision_patch_size = vision_patch_size
         self.vision_features = vision_features
         self.image_size = image_size
-        self.visual = VisionTransformer(
-            patch_size=vision_patch_size,
-            features=vision_features,
-            num_layers=vision_num_layers,
-            num_heads=vision_features // 64,
-            out_features=embed_dim,
-            image_size=image_size,
-            score_dtype=score_dtype,
-        )
+        out_features = None if vision_return_map else embed_dim
+        if resnet:
+            self.visual = ModifiedResNet(
+                features=vision_features,
+                out_features=out_features,
+                num_layers=vision_num_layers,
+                num_heads=vision_features * 32 // 64,
+                image_size=image_size,
+            )
+        else:
+            self.visual = VisionTransformer(
+                patch_size=vision_patch_size,
+                features=vision_features,
+                num_layers=vision_num_layers,
+                num_heads=vision_features // 64,
+                out_features=out_features,
+                image_size=image_size,
+                score_dtype=score_dtype,
+            )
         self.text = TextEncoder(
             vocab_size=vocab_size,
             features=text_features,
@@ -218,9 +378,18 @@ class CLIP(nn.Module):
         )
         self.logit_scale = nn.Parameter(torch.zeros(()))
 
+    @property
+    def is_resnet(self) -> bool:
+        return isinstance(self.visual, ModifiedResNet)
+
     def encode_image(self, image, normalize: bool = True, return_intermediates: bool = False):
         """``return_intermediates``: (features, every vision block's (B, N, D) output in layer
-        order), the blocks' outputs taken before ``ln_post``, as Flax captures them."""
+        order), the blocks' outputs taken before ``ln_post``, as Flax captures them (ViT only)."""
+        if self.is_resnet:
+            if return_intermediates:
+                raise ValueError("return_intermediates: the ModifiedResNet tower has no transformer blocks")
+            x = self.visual(image)[0]
+            return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True) if normalize else x
         x, inter = self.visual(image, return_intermediates=True)
         if normalize:
             x = x / torch.linalg.vector_norm(x, dim=-1, keepdim=True)
@@ -242,6 +411,11 @@ def _model_fn(name):
 
 
 MODELS = {
+    "resnet_50": _model_fn("resnet_50"),
+    "resnet_101": _model_fn("resnet_101"),
+    "resnet_50x4": _model_fn("resnet_50x4"),
+    "resnet_50x16": _model_fn("resnet_50x16"),
+    "resnet_50x64": _model_fn("resnet_50x64"),
     "vit_b32": _model_fn("vit_b32"),
     "vit_b16": _model_fn("vit_b16"),
     "vit_l14": _model_fn("vit_l14"),

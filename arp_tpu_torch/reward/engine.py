@@ -6,6 +6,12 @@ Per fixed-size padded batch of uint8 frames:
     -> ViT image tower (attention through kernel K1 on CUDA)
     -> L2-normalized or raw float32 features
 
+A ModifiedResNet model (``resnet_50`` ... ``resnet_50x64``) takes (B, H, W, C)
+images instead of patches, so it never takes the packed pipeline (which needs
+``vision_patch_size``): its frames go through ``clip_preprocess`` and the CLIP
+module, and ``fast_encode`` / ``fast_int8`` warn and fall to that standard
+path, as in the JAX engine.  Its text tower's attention is K1's.
+
 The image tower runs one of three ways, as in the JAX engine:
 
   * the CLIP module (the standard path), in ``compute_dtype``; with
@@ -170,7 +176,8 @@ class ClipRewardEngine:
         # the packed Pillow-exact preprocessing, which the packed encode paths need; "host" keeps it
         # under use_crop, since the host crops before it resizes
         self._host_resize = resize_mode == "host"
-        self._packed = (resize_mode == "pil" and not use_crop) or self._host_resize
+        self._packed = ((resize_mode == "pil" and not use_crop) or self._host_resize) and (
+            model.vision_patch_size is not None)
         self._fast = self._fast_q = None
         self._fast_int8 = False
         if fast and self._packed:
@@ -179,7 +186,7 @@ class ClipRewardEngine:
                                     fast_int8_attn)
         elif fast:
             warnings.warn(
-                "fast_encode requires the packed ViT pipeline (pil/host resize, no engine-side crop); "
+                "fast_encode requires the packed ViT pipeline (ViT tower + pil/host resize, no engine-side crop); "
                 "using the standard path", stacklevel=2)
         # the float32 image tower as save_npz writes it, kept on the host where the card's is cast
         self._visual_f32 = None
@@ -233,7 +240,7 @@ class ClipRewardEngine:
         meta, flat = read_engine_spec(path)
         cfg = dict(meta["clip_config"])
         if isinstance(cfg["vision_num_layers"], list):
-            raise NotImplementedError("the ModifiedResNet image towers are not ported yet")
+            cfg["vision_num_layers"] = tuple(cfg["vision_num_layers"])
         tokenizer = Char97Tokenizer() if meta["tokenizer"] == "char97" else None
         # "bpe:<sha16>"/"fallback"/"custom": leave None -> the engine lazily
         # builds the standard BPE tokenizer (same vocab given the merges file)
@@ -251,7 +258,10 @@ class ClipRewardEngine:
         if self._visual_f32 is not None:
             state.update({f"visual.{k}": v for k, v in self._visual_f32.items()})
         flat = {"/".join(k): v for k, v in _flatten(torch_to_flax(state)).items()}
-        meta = {"clip_config": {k: self.model.config[k] for k in self._SPEC_FIELDS},
+        cfg = {k: self.model.config[k] for k in self._SPEC_FIELDS}
+        if isinstance(cfg["vision_num_layers"], tuple):
+            cfg["vision_num_layers"] = list(cfg["vision_num_layers"])
+        meta = {"clip_config": cfg,
                 "tokenizer": self.tokenizer_identity, "image_size": self.image_size}
         np.savez_compressed(path, __meta__=np.frombuffer(json.dumps(meta).encode(), dtype=np.uint8), **flat)
 
@@ -282,14 +292,17 @@ class ClipRewardEngine:
     # -- feature extraction ---------------------------------------------------
 
     def _patches(self, frames: torch.Tensor) -> torch.Tensor:
-        """One device batch of packed uint8 frames (B, H, W*C) -> normalized ViT patches (B, N, P*P*C)."""
+        """One device batch of packed uint8 frames (B, H, W*C) -> normalized ViT patches (B, N, P*P*C),
+        or for a ResNet tower the normalized images (B, image_size, image_size, C)."""
         p = self.model.vision_patch_size
         if self._packed:
             return clip_preprocess_packed_patches(frames, channels=3, image_size=self.image_size, patch_size=p)
         b, h, wc = frames.shape
+        # "host" frames arrive cropped and resized: only normalized here
         x = clip_preprocess(frames.reshape(b, h, wc // 3, 3), image_size=self.image_size,
-                            resize_mode=self.resize_mode, crop_half=self.use_crop)
-        return extract_patches(x, p)
+                            resize_mode="pil" if self._host_resize else self.resize_mode,
+                            crop_half=self.use_crop and not self._host_resize)
+        return x if p is None else extract_patches(x, p)
 
     def _packed_trunk(self, x: torch.Tensor, return_intermediates: bool = False):
         """The packed tower on patches: float32 (B, embed_dim) features and, when asked, the

@@ -112,6 +112,17 @@ Phases, each printing one JSON line:
                weights in memory (equal, or within that model's own run-to-run spread), one cost/flops count
                with the kernels and with their plain versions (equal), two train steps timed; the pickles'
                sizes and write / read times; launches and shapes noted and held, as the rollout's are.
+ 18. ppg     — stage 1's PPG expert through train_ppg's CLI on the card: the port's C++ engine at 64 px,
+               64 envs x 256 steps, arch dual, 4 minibatches, 6 aux epochs, reward normalization; cut to 3
+               iterations with n_pi 2 (one aux phase).  Each iteration's collect / update / aux seconds and
+               env-steps/s, peak memory, one profiled iteration (device only), ms a PPO and an aux minibatch
+               step; one iteration's updates (separate phases, n_epoch_vf 2) on the card against the CPU from one
+               params draw and one recorded segment, free-running and teacher-forced through the CPU's
+               branches; a stand-in reference expert written as a .jd, its greedy actions on the card against
+               the CPU's.  No kernel of the port runs here.
+ 19. clip_resnet — labeling the demo group with a ResNet-50 CLIP engine (random weights and BatchNorm
+               statistics) in float32 and bf16 at batch 256: frames/s, reward MAE against a CPU engine on 8
+               rows, one profiled pass; K1's launches (the text tower) and their shapes, held by k1_check.
 Each timed shape of k1, k2 and k3 also carries ``bound_ms``: the least time the
 card could take, the larger of the bytes the function must move over the memory
 rate and its operations over the peak rate of their type (PEAK below).
@@ -212,10 +223,12 @@ def check(ok: bool, what: str) -> None:
 
 
 def random_clip_variables(cfg: dict, image_size: int, seed: int) -> dict:
-    """Random CLIP ViT weights in arp_tpu's Flax variable layout, from a numpy seed.
+    """Random CLIP weights in arp_tpu's Flax variable layout, from a numpy seed.
 
     Dense kernels ~ N(0, 1/fan_in), LayerNorm scales ~ 1, small biases and
-    embeddings, and logit_scale = log(100) as in trained CLIP.
+    embeddings, and logit_scale = log(100) as in trained CLIP.  A ResNet config
+    (``vision_num_layers`` a tuple) gets the ModifiedResNet tower of
+    :func:`random_resnet_visual` and its ``batch_stats``.
     """
     rng = np.random.default_rng(seed)
     normal = lambda shape, std: (std * rng.standard_normal(shape, dtype=np.float32))  # noqa: E731
@@ -240,17 +253,22 @@ def random_clip_variables(cfg: dict, image_size: int, seed: int) -> dict:
             }
         return blocks
 
-    fv, ft, e, p = cfg["vision_features"], cfg["text_features"], cfg["embed_dim"], cfg["vision_patch_size"]
-    n_tokens = (image_size // p) ** 2 + 1
-    visual = {
-        "conv1": dense(p * p * 3, fv, bias=False),
-        "class_embedding": normal((fv,), fv ** -0.5),
-        "positional_embedding": normal((n_tokens, fv), fv ** -0.5),
-        "ln_pre": layer_norm(fv),
-        "transformer": transformer(fv, cfg["vision_num_layers"]),
-        "ln_post": layer_norm(fv),
-        "proj": dense(fv, e, bias=False),
-    }
+    ft, e = cfg["text_features"], cfg["embed_dim"]
+    stats = None
+    if isinstance(cfg["vision_num_layers"], tuple):
+        visual, stats = random_resnet_visual(cfg, image_size, normal, dense, rng)
+    else:
+        fv, p = cfg["vision_features"], cfg["vision_patch_size"]
+        n_tokens = (image_size // p) ** 2 + 1
+        visual = {
+            "conv1": dense(p * p * 3, fv, bias=False),
+            "class_embedding": normal((fv,), fv ** -0.5),
+            "positional_embedding": normal((n_tokens, fv), fv ** -0.5),
+            "ln_pre": layer_norm(fv),
+            "transformer": transformer(fv, cfg["vision_num_layers"]),
+            "ln_post": layer_norm(fv),
+            "proj": dense(fv, e, bias=False),
+        }
     text = {
         "token_embedding": {"embedding": normal((cfg["vocab_size"], ft), 0.02)},
         "positional_embedding": normal((77, ft), 0.01),
@@ -258,8 +276,51 @@ def random_clip_variables(cfg: dict, image_size: int, seed: int) -> dict:
         "ln_final": layer_norm(ft),
         "text_projection": dense(ft, e, bias=False),
     }
-    return {"params": {"visual": visual, "text": text,
-                       "logit_scale": np.asarray(np.log(LOGIT_SCALE), np.float32)}}
+    variables = {"params": {"visual": visual, "text": text,
+                            "logit_scale": np.asarray(np.log(LOGIT_SCALE), np.float32)}}
+    if stats is not None:
+        variables["batch_stats"] = {"visual": stats}
+    return variables
+
+
+def random_resnet_visual(cfg: dict, image_size: int, normal, dense, rng) -> tuple[dict, dict]:
+    """The ModifiedResNet tower's params and BatchNorm statistics in the Flax layout: convolutions
+    ~ N(0, 1/fan_in) (HWIO), BatchNorm scales ~ 1 (each block's last one ~ 0.25, so that 16 residual
+    sums stay near unit scale), small biases and running means, running variances
+    in [0.5, 1.5], the attention pool's projections as Dense."""
+    params, stats = {}, {}
+
+    def conv(name, k, c_in, c_out, node):
+        node[name] = {"kernel": normal((k, k, c_in, c_out), (k * k * c_in) ** -0.5)}
+
+    def bn(name, c, node, stat_node, scale=1.0):
+        node[name] = {"scale": scale * (1.0 + normal((c,), 0.02)), "bias": normal((c,), 0.02)}
+        stat_node[name] = {"mean": normal((c,), 0.02), "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+
+    w = cfg["vision_features"]
+    for i, (c_in, c_out) in enumerate(((3, w // 2), (w // 2, w // 2), (w // 2, w)), start=1):
+        conv(f"conv{i}", 3, c_in, c_out, params)
+        bn(f"bn{i}", c_out, params, stats)
+    c_in = w
+    for stage, n_blocks in enumerate(cfg["vision_num_layers"], start=1):
+        f = w * 2 ** (stage - 1)
+        for j in range(n_blocks):
+            block, block_stats = {}, {}
+            conv("conv1", 1, c_in, f, block)
+            bn("bn1", f, block, block_stats)
+            conv("conv2", 3, f, f, block)
+            bn("bn2", f, block, block_stats)
+            conv("conv3", 1, f, 4 * f, block)
+            bn("bn3", 4 * f, block, block_stats, scale=0.25)
+            if j == 0:  # stride 2 (stages 2-4) or a wider output: the shortcut's projection
+                conv("downsample.0", 1, c_in, 4 * f, block)
+                bn("downsample.1", 4 * f, block, block_stats)
+            params[f"layer{stage}.{j}"], stats[f"layer{stage}.{j}"] = block, block_stats
+            c_in = 4 * f
+    params["attnpool"] = {"positional_embedding": normal(((image_size // 32) ** 2 + 1, c_in), c_in ** -0.5),
+                          **{name: dense(c_in, c_in) for name in ("query", "key", "value")},
+                          "out": dense(c_in, cfg["embed_dim"])}
+    return params, stats
 
 
 class MemoryDataset(np.ndarray):
@@ -321,6 +382,8 @@ def kernel_kind(name: str) -> str:
         return "k2_int8_gemm"
     if "int8_matmul_kernel" in n:
         return "k3_int8_matmul"
+    if any(tag in n for tag in ("convolve", "conv2d", "fprop", "dgrad", "wgrad", "winograd", "implicit_gemm")):
+        return "convolution"
     if any(tag in n for tag in ("gemm", "nvjet", "xmma", "cutlass")):
         return "gemm"
     if "layer_norm" in n:
@@ -332,7 +395,6 @@ def kernel_kind(name: str) -> str:
 
 def device_profile(run) -> dict:
     """Device time by kernel kind and of the eight longest kernels, and the idle share, over ``run()``."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -340,6 +402,13 @@ def device_profile(run) -> dict:
         run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    return profile_summary(prof, wall_us)
+
+
+def profile_summary(prof, wall_us: float) -> dict:
+    """What :func:`device_profile` reports, from a finished ``torch.profiler`` run over ``wall_us``."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     check(bool(spans), "the profiler saw no device activity")
@@ -2707,6 +2776,411 @@ def phase_reference_checkpoint(counters, policy_lib, flax_m3ae_to_torch) -> tupl
     return totals, noted
 
 
+# The PPG expert (stage 1): train_ppg at 64 envs x 256 steps on the native engine at 64 px, arch dual,
+# PPGConfig's 4 minibatches and 6 aux epochs, reward_norm; cut to 3 iterations (of the CLI's 1,000) with
+# n_pi 2 (of 32) so that one aux phase runs
+PPG_FLAGS = dict(vec_env="native", num_envs=64, segment_length=256, total_iterations=3, n_pi=2, arch="dual",
+                 reward_norm=True)
+PPG_PROFILED_ITERATION = 1  # collect + updates + the aux phase
+PPG_STEP_TIMED = 3  # minibatch steps timed (after one warm-up) for ms a step
+# The card against the CPU: one iteration's updates (separate phases, n_epoch_vf 2: 12 minibatch steps) from
+# one params draw and one recorded segment (8 envs x 32 steps: the CPU's share).  Adam's normalized steps
+# amplify rounding from one step to the next (a gradient near zero moves its weight by +-lr on the sign of a
+# rounding), so the free-running iteration is reported beside a float64 run's distance from the CPU's float32,
+# and each step is held teacher-forced: from the CPU's state before it, on its minibatch, through the CPU's
+# branches (each ReLU's sign and max pool's argmax; the card's own flips are counted).  A step's loss as the
+# CPU tests hold the port to JAX; its gradient 1e-4 of the largest entry; the params after it 1e-4 of the
+# largest entry, outside entries whose gradient at that step is below PPG_GRAD_REL of its largest
+PPG_CPU_ENVS, PPG_CPU_STEPS = 8, 32
+PPG_LOSS_REL, PPG_GRAD_REL, PPG_PARAM_REL = 1e-5, 1e-4, 1e-4
+PPG_GREEDY_FRAMES, PPG_MARGIN = 512, 1e-3  # the .jd expert's greedy actions, card vs CPU
+
+
+class PPGMeter:
+    """While in place, times each iteration of ``collect/ppg.py::learn``: its collect (Gym3Roller.collect), its
+    PPO updates (policy_phase) and its aux phase, each ended by a synchronize, and profiles one iteration."""
+
+    def __init__(self, n_pi: int, profiled: int):
+        from arp_tpu_torch.collect import ppg
+
+        self.ppg, self.n_pi, self.profiled = ppg, n_pi, profiled
+        self.iterations, self.profile, self._prof, self._t_prof = [], None, None, 0.0
+        self.first_start = self.last_end = None  # of the timed parts, on the host's clock
+
+    def _timed(self, part, fn):
+        def wrapped(*args, **kwargs):
+            sync()
+            t0 = time.perf_counter()
+            self.first_start = self.first_start or t0
+            if part == "collect":
+                self.iterations.append({})
+                if len(self.iterations) - 1 == self.profiled and DEVICE != "cpu":
+                    from torch.profiler import ProfilerActivity, profile
+
+                    # the device's activity alone: recording every host op would slow the host-bound collect
+                    self._prof = profile(activities=[ProfilerActivity.CUDA])
+                    self._prof.__enter__()
+                    self._t_prof = t0
+            out = fn(*args, **kwargs)
+            sync()
+            it = len(self.iterations) - 1
+            self.last_end = time.perf_counter()
+            self.iterations[-1][f"{part}_s"] = self.last_end - t0
+            last = "aux" if (it + 1) % self.n_pi == 0 else "update"
+            if part == last and self._prof is not None:
+                self._prof.__exit__(None, None, None)
+                self.profile = profile_summary(self._prof, (time.perf_counter() - self._t_prof) * 1e6)
+                self._prof = None
+            return out
+
+        return wrapped
+
+    def __enter__(self):
+        self.saved = [(self.ppg.Gym3Roller, "collect", self.ppg.Gym3Roller.collect),
+                      (self.ppg, "policy_phase", self.ppg.policy_phase), (self.ppg, "aux_phase", self.ppg.aux_phase)]
+        for (owner, name, fn), part in zip(self.saved, ("collect", "update", "aux")):
+            setattr(owner, name, self._timed(part, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+def reference_ppg_state_dict(state: dict) -> dict:
+    """A port PhasicValueModel's state dict (dual) under the reference's torch names: a stand-in for a
+    shipped expert's ``.jd`` (its Impala stacks under ``cnn.stacks``, the value head ``vf_vhead``, the
+    dense kernel's columns in (C, H, W) order)."""
+    out = {}
+    for name, value in state.items():
+        name = re.sub(r"_enc\.stack(\d)_block(\d)_", r"_enc.cnn.stacks.\1.blocks.\2.", name)
+        name = re.sub(r"_enc\.stack(\d)_firstconv", r"_enc.cnn.stacks.\1.firstconv", name)
+        if name.endswith("_enc.dense.weight"):  # (256, H*W*C) in (h, w, c) order -> (c, h, w) order
+            c = 32
+            hw = value.shape[1] // c
+            h = int(round(hw ** 0.5))
+            value = value.reshape(value.shape[0], h, hw // h, c).permute(0, 3, 1, 2).reshape(value.shape[0], -1)
+        name = name.replace("_enc.dense", "_enc.cnn.dense")
+        out["vf_vhead" + name[len("vf_head"):] if name.startswith("vf_head") else name] = value.clone()
+    return out
+
+
+class ImpalaBranches:
+    """While in place, models/impala.py's ReLUs and max pools note their branches in call order (each ReLU
+    input's sign, each pool's argmax), a list a step; given another run's lists (``replay``), they take
+    those branches instead of their own and count where their own differ.  So the card computes the CPU's
+    piecewise-linear function, and only its arithmetic can differ."""
+
+    def __init__(self, replay=None):
+        from arp_tpu_torch.models import impala
+
+        self.impala, self.replay, self.steps = impala, replay, []
+        self.relu_flips = self.pool_moves = 0
+
+    def start_step(self):
+        self.steps.append([])
+        self.k, self.relu_flips, self.pool_moves = 0, 0, 0
+
+    def relu(self, x):
+        mask = x > 0
+        if self.replay is not None:
+            want = self.replay[len(self.steps) - 1][self.k].to(x.device)
+            self.k += 1
+            self.relu_flips += int((want != mask).sum())
+            return x * want
+        self.steps[-1].append(mask.cpu())
+        return torch.relu(x)
+
+    def max_pool2d(self, x, kernel, stride, padding=0):
+        out, idx = torch.nn.functional.max_pool2d(x, kernel, stride, padding, return_indices=True)
+        if self.replay is None:
+            self.steps[-1].append(idx.cpu())
+            return out
+        want = self.replay[len(self.steps) - 1][self.k].to(x.device)
+        self.k += 1
+        self.pool_moves += int((want != idx).sum())
+        out = x.flatten(2).gather(2, want.flatten(2)).view(want.shape)
+        # the layout max_pool2d gives (channels-last in, channels-last out): the next convolution's algorithm
+        return out.contiguous(memory_format=torch.channels_last) if x.is_contiguous(
+            memory_format=torch.channels_last) and not x.is_contiguous() else out
+
+    def __getattr__(self, name):  # torch.nn.functional's other functions
+        return getattr(torch.nn.functional, name)
+
+    def __enter__(self):
+        self.saved, self.impala.F = self.impala.F, self
+        return self
+
+    def __exit__(self, *exc):
+        self.impala.F = self.saved
+
+
+def ppg_iteration_on(device, state: dict, seg: dict, config, forced=None, dtype=torch.float32) -> dict:
+    """One iteration's updates (collect/ppg.py::policy_phase) on ``device`` in ``dtype`` from ``state`` and a
+    recorded segment.  Each minibatch step is noted: its phase, loss metrics, gradient (from its Adam
+    moments), the params after it and, for a free run, the state before it and its branches
+    (:class:`ImpalaBranches`).  ``forced``: such a run; each step then starts from its state before that
+    step and takes its branches."""
+    from arp_tpu_torch.collect import ppg
+    from arp_tpu_torch.parallel.step import TrainState
+    from arp_tpu_torch.train.common import AdamWState
+
+    model = ppg.PhasicValueModel(arch=config.arch)
+    model.load_state_dict(state)
+    model.to(device, dtype)
+    tstate = TrainState.create(model, ppg.make_adam(config, len(list(model.parameters()))))
+    ppo_step, _, _, _, pi_step, vf_step, init_phase_opts = ppg.make_ppg_steps(model, config)
+    branches = ImpalaBranches(None if forced is None else forced["branches"])
+    notes = []
+
+    def host(tensors):
+        return [t.detach().cpu().clone() for t in tensors]
+
+    def noting(phase, step):
+        def wrapped(params, opt, batch):
+            if forced is not None:
+                before = forced["notes"][len(notes)]["before"]
+                with torch.no_grad():
+                    for (_, p), v in zip(params, before["params"]):
+                        p.copy_(v)
+                opt = AdamWState(before["count"], [m.to(device) for m in before["mu"]],
+                                 [v.to(device) for v in before["nu"]])
+            before = dict(params=host(p for _, p in params), count=opt.count, mu=host(opt.mu), nu=host(opt.nu))
+            branches.start_step()
+            params, new_opt, metrics = step(params, opt, batch)
+            grads = [(a.detach().cpu() - 0.9 * b) / (1 - 0.9) for a, b in zip(new_opt.mu, before["mu"])]
+            notes.append(dict(phase=phase, metrics={k: float(v) for k, v in metrics.items()}, grads=grads,
+                              after=host(p for _, p in params), before=before if forced is None else None,
+                              relu_flips=branches.relu_flips, pool_moves=branches.pool_moves))
+            return params, new_opt, metrics
+
+        return wrapped
+
+    obs = torch.from_numpy(seg["obs"].reshape(-1, *seg["obs"].shape[2:])).to(device, dtype)
+    flat = {"obs": obs, "act": torch.from_numpy(seg["act"].reshape(-1).astype(np.int64)).to(device),
+            "logp_old": torch.from_numpy(seg["logp"].reshape(-1)).to(device, dtype),
+            "adv": torch.from_numpy(seg["adv"].reshape(-1)).to(device, dtype),
+            "vtarg": torch.from_numpy(seg["vtarg"].reshape(-1)).to(device, dtype)}
+    t0 = time.perf_counter()
+    with branches:
+        ppg.policy_phase((ppo_step, noting("pi", pi_step), noting("vf", vf_step)), tstate,
+                         init_phase_opts(tstate.params), flat, np.random.default_rng(SEED), config,
+                         lambda m, prefix="": None)
+    sync()
+    return dict(notes=notes, names=[n for n, _ in tstate.params], branches=branches.steps,
+                seconds=time.perf_counter() - t0)
+
+
+def compare_ppg_iteration_with_cpu(model_state: dict, seg: dict, config) -> dict:
+    """The card's iteration against the CPU's: free-running (beside the card's own float64 against the CPU's
+    float32) and teacher-forced step by step through the CPU's branches; see PPG_CPU_ENVS."""
+    cpu = ppg_iteration_on("cpu", model_state, seg, config)
+    card = ppg_iteration_on(DEVICE, model_state, seg, config)
+    forced = ppg_iteration_on(DEVICE, model_state, seg, config, forced=cpu)
+    f64 = ppg_iteration_on(DEVICE, model_state, seg, config, dtype=torch.float64)
+
+    def loss_rel(a, b):
+        return max(abs(x["metrics"]["loss"] - y["metrics"]["loss"]) / abs(x["metrics"]["loss"])
+                   for x, y in zip(a["notes"], b["notes"]))
+
+    def params_rel(a_params, b_params, masks=None):
+        pmax = max(float(p.abs().max()) for p in a_params)
+        masks = masks or [None] * len(a_params)
+        return max(float(((x.double() - y.double()).abs() * (1 if m is None else m)).max())
+                   for x, y, m in zip(a_params, b_params, masks)) / pmax
+
+    steps, left_out = [], 0
+    for x, y in zip(cpu["notes"], forced["notes"]):
+        gmax = max(float(g.abs().max()) for g in x["grads"])
+        settled = [~((g != 0) & (g.abs() <= PPG_GRAD_REL * gmax)) for g in x["grads"]]
+        left_out = max(left_out, sum(int((~m).sum()) for m in settled))
+        grad_errs = [float((a - b).abs().max()) / gmax for a, b in zip(x["grads"], y["grads"])]
+        worst = max(range(len(grad_errs)), key=grad_errs.__getitem__)
+        steps.append(dict(
+            phase=x["phase"], loss_rel_err=abs(x["metrics"]["loss"] - y["metrics"]["loss"]) / abs(x["metrics"]["loss"]),
+            grad_err_rel_to_max=grad_errs[worst], worst_grad=cpu["names"][worst],
+            param_err_rel_to_max=params_rel(x["after"], y["after"], settled),
+            card_relu_flips=y["relu_flips"], card_pool_moves=y["pool_moves"]))
+    last = lambda run: run["notes"][-1]["after"]  # noqa: E731
+    return dict(
+        minibatches=len(cpu["notes"]), steps=steps,
+        forced_loss_max_rel_err=max(s["loss_rel_err"] for s in steps),
+        forced_grad_max_err_rel_to_max=max(s["grad_err_rel_to_max"] for s in steps),
+        forced_param_max_err_rel_to_max=max(s["param_err_rel_to_max"] for s in steps),
+        card_relu_flips=sum(s["card_relu_flips"] for s in steps), card_pool_moves=sum(s["card_pool_moves"] for s in steps),
+        free_loss_max_rel_err=loss_rel(cpu, card), free_param_err_rel_to_max=params_rel(last(cpu), last(card)),
+        f64_vs_cpu_loss_max_rel_err=loss_rel(f64, cpu),
+        f64_vs_cpu_param_err_rel_to_max=params_rel(last(f64), last(cpu)),
+        entries_left_out_max=left_out, param_entries=sum(p.numel() for p in last(cpu)),
+        cpu_seconds=cpu["seconds"], card_seconds=card["seconds"], card_f64_seconds=f64["seconds"])
+
+
+def phase_ppg(counters) -> dict:
+    """Stage 1's device half: a PPG expert trained through train_ppg's CLI on the native engine's venv (64 envs x
+    256 steps), timed by iteration and part; ms of a PPO and an aux minibatch step; one iteration's updates on
+    the card against the CPU; a stand-in reference expert (.jd) acting greedily on the card as on the CPU.
+    Returns the kernels' launches over the CLI's run (this path runs none of them)."""
+    import tempfile
+
+    from arp_tpu_torch.collect import ppg, train_ppg
+    from arp_tpu_torch.collect.convert_ppg import load_reference_ppg_expert
+    from arp_tpu_torch.collect.reward_normalizer import RewardNormalizer
+    from arp_tpu_torch.envs.native_engine import NativeProcgenGym3
+
+    from arp_tpu_torch.envs.native_engine import native_lib
+
+    t_phase = time.perf_counter()
+    native_lib()  # the C++ engine's g++ build at first use, outside the timed run
+    native_s = time.perf_counter() - t_phase
+    with tempfile.TemporaryDirectory() as tmp:
+        argv = [f"--{k}={v}" for k, v in PPG_FLAGS.items()] + [
+            f"--seed={SEED}", f"--device={DEVICE}", f"--logging.output_dir={tmp}",
+            f"--checkpoint_path={os.path.join(tmp, 'ppg.pkl')}"]
+        flags = train_ppg.parse_flags(argv)
+        config = train_ppg.ppg_config(flags)
+        meter = PPGMeter(config.n_pi, PPG_PROFILED_ITERATION)
+        if DEVICE != "cpu":
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with meter:  # the main path: the CLI's run
+            state, history = train_ppg.main(argv)
+        sync()
+        t_end = time.perf_counter()
+        wall = t_end - t0
+        launches = launch_counts(counters)
+        peak = torch.cuda.max_memory_allocated() if DEVICE != "cpu" else 0
+        pickle_bytes = os.path.getsize(os.path.join(tmp, "ppg.pkl"))
+    frames = config.num_envs * config.segment_length
+    check(len(history) == flags.total_iterations and all(np.isfinite(v) for r in history for v in r.values()),
+          f"ppg: history {history}")
+    check("kl" in history[PPG_PROFILED_ITERATION], "ppg: the aux phase did not run")
+    check(not any(launches.values()), f"ppg: the PPG path launched a kernel of the port: {launches}")
+    for it in meter.iterations:
+        it["env_steps_per_s"] = frames / it["collect_s"]
+    emit("ppg", flags=PPG_FLAGS, cuts={"total_iterations": "3 of the CLI's 1,000", "n_pi": "2 of 32"},
+         frames_a_segment=frames, iterations=meter.iterations, wall_s=wall, native_build_s=native_s,
+         setup_s=meter.first_start - t0, wrapup_s=t_end - meter.last_end, peak_memory_gb=peak / 2 ** 30,
+         history=history, pickle_bytes=pickle_bytes, launches=launches)
+    emit("ppg_profile", iteration=PPG_PROFILED_ITERATION, **(meter.profile or {}))
+
+    # ms a minibatch step at the run's sizes, on the trained model
+    ppo_step, aux_step, *_ = ppg.make_ppg_steps(state.model, config)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    n_ppo = frames // config.minibatches
+    n_aux = config.n_pi * frames // config.aux_minibatches
+    on = dict(device=DEVICE)
+    ppo_batch = {"obs": torch.rand(n_ppo, 64, 64, 3, generator=gen, **on),
+                 "act": torch.randint(0, 15, (n_ppo,), generator=gen, **on),
+                 "logp_old": torch.full((n_ppo,), -2.7, **on), "adv": torch.randn(n_ppo, generator=gen, **on),
+                 "vtarg": torch.randn(n_ppo, generator=gen, **on)}
+    aux_batch = {"obs": torch.rand(n_aux, 64, 64, 3, generator=gen, **on), "vtarg": torch.randn(n_aux, generator=gen, **on),
+                 "old_logits": torch.randn(n_aux, 15, generator=gen, **on)}
+    steps = {"ppo": host_ms(lambda: ppo_step(state, ppo_batch), iters=PPG_STEP_TIMED),
+             "aux": host_ms(lambda: aux_step(state, aux_batch), iters=PPG_STEP_TIMED)}
+    emit("ppg_steps", ppo_minibatch=n_ppo, ppo_step_ms=steps["ppo"], aux_minibatch=n_aux, aux_step_ms=steps["aux"])
+    del ppo_batch, aux_batch, state
+
+    # the card against the CPU: one params draw, one recorded segment (on the CPU's model), one iteration
+    cmp_config = ppg.PPGConfig(num_envs=PPG_CPU_ENVS, segment_length=PPG_CPU_STEPS, ppo_epochs=1, vf_epochs=2)
+    model = ppg.PhasicValueModel(frame_shape=(64, 64, 3), generator=torch.Generator().manual_seed(SEED))
+    model_state = {k: v.clone() for k, v in model.state_dict().items()}
+    _, _, act, *_ = ppg.make_ppg_steps(model, cmp_config)
+    venv = NativeProcgenGym3(game_name="coinrun", num=PPG_CPU_ENVS, resolution=64, episode_length=1000, rand_seed=SEED)
+    roller = ppg.Gym3Roller(venv, lambda f, g: act(torch.from_numpy(f), g))
+    seg, _ = roller.collect(torch.Generator().manual_seed(SEED), PPG_CPU_STEPS)
+    seg["reward"] = RewardNormalizer(PPG_CPU_ENVS, gamma=cmp_config.gamma).normalize_segment(seg["reward"], seg["done"])
+    adv, vtarg = ppg.compute_gae(seg["reward"], seg["value"], seg["done"], seg["last_value"])
+    seg["adv"] = ((adv - adv.mean()) / (adv.std() + 1e-8)).astype(np.float32)
+    seg["vtarg"] = vtarg.astype(np.float32)
+    compared = compare_ppg_iteration_with_cpu(model_state, seg, cmp_config)
+    emit("ppg_vs_cpu", frames=PPG_CPU_ENVS * PPG_CPU_STEPS, ppo_epochs=1, vf_epochs=2, **compared)
+    check(compared["forced_loss_max_rel_err"] <= PPG_LOSS_REL,
+          f"ppg: card vs CPU step losses {compared['forced_loss_max_rel_err']}")
+    check(compared["forced_grad_max_err_rel_to_max"] <= PPG_GRAD_REL,
+          f"ppg: card vs CPU step gradients {compared['forced_grad_max_err_rel_to_max']} of the largest entry")
+    check(compared["forced_param_max_err_rel_to_max"] <= PPG_PARAM_REL,
+          f"ppg: card vs CPU params after a step {compared['forced_param_max_err_rel_to_max']} of the largest entry")
+    check(np.isfinite(compared["free_loss_max_rel_err"]), "ppg: the free-running iteration's losses")
+
+    # a reference expert's .jd (a stand-in: the port model's weights under the reference's names), greedy
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model1000_IC100007936.jd")
+        torch.save(reference_ppg_state_dict(model_state), path)
+        expert, _ = load_reference_ppg_expert(path)
+    frames_jd = torch.from_numpy(seg["obs"].reshape(-1, 64, 64, 3)[:PPG_GREEDY_FRAMES])
+    with torch.no_grad():
+        want = expert(frames_jd)[0]
+        got = expert.to(DEVICE)(frames_jd.to(DEVICE))[0].cpu()
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > PPG_MARGIN
+    differ = int(((got.argmax(-1) != want.argmax(-1)) & clear).sum())
+    emit("ppg_jd", frames=int(frames_jd.shape[0]), logits_max_abs_err=float((got - want).abs().max()),
+         greedy_differ_on_clear_margins=differ, clear_margins=int(clear.sum()), pool_padding=expert.pool_padding,
+         seconds=time.perf_counter() - t_phase)
+    check(differ == 0, f"ppg: {differ} greedy actions of the .jd expert differ on the card")
+    return launches
+
+
+RESNET_CLIP = "resnet_50"  # the ModifiedResNet labeling cell: CONFIGS["resnet_50"] at its published widths, 224 px
+
+
+def phase_clip_resnet(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, label_group) -> tuple[dict, "LaunchShapes"]:
+    """Labeling the demo group with a ResNet-50 CLIP engine (random weights and BatchNorm statistics from numpy
+    seed 0 in the Flax layout, through the weight bridge), float32 and bf16 at batch 256: frames/s, reward MAE
+    against a CPU engine on 8 rows, one profiled pass; the text tower's K1 launches and their shapes."""
+    cfg = CONFIGS[RESNET_CLIP]
+    t0 = time.perf_counter()
+    state = flax_to_torch(random_clip_variables(cfg, 224, SEED))
+    g_src = demo_group(LABEL_FRAMES, 2, 256, SEED)
+    text = "the goal is to collect the coin."
+
+    def engine(device, dtype, batch_size):
+        model = CLIP(**cfg, image_size=224)
+        model.load_state_dict(state)
+        return ClipRewardEngine(model=model, batch_size=batch_size, compute_dtype=dtype, device=device)
+
+    cpu = engine("cpu", torch.float32, CPU_FRAMES)
+    want = cpu.text_rewards(np.asarray(g_src["ob"][LABEL_ROWS, -1]), text)
+    check(np.isfinite(want).all(), "clip_resnet: CPU engine rewards are not finite")
+    emit("clip_resnet_setup", model=RESNET_CLIP, params=int(sum(t.numel() for t in state.values())),
+         ob=list(g_src["ob"].shape), cpu_reward_std=float(want.std()), seconds=time.perf_counter() - t0)
+    totals, noted = dict.fromkeys(counters, 0), LaunchShapes()
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        eng = engine(DEVICE, dtype, BATCH)
+        eng.text_rewards(g_src["ob"][:BATCH, -1], text)  # warm-up batch
+        sync()
+        g = MemoryGroup((k, g_src[k]) for k in ("ob", "act", "done"))
+        for fn in counters.values():
+            fn.launches = 0
+        with noted:
+            stats = label_group(g, text, eng, progress=False)
+        launches = launch_counts(counters)
+        reward = np.asarray(g["ob_clip_reward"])
+        mae = float(np.abs(reward[LABEL_ROWS, -1] - want).mean())
+        bound = F32_REWARD_MAE if dtype == torch.float32 else BF16_COS_MAE * eng.logit_scale
+        emit("clip_resnet", dtype=name, frames=stats["frames"], seconds=stats["seconds"], fps=stats["fps"],
+             batch_size=BATCH, launches=launches, reward_mae_vs_cpu=mae, mae_bound=bound,
+             reward_max_abs_err_vs_cpu=float(np.abs(reward[LABEL_ROWS, -1] - want).max()),
+             reward_mean=float(reward[:, -1].mean()), reward_std=float(reward[:, -1].std()),
+             recipe=eng.encode_recipe)
+        check(reward.shape == (LABEL_FRAMES, 2) and np.isfinite(reward).all(), f"clip_resnet {name}: rewards")
+        check(mae <= bound, f"clip_resnet {name}: reward MAE vs the CPU engine {mae} > {bound}")
+        check(launches["flash_attn_fwd"] > 0, f"clip_resnet {name}: the text tower never launched K1")
+        for k, n in launches.items():
+            totals[k] += n
+        if dtype == torch.float32 and DEVICE != "cpu":
+            g = MemoryGroup((k, g_src[k]) for k in ("ob", "act", "done"))
+            emit("clip_resnet_profile", dtype=name, frames=LABEL_FRAMES,
+                 **device_profile(lambda: label_group(g, text, eng, progress=False)))
+        del eng
+    emit("clip_resnet_phase", seconds=time.perf_counter() - t0, launches=totals, k1_shapes=dict(noted.k1))
+    return totals, noted
+
+
 def kernel_entry(name: str, launches: int, max_abs_err: float, timing: dict, **extra) -> dict:
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -2783,11 +3257,17 @@ def main() -> int:
     # the flagship written in the reference's format and started from it (--load_checkpoint)
     path_launches["reference_checkpoint"], ref_shapes = phase_reference_checkpoint(counters, policy_lib,
                                                                                    flax_m3ae_to_torch)
-    for path, noted in (("rollout", shapes), ("reward_serve", serve_shapes), ("reference_checkpoint", ref_shapes)):
+    # stage 1's device half: the PPG expert; and labeling with a ModifiedResNet CLIP
+    path_launches["ppg"] = phase_ppg(counters)
+    path_launches["clip_resnet"], resnet_shapes = phase_clip_resnet(counters, ClipRewardEngine, CLIP, CONFIGS,
+                                                                    flax_to_torch, label_group)
+    for path, noted in (("rollout", shapes), ("reward_serve", serve_shapes), ("reference_checkpoint", ref_shapes),
+                        ("clip_resnet", resnet_shapes)):
         unheld = sorted(set(noted.k1) - k1["checked"]) + sorted(set(noted.k2) - k2["checked"])
         check(not unheld, f"the {path} runs launched kernels at shapes that no check held against the plain "
               f"version: {unheld}")
-    path_kernels = {"finetune": ("flash_attn_fwd",)}  # every other path runs K1 and K2
+    # the PPG path runs no kernel of the port (convolutions); the ResNet engine runs K1 in its text tower
+    path_kernels = {"finetune": ("flash_attn_fwd",), "ppg": (), "clip_resnet": ("flash_attn_fwd",)}  # others: K1, K2
     for path, counts in path_launches.items():
         for name in path_kernels.get(path, ("flash_attn_fwd", "int8_gemm")):
             check(counts[name] > 0, f"the {path} runs never launched {name}")

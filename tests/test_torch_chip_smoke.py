@@ -600,3 +600,134 @@ def test_downsize_shapes_are_resize_cases():
         got = preprocess.resize_bicubic_pil_packed(torch.from_numpy(frames.reshape(1, size, size * 3)), 3, 64, 64)
         want = preprocess.resize_bicubic_pil_reference(frames, 64, 64).reshape(1, 64, 64 * 3)
         assert np.array_equal(got.numpy(), want.astype(np.float32))
+
+
+def test_ppg_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """The ppg phase end to end on the CPU at a few envs and steps: the CLI's run on the native engine, timed by
+    iteration and part, the minibatch steps, the card-vs-CPU iteration (the same device twice: equal) and the
+    stand-in .jd expert's greedy actions.  The profile (only the card's) is left out."""
+    import json
+
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import quantization, vit_infer
+
+    for name, value in dict(DEVICE="cpu", PPG_CPU_ENVS=2, PPG_CPU_STEPS=4, PPG_GREEDY_FRAMES=6, PPG_STEP_TIMED=1,
+                            PPG_FLAGS=dict(chip_smoke.PPG_FLAGS, num_envs=2, segment_length=4)).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
+                "int8_matmul": quantization.int8_matmul}
+    launches = chip_smoke.phase_ppg(counters)
+    assert launches == dict.fromkeys(counters, 0)
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    by_phase = {line["phase"]: line for line in lines}
+    run = by_phase["ppg"]
+    assert len(run["iterations"]) == 3 and set(run["iterations"][1]) == {"collect_s", "update_s", "aux_s",
+                                                                         "env_steps_per_s"}
+    assert "aux_s" not in run["iterations"][0] and run["frames_a_segment"] == 8 and run["pickle_bytes"] > 0
+    assert by_phase["ppg_steps"]["ppo_minibatch"] == 2 and by_phase["ppg_steps"]["aux_minibatch"] == 4
+    compared = by_phase["ppg_vs_cpu"]  # the same device twice: equal, free-running and forced
+    assert compared["minibatches"] == 12 and len(compared["steps"]) == 12
+    assert [s["phase"] for s in compared["steps"]] == ["vf"] * 8 + ["pi"] * 4
+    for key in ("forced_loss_max_rel_err", "forced_grad_max_err_rel_to_max", "forced_param_max_err_rel_to_max",
+                "free_loss_max_rel_err", "free_param_err_rel_to_max"):
+        assert compared[key] == 0.0, key
+    assert compared["card_relu_flips"] == 0 and compared["card_pool_moves"] == 0
+    assert 0 < compared["f64_vs_cpu_param_err_rel_to_max"] < 1e-2
+    assert by_phase["ppg_jd"]["greedy_differ_on_clear_margins"] == 0 and by_phase["ppg_jd"]["logits_max_abs_err"] == 0.0
+    assert by_phase["ppg_jd"]["pool_padding"] == "torch"
+
+
+def test_reference_ppg_state_dict_is_what_the_reference_loader_reads():
+    """The stand-in .jd's names and dense column order: the port's converter gives back the same model."""
+    from arp_tpu_torch.collect.convert_ppg import convert_torch_ppg_state_dict, flax_ppg_to_torch
+    from arp_tpu_torch.collect.ppg import PhasicValueModel
+
+    state = PhasicValueModel(frame_shape=(64, 64, 3)).state_dict()
+    ref = {k: v.numpy() for k, v in chip_smoke.reference_ppg_state_dict(state).items()}
+    assert "pi_enc.cnn.stacks.2.blocks.1.conv1.weight" in ref and "vf_vhead.bias" in ref and "aux_vf_head.bias" in ref
+    back = flax_ppg_to_torch(convert_torch_ppg_state_dict(ref))
+    assert back.keys() == state.keys() and all(torch.equal(back[k], state[k]) for k in state)
+
+
+def test_clip_resnet_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """The clip_resnet phase on the CPU at a narrow ResNet (published depth pattern cut to one block a stage) and
+    a few frames: the bridge from the random Flax-layout weights and statistics, labeling in float32 and bf16,
+    the MAE checks; the launches (only the card's) are left out."""
+    import json
+
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import quantization, vit_infer
+
+    tiny = {"resnet_50": dict(embed_dim=32, vocab_size=49408, vision_num_layers=(1, 1, 1, 1), vision_features=8,
+                              text_features=32, text_num_heads=4, text_num_layers=1)}
+    for name, value in dict(DEVICE="cpu", LABEL_FRAMES=6, LABEL_ROWS=np.array([0, 1, 5]), BATCH=4,
+                            CPU_FRAMES=2).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    real_check = chip_smoke.check
+    monkeypatch.setattr(chip_smoke, "check", lambda ok, what: real_check(ok or "K1" in what, what))
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
+                "int8_matmul": quantization.int8_matmul}
+    totals, noted = chip_smoke.phase_clip_resnet(counters, ClipRewardEngine, CLIP, tiny, flax_to_torch, label_group)
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    runs = [line for line in lines if line["phase"] == "clip_resnet"]
+    assert [r["dtype"] for r in runs] == ["float32", "bfloat16"]
+    # the same device, another batch (2 against 4): the CPU's convolutions sum in another order
+    assert runs[0]["reward_mae_vs_cpu"] <= 1e-5 and runs[0]["frames"] == 6 and runs[0]["recipe"].startswith("torch;float32")
+    assert runs[1]["reward_mae_vs_cpu"] <= runs[1]["mae_bound"]
+    assert totals == dict.fromkeys(counters, 0) and not noted.k1  # on the CPU attention never reaches K1's wrapper
+
+
+def test_resnet_random_weights_have_the_flax_layout():
+    """random_clip_variables for a ResNet config: the Flax init's params and batch_stats, shape for shape."""
+    from arp_tpu.models.clip.model import CONFIGS as FLAX_CONFIGS
+
+    cfg = dict(FLAX_CONFIGS["resnet_50"], vision_features=8, embed_dim=32, text_features=32, text_num_heads=4,
+               text_num_layers=1, vocab_size=97)
+    want = jax.eval_shape(lambda: FlaxCLIP(**cfg).init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 3)),
+                                                       jnp.zeros((1, 77), jnp.int32)))
+    got = chip_smoke.random_clip_variables(cfg, 64, 0)
+    assert _shapes(got) == _shapes(want)
+    assert set(got) == {"params", "batch_stats"}
+
+
+def test_new_phases_and_their_path_kernels_are_pinned():
+    """main runs the ppg and clip_resnet phases, counts their launches from 0, holds the ResNet path's K1 shapes,
+    and lets the PPG path launch none of the port's kernels."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert 'path_launches["ppg"] = phase_ppg(counters)' in src
+    assert 'path_launches["clip_resnet"], resnet_shapes = phase_clip_resnet(' in src
+    assert '("clip_resnet", resnet_shapes)' in src
+    assert '"ppg": ()' in src and '"clip_resnet": ("flash_attn_fwd",)' in src
+    assert chip_smoke.PPG_FLAGS == dict(vec_env="native", num_envs=64, segment_length=256, total_iterations=3, n_pi=2,
+                                        arch="dual", reward_norm=True)
+    assert chip_smoke.RESNET_CLIP == "resnet_50"
+    # the ResNet text tower's K1 shape (one instruction at 77 tokens, 8 heads of 64) is one k1_check holds
+    assert "slice_ft_text" in inspect.getsource(chip_smoke.phase_k1)
+
+
+@pytest.mark.parametrize("pool_padding", ["same", "torch"])
+def test_impala_branches_replay_another_run_s_relus_and_pools(pool_padding):
+    """ImpalaBranches: a replayed forward computes what the noting run computed, and counts where its own
+    branches differ (here: none of the replay's; one flipped ReLU input after a nudge across 0)."""
+    from arp_tpu_torch.models.impala import ImpalaCNN
+
+    torch.manual_seed(0)
+    cnn = ImpalaCNN(pool_padding=pool_padding)
+    x = torch.rand(2, 16, 16, 3)
+    with torch.no_grad():
+        want = cnn(x)
+    with chip_smoke.ImpalaBranches() as noted:
+        noted.start_step()
+        with torch.no_grad():
+            assert torch.equal(cnn(x), want)
+    assert len(noted.steps[0]) == 3 + 3 * 2 * 2 + 2  # 3 pools, 2 ReLUs a block, the flatten's and the dense's
+    with chip_smoke.ImpalaBranches(replay=noted.steps) as replayed:
+        replayed.start_step()
+        with torch.no_grad():
+            assert torch.equal(cnn(x), want)
+    assert replayed.relu_flips == 0 and replayed.pool_moves == 0
+    from arp_tpu_torch.models import impala
+
+    assert impala.F is torch.nn.functional

@@ -100,12 +100,18 @@ def test_weight_bridge_reads_flattened_keys():
 
 
 def test_weight_bridge_refuses_resnet_state():
+    """ResNet state crosses the bridge (tests/test_torch_clip_resnet.py holds it to JAX); what no CLIP tower
+    holds is still refused: a statistic other than mean / var, a 3-D kernel, another collection."""
+    state = flax_to_torch({"batch_stats": {"visual": {"bn1": {"mean": np.zeros(3)}}},
+                           "params": {"visual": {"conv1": {"kernel": np.zeros((3, 3, 3, 8))}}}})
+    assert state["visual.bn1.running_mean"].shape == (3,) and state["visual.conv1.weight"].shape == (8, 3, 3, 3)
     with pytest.raises(NotImplementedError):
-        flax_to_torch({"batch_stats": {"visual": {"bn1": {"mean": np.zeros(3)}}}})
+        flax_to_torch({"batch_stats": {"visual": {"bn1": {"count": np.zeros(3)}}}})
     with pytest.raises(NotImplementedError):
-        flax_to_torch({"params": {"visual": {"conv1": {"kernel": np.zeros((3, 3, 3, 8))}}}})
+        flax_to_torch({"params": {"visual": {"conv1": {"kernel": np.zeros((3, 3, 8))}}}})
     with pytest.raises(NotImplementedError):
-        CLIP(**{**VIT_B16_2L, "vision_num_layers": (3, 4, 6, 3)})
+        flax_to_torch({"intermediates": {"visual": {"x": np.zeros(3)}}})
+    assert CLIP(**{**VIT_B16_2L, "vision_num_layers": (1, 1, 1, 1), "vision_features": 8}, image_size=64).is_resnet
 
 
 def test_vit_b16_heads_and_shapes():

@@ -218,7 +218,8 @@ class _Archive(torch.nn.Module):
 
 def test_load_model_vars_matches_jax(tmp_path, monkeypatch):
     """A .npy state dict and a .pt jit archive, under ARP_TPU_CHECKPOINT_DIR, into the Flax layout as
-    arp_tpu's converter gives it, leaf for leaf; a missing file and a ResNet checkpoint raise."""
+    arp_tpu's converter gives it, leaf for leaf, a ResNet checkpoint with its batch_stats too; a missing
+    file raises."""
     sd = openai_state_dict(TINY_CLIP_CFG, 32, seed=3)
     np.save(tmp_path / "tiny.npy", sd, allow_pickle=True)
     monkeypatch.setenv("ARP_TPU_CHECKPOINT_DIR", str(tmp_path))
@@ -234,8 +235,15 @@ def test_load_model_vars_matches_jax(tmp_path, monkeypatch):
     CLIP(**TINY_CLIP_CFG, image_size=32).load_state_dict(flax_to_torch(load_model_vars("tiny")))  # strict
     with pytest.raises(FileNotFoundError, match="fetching it is not ported"):
         load_model_vars("vit_b16")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        convert_torch_clip_vars({"visual.layer1.0.conv1.weight": np.zeros((4, 4, 1, 1))})
+    from tests.test_torch_clip_resnet import _openai_resnet_state_dict
+
+    _, rn = _openai_resnet_state_dict(5)
+    np.save(tmp_path / "resnet_50.npy", rn, allow_pickle=True)
+    want = _leaves(jax.tree_util.tree_map(np.asarray, j_convert(rn)))
+    got = _leaves(load_model_vars("resnet_50"))
+    assert got.keys() == want.keys() and any(k[0] == "batch_stats" for k in got)
+    assert all(np.array_equal(got[k], want[k]) for k in want)
+    assert _leaves(convert_torch_clip_vars(rn)).keys() == want.keys()
 
 
 # --- the dataset -----------------------------------------------------------------------------------

@@ -5,7 +5,9 @@ Demonstrations are collected from FakeProcgen by the scripted expert with the po
 labeled with CLIP rewards by the port's labeler over a tiny CLIP engine of random weights, used to
 train an ARPDT through the port's trainer CLI (in-process, with the rollout eval every epoch), and
 evaluated twice by the port's eval CLI: from the trainer's ``--checkpoint_dir``, and from the trained
-state exported with ``save_reference_checkpoint`` and read back with ``--load_checkpoint``.  The
+state exported with ``save_reference_checkpoint`` and read back with ``--load_checkpoint``.  A second
+case starts stage 1 from the port's own expert instead: a PPG policy trained by ``train_ppg`` collects
+the demos through the ``collect`` CLI (unfiltered, as tests/test_collect.py collects with it).  The
 CLIs run in-process, as tests/test_torch_trainer_e2e.py runs them.  The check is the stages'
 outputs: the recorded and labeled keys, the losses, the eval metrics finite.
 """
@@ -38,12 +40,12 @@ def _two_torch_threads():
     torch.set_num_threads(n)
 
 
-def common_flags(tmp_path, spec, ensembles=2):
+def common_flags(tmp_path, spec, ensembles=2, dataset_flags=("--data.image_size=32",)):
     return ["--device=cpu", "--window_size=4", "--use_vl=True", "--vl_type=clip", "--use_crop=False",
             "--game_name=coinrun", "--num_test_episodes=1", "--episode_length=6", "--eval_env=fake",
             f"--vl_checkpoint={spec}", "--model.model_type=vit_debug", "--model.transfer_type=none",
             "--model.emb_dim=32", "--model.depth=2", "--model.num_heads=4", "--model.mlp_ratio=2",
-            f"--model.num_ensembles={ensembles}", f"--data.path={tmp_path / 'demos'}", "--data.image_size=32",
+            f"--model.num_ensembles={ensembles}", f"--data.path={tmp_path / 'demos'}", *dataset_flags,
             "--data.num_frames=8", "--data.window_size=4", "--data.num_demonstrations=4", "--data.use_vl=True"]
 
 
@@ -67,6 +69,11 @@ def test_five_stage_pipeline(tmp_path, capsys):
                                      seed=0 if split == "train" else 100)
         assert rec.num_recorded == n_eps
 
+    stages_2_to_5(tmp_path, capsys, data_root)
+
+
+def stages_2_to_5(tmp_path, capsys, data_root, dataset_flags=("--data.image_size=32",)):
+    """Label the demos in ``data_root``, train on them with the rollout eval, and evaluate twice."""
     # stage 2: CLIP rewards from a tiny engine through the labeler; the same engine's spec rewards the rollouts
     engine = make_tiny_clip_engine(batch_size=8, device="cpu")
     spec = str(tmp_path / "tower.npz")
@@ -81,7 +88,7 @@ def test_five_stage_pipeline(tmp_path, capsys):
 
     # stage 4: ARPDT through the trainer CLI, with the rollout eval (stage 5) every epoch
     out, ckpt = tmp_path / "out", tmp_path / "ckpt"
-    tmain.main(common_flags(tmp_path, spec) + [
+    tmain.main(common_flags(tmp_path, spec, dataset_flags=dataset_flags) + [
         "--epochs=2", "--warmup_epochs=0", "--batch_size=8", "--dataloader_n_workers=0", "--log_freq=2",
         "--lr=1e-3", "--val_every_epochs=0", "--test_every_epochs=1", f"--checkpoint_dir={ckpt}",
         f"--logging.output_dir={out}"])
@@ -91,7 +98,7 @@ def test_five_stage_pipeline(tmp_path, capsys):
     assert all(np.isfinite(r["train_loss"]) for r in records if "train_loss" in r)
 
     # stage 5 on its own: the eval CLI on the trainer's checkpoint, with seeded temperature sampling
-    teval.main(common_flags(tmp_path, spec) + [f"--checkpoint_dir={ckpt}", "--eval_temperature=0.7",
+    teval.main(common_flags(tmp_path, spec, dataset_flags=dataset_flags) + [f"--checkpoint_dir={ckpt}", "--eval_temperature=0.7",
                                                f"--logging.output_dir={tmp_path / 'eval1'}"])
     last_metrics(capsys)
 
@@ -101,6 +108,25 @@ def test_five_stage_pipeline(tmp_path, capsys):
     path = str(tmp_path / "model_best.pkl")
     save_reference_checkpoint(path, state, step=meta["step"], epoch=1, ensemble_mode="first")
     assert latest_step(str(ckpt)) == meta["step"]
-    teval.main(common_flags(tmp_path, spec, ensembles=5) + [f"--load_checkpoint={path}",
+    teval.main(common_flags(tmp_path, spec, ensembles=5, dataset_flags=dataset_flags) + [f"--load_checkpoint={path}",
                                                             f"--logging.output_dir={tmp_path / 'eval2'}"])
     last_metrics(capsys)
+
+
+def test_five_stage_pipeline_from_a_trained_ppg_expert(tmp_path, capsys):
+    """Stage 1 through the port's PPG CLIs (in-process): train an expert, collect with it at 64 x 64."""
+    from arp_tpu_torch.collect import collect, train_ppg
+
+    ckpt = str(tmp_path / "ppg.pkl")
+    _, history = train_ppg.main(["--device=cpu", "--fake_env=True", "--num_envs=2", "--segment_length=8",
+                                 "--total_iterations=2", "--n_pi=2", "--n_aux_epochs=1", "--episode_length=10",
+                                 f"--checkpoint_path={ckpt}", f"--logging.output_dir={tmp_path / 'ppg_log'}"])
+    assert len(history) == 2 and all(np.isfinite(v) for r in history for v in r.values())
+    for split, n_eps in (("train", 4), ("val", 2)):
+        rec = collect.main(["--device=cpu", "--fake_env=True", "--game_name=coinrun", f"--num_episodes={n_eps}",
+                            "--num_demonstrations=4", "--num_frames=8", "--episode_length=12", "--enable_filter=False",
+                            f"--split={split}", f"--model_path={ckpt}", f"--out_dir={tmp_path / 'demos'}",
+                            f"--seed={0 if split == 'train' else 100}"])
+        assert rec.num_recorded == n_eps
+    data_root = tmp_path / "demos" / (DATASET + "_unfiltered")
+    stages_2_to_5(tmp_path, capsys, data_root, dataset_flags=("--data.image_size=64", "--data.enable_filter=False"))

@@ -46,7 +46,7 @@ def test_port_imports_without_jax_or_flax():
     )
     assert out.returncode == 0, out.stderr + out.stdout
     n, *names = out.stdout.split("IMPORTED")[1].split()
-    assert int(n) >= 69, out.stdout  # every module of the package, not an empty walk
+    assert int(n) >= 77, out.stdout  # every module of the package, not an empty walk
     for module in ("serve", "config", "utils", "models.layers", "models.m3ae", "models.impala", "models.policy.models",
                    "models.policy.convert", "ops.m3ae_infer", "ops.augment", "train.main", "train.common",
                    "parallel.step", "parallel.prefetch", "data.procgen_dataset", "data.loader", "data.validate",
@@ -56,7 +56,8 @@ def test_port_imports_without_jax_or_flax():
                    "envs.gym3_stub", "envs.native_engine", "envs.procgen", "envs.rollout", "train.eval", "video",
                    "native", "data.arps", "data.cache_embeddings", "reward.serve", "_pickle_compat", "ops.flop_count",
                    "collect", "collect.recorder", "collect.fuse", "collect.downsize", "collect.reward_normalizer",
-                   "testing"):
+                   "testing", "collect.ppg", "collect.convert_ppg", "collect.train_ppg", "collect.eval_ppg",
+                   "collect.collect"):
         assert f"arp_tpu_torch.{module}" in names, module
 
 
@@ -363,6 +364,69 @@ def test_reference_checkpoint_and_collect_paths_read_nothing_of_the_jax_package(
                                    num_frames=2)
         fuse(os.path.join(tmp, "a", "data.hdf5"), os.path.join(tmp, "b", "data.hdf5"), os.path.join(tmp, "f.hdf5"))
         downsize_by_resize(os.path.join(tmp, "f.hdf5"), os.path.join(tmp, "s.hdf5"), out_size=16, device="cpu")
+        assert not touched, touched
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_ppg_and_resnet_paths_read_nothing_of_the_jax_package(tmp_path):
+    """With the JAX stack (and cloudpickle) blocked and the audit hook of the eval path's test: a PPG expert
+    trains on the native engine's venv and is written by the train CLI, evaluated from its pickle and
+    collects demos through the collect CLI, a reference ``.jd`` state dict is loaded, and a ResNet CLIP
+    engine labels frames; nothing under arp_tpu/ is opened, loaded or compiled."""
+    script = _SCRIPT.replace('"optax", "arp_tpu")', '"optax", "arp_tpu", "cloudpickle")') + textwrap.dedent(
+        f"""
+        import os, numpy as np, torch
+        JAX_DIR = os.path.join({REPO!r}, "arp_tpu") + os.sep
+        touched = []
+
+        def audit(event, args):
+            if event in ("open", "ctypes.dlopen", "subprocess.Popen", "os.listdir", "os.scandir"):
+                for a in args:
+                    items = a if isinstance(a, (list, tuple)) else [a]
+                    for x in items:
+                        if isinstance(x, (str, bytes, os.PathLike)):
+                            p = os.path.realpath(os.fsdecode(x))
+                            if p.startswith(JAX_DIR):
+                                touched.append((event, p))
+
+        sys.addaudithook(audit)
+        from arp_tpu_torch.collect import collect, eval_ppg, train_ppg
+        from arp_tpu_torch.collect.convert_ppg import load_reference_ppg_expert, torch_ppg_to_flax
+        from arp_tpu_torch.collect.ppg import PhasicValueModel
+        from arp_tpu_torch.models.clip import CLIP
+        from arp_tpu_torch.models.clip.tokenizer import Char97Tokenizer
+        from arp_tpu_torch.reward.engine import ClipRewardEngine
+        tmp = {str(tmp_path)!r}
+        ckpt = os.path.join(tmp, "ppg.pkl")
+        train_ppg.main(["--device=cpu", "--vec_env=native", "--num_envs=2", "--segment_length=4",
+                        "--total_iterations=1", "--n_pi=1", "--n_aux_epochs=1", "--episode_length=6",
+                        "--checkpoint_path=" + ckpt, "--logging.output_dir=" + os.path.join(tmp, "log")])
+        eval_ppg.main(["--device=cpu", "--checkpoint=" + ckpt, "--fake_env", "--num_episodes=1", "--num_envs=1"])
+        collect.main(["--device=cpu", "--fake_env=True", "--num_episodes=1", "--num_frames=2", "--episode_length=8",
+                      "--enable_filter=False", "--model_path=" + ckpt, "--out_dir=" + os.path.join(tmp, "demos")])
+        import re
+        sd = {{}}
+        for name, value in PhasicValueModel(frame_shape=(64, 64, 3)).state_dict().items():  # the reference's names
+            name = re.sub(r"_enc\\.stack(\\d)_block(\\d)_", r"_enc.cnn.stacks.\\1.blocks.\\2.", name)
+            name = re.sub(r"_enc\\.stack(\\d)_firstconv", r"_enc.cnn.stacks.\\1.firstconv", name)
+            name = name.replace("_enc.dense", "_enc.cnn.dense")
+            sd["vf_vhead" + name[len("vf_head"):] if name.startswith("vf_head") else name] = value
+        torch.save(sd, os.path.join(tmp, "sd.jd"))
+        model, _ = load_reference_ppg_expert(os.path.join(tmp, "sd.jd"))
+        assert model(torch.zeros(1, 64, 64, 3))[0].shape == (1, 15)
+        engine = ClipRewardEngine(model=CLIP(embed_dim=16, vocab_size=97, vision_num_layers=(1, 1, 1, 1),
+                                             vision_features=8, text_features=16, text_num_heads=4,
+                                             text_num_layers=1, image_size=64),
+                                  batch_size=2, device="cpu", tokenizer=Char97Tokenizer())
+        frames = np.random.default_rng(0).integers(0, 256, size=(3, 80, 80, 3), dtype=np.uint8)
+        assert np.isfinite(engine.text_rewards(frames, "coin")).all()
         assert not touched, touched
         bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not bad, bad
