@@ -19,8 +19,8 @@ models/policy/convert.py for how the leaves map.  As in the Flax layers:
     ``generator`` the caller passes down (Flax: the "dropout" and "drop_path"
     rngs); without one, torch's global generator.
 
-Not ported: ``PipelinedTransformer`` and its stack/unstack helpers (several
-devices) and ``MLP`` (the M3AE decoder head).
+:class:`MLP` is the M3AE decoders' output head.  Not ported:
+``PipelinedTransformer`` and its stack/unstack helpers (several devices).
 """
 
 from __future__ import annotations
@@ -303,3 +303,36 @@ class AdapterMLP(nn.Module):
         for k in range(self.num_layers):
             x = F.relu(dense(x, getattr(self, f"Dense_{k}")))
         return x
+
+
+class MLP(nn.Module):
+    """Residual MLP head of the M3AE decoders: an optional input LayerNorm, then ``depth`` times
+    Dense -> tanh-GELU -> LayerNorm (the residual added from the second on), then the output Dense.
+
+    The submodules carry Flax's auto names: ``LayerNorm_0`` is the input norm when there is one,
+    the k-th hidden layer's Dense and LayerNorm are ``Dense_k`` and ``LayerNorm_{k + input_norm}``,
+    and the output Dense is ``Dense_{depth}``.  LayerNorm eps 1e-6, Dense kernels xavier-uniform.
+    """
+
+    def __init__(self, in_dim: int, hidden_dim: int, output_dim: int, depth: int, input_norm: bool = True):
+        super().__init__()
+        self.depth, self.input_norm = depth, input_norm
+        if input_norm:
+            self.LayerNorm_0 = nn.LayerNorm(in_dim, eps=LN_EPS)
+        dims = [in_dim] + [hidden_dim] * depth
+        for k in range(depth + 1):
+            layer = nn.Linear(dims[k], hidden_dim if k < depth else output_dim)
+            nn.init.xavier_uniform_(layer.weight)
+            nn.init.zeros_(layer.bias)
+            self.add_module(f"Dense_{k}", layer)
+            if k < depth:
+                self.add_module(f"LayerNorm_{k + int(input_norm)}", nn.LayerNorm(hidden_dim, eps=LN_EPS))
+
+    def forward(self, x):
+        if self.input_norm:
+            x = layer_norm(x, self.LayerNorm_0, None)
+        for k in range(self.depth):
+            y = F.gelu(dense(x, getattr(self, f"Dense_{k}")), approximate="tanh")
+            y = layer_norm(y, getattr(self, f"LayerNorm_{k + int(self.input_norm)}"), None)
+            x = x + y if k > 0 else y
+        return dense(x, getattr(self, f"Dense_{self.depth}"))

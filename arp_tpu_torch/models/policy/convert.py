@@ -65,13 +65,20 @@ def flax_params_to_torch(params: Mapping, skip=lambda path: False) -> dict[str, 
     return state
 
 
-def flax_m3ae_to_torch(variables: Mapping) -> dict[str, torch.Tensor]:
+def _is_decoder_leaf(path) -> bool:
+    """A leaf of the autoencoder's decoder side (Flax creates them only when ``__call__`` is initialised)."""
+    return path[0].startswith("decoder") or path[0].endswith("mask_embedding")
+
+
+def flax_m3ae_to_torch(variables: Mapping, decoder: bool = False) -> dict[str, torch.Tensor]:
     """Flax M3AE / MAE variables -> the port module's ``load_state_dict`` input, float32.
 
-    The encoder side only: the decoder, its projections and the mask
-    embeddings are dropped, as the port's modules hold no decoder.
+    By default the encoder side only: the decoder, its projection, type embeddings and output
+    heads and the mask embeddings are dropped, for a module built as the policies build it.
+    ``decoder=True`` carries the whole autoencoder tree, for a module built with ``decoder=True``
+    (the output heads' ``Dense_i`` / ``LayerNorm_i`` by the rules above).
     """
-    return flax_params_to_torch(variables, skip=lambda path: path[0].startswith("decoder") or path[0].endswith("mask_embedding"))
+    return flax_params_to_torch(variables, skip=(lambda path: False) if decoder else _is_decoder_leaf)
 
 
 def flax_policy_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
@@ -81,40 +88,48 @@ def flax_policy_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
     ``pt_model`` and converts by the same rules; a CLIP tower keeps its q/k/v
     Dense kernels apart, an M3AE tower its fused ``qkv/kernel``.
     """
-    return flax_params_to_torch(params, skip=lambda path: path[0] == "pt_model" and (
-        path[1].startswith("decoder") or path[1].endswith("mask_embedding")))
+    return flax_params_to_torch(params, skip=lambda path: path[0] == "pt_model" and _is_decoder_leaf(path[1:]))
 
 
 # the Embed modules: the discrete actions' (the reference's policies act in Procgen's 15) and the towers' tokens
 _EMBEDDINGS = ("action_input", "text_embedding", "token_embedding")
 
 
+def flax_path(name: str, ndim: int) -> tuple:
+    """The Flax path of the port's parameter ``name`` of rank ``ndim``: a 2-D ``weight`` is a Dense
+    kernel, or an Embed table where its module is one of ``_EMBEDDINGS``; a 4-D one a Conv kernel; a
+    1-D one a LayerNorm scale.  A numeric name part joins the one before it (``resblocks.0``), as in
+    the Flax names."""
+    parts = []
+    for part in name.split("."):
+        if part.isdigit() and parts:
+            parts[-1] = f"{parts[-1]}.{part}"
+        else:
+            parts.append(part)
+    *mods, leaf = parts
+    if leaf == "weight":
+        if ndim == 2:
+            leaf = "embedding" if mods[-1] in _EMBEDDINGS else "kernel"
+        elif ndim == 4:
+            leaf = "kernel"
+        elif ndim == 1:
+            leaf = "scale"
+        else:
+            raise NotImplementedError(f"{name}: a {ndim}-D weight has no Flax counterpart here")
+    return (*mods, leaf)
+
+
 def torch_policy_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
-    """A policy state dict -> its ``params`` tree in the Flax layout, float32 numpy: the inverse of
-    :func:`flax_policy_to_torch`, leaf for leaf.  A 2-D ``weight`` is a Dense kernel (transposed), or
-    an Embed table where its module is one of ``_EMBEDDINGS``; a 4-D one a Conv kernel; a 1-D one a
-    LayerNorm scale.  A numeric name part joins the one before it (``resblocks.0``), as in the Flax
-    names."""
+    """A policy (or M3AE / MAE) state dict -> its ``params`` tree in the Flax layout, float32 numpy:
+    the inverse of :func:`flax_policy_to_torch` and :func:`flax_m3ae_to_torch`, leaf for leaf, the
+    names by :func:`flax_path` (Dense kernels transposed, Conv kernels OIHW -> HWIO)."""
     flat = {}
     for name, value in state.items():
-        parts = []
-        for part in name.split("."):
-            if part.isdigit() and parts:
-                parts[-1] = f"{parts[-1]}.{part}"
-            else:
-                parts.append(part)
-        *mods, leaf = parts
         arr = value.detach().to("cpu", torch.float32).numpy()
-        if leaf == "weight":
-            if arr.ndim == 2:
-                leaf, arr = ("embedding", arr) if mods[-1] in _EMBEDDINGS else ("kernel", arr.T)
-            elif arr.ndim == 4:
-                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
-            elif arr.ndim == 1:
-                leaf = "scale"
-            else:
-                raise NotImplementedError(f"{name}: a {arr.ndim}-D weight has no Flax counterpart here")
-        flat[(*mods, leaf)] = np.array(arr, order="C")
+        path = flax_path(name, arr.ndim)
+        if path[-1] == "kernel" and not name.endswith("kernel"):
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+        flat[path] = np.array(arr, order="C")
     return _unflatten(flat)
 
 

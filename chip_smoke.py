@@ -123,6 +123,16 @@ Phases, each printing one JSON line:
  19. clip_resnet — labeling the demo group with a ResNet-50 CLIP engine (random weights and BatchNorm
                statistics) in float32 and bf16 at batch 256: frames/s, reward MAE against a CPU engine on 8
                rows, one profiled pass; K1's launches (the text tower) and their shapes, held by k1_check.
+ 20. pretrain_m3ae — M3AE pretraining through train/pretrain_m3ae.py's functions at the JAX trainer's default
+               model (base: 768 / 12 / 12, the decoder 512 / 8 / 16 at head_dim 32, the 30,522-token text head),
+               batch 64 of 256 px uint8 frames with the tokenized instruction (FramesWithText over an in-memory
+               stand-in of the dataset), random weights from numpy seed 0 in the Flax layout through the bridge:
+               one step of 4 against the CPU's from one state, batch and masking draw (loss, gradients, params
+               after clip + AdamW), then ms a step (median of 5 after 2), frames/s, peak memory, K1's launches and
+               shapes (every attention through K1 forward, plain backward, with key padding: (64, 81, 12, 64) and
+               (64, 321, 16, 32), both held by k1_check), the plain backward's share, one profiled step; then
+               ResNet18 (models/resnet.py) in train mode at 64 x 64, batch 64, on the card against the CPU:
+               outputs and updated batch_stats.
 Each timed shape of k1, k2 and k3 also carries ``bound_ms``: the least time the
 card could take, the larger of the bytes the function must move over the memory
 rate and its operations over the peak rate of their type (PEAK below).
@@ -477,6 +487,17 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
     # the text tower at one instruction (slice_ft_text's shape) or a list of two
     cases["reward_serve_vit"] = (SERVE_BATCH, TOKENS, 12, 64, MaskSpec("none"), None)
     cases["reward_serve_text_b2"] = (2, 77, 8, 64, MaskSpec("causal"), pad_from_lengths(77, [12, 9]))
+    # M3AE pretraining at batch 64 (the JAX trainer's default model): the encoder over cls + 64 kept patches + 16
+    # kept text tokens, the decoder at head_dim 32 over cls + 256 patches + 64 text tokens; the keys padded where
+    # the (kept) text is, every text length from 0 up
+    b, kept_text = PRETRAIN_BATCH, PRETRAIN_TEXT // 4
+    enc_n, dec_n = 1 + PRETRAIN_KEPT_PATCHES + kept_text, 1 + PRETRAIN_PATCHES + PRETRAIN_TEXT
+    enc_pad = torch.zeros(b, enc_n, dtype=torch.bool, device="cuda")
+    enc_pad[:, enc_n - kept_text:] = pad_from_lengths(kept_text, [i % (kept_text + 1) for i in range(b)])
+    dec_pad = torch.zeros(b, dec_n, dtype=torch.bool, device="cuda")
+    dec_pad[:, dec_n - PRETRAIN_TEXT:] = pad_from_lengths(PRETRAIN_TEXT, [i % (PRETRAIN_TEXT + 1) for i in range(b)])
+    cases["pretrain_encoder"] = (b, enc_n, 12, 64, MaskSpec("none"), enc_pad)
+    cases["pretrain_decoder_d32"] = (b, dec_n, 16, 32, MaskSpec("none"), dec_pad)
 
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -501,7 +522,9 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
              "m3ae_goal_n513": (cases["m3ae_goal_n513"], (torch.bfloat16,)),
              "policy_d16_dt_n12": (cases["policy_d16_dt_n12"], K1_ATOL),
              "finetune_vit": (cases["finetune_vit"], (torch.float32,)),
-             "finetune_text": (cases["finetune_text"], (torch.float32,))}
+             "finetune_text": (cases["finetune_text"], (torch.float32,)),
+             "pretrain_encoder": (cases["pretrain_encoder"], (torch.float32,)),
+             "pretrain_decoder_d32": (cases["pretrain_decoder_d32"], (torch.float32,))}
     for label, ((b, n, h, d, spec, pad), dtypes) in timed.items():
         # what this mask lets through: the products and exponentials that must be made
         allowed = materialize_mask(spec, n, device="cuda")[None].expand(b, n, n)
@@ -918,37 +941,57 @@ def phase_slice_fast(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, l
     return totals
 
 
-def random_m3ae_variables(cfg: dict, patch_dim: int, vocab: int, seed: int) -> dict:
-    """Random M3AE encoder weights in arp_tpu's Flax variable layout, from a numpy seed.
+def random_m3ae_variables(cfg: dict, patch_dim: int, vocab: int, seed: int, decoder: bool = False) -> dict:
+    """Random M3AE weights in arp_tpu's Flax variable layout, from a numpy seed.
 
-    ``cfg`` holds emb_dim, depth, mlp_ratio.  Dense kernels ~ N(0, 1/fan_in), the fused
-    ``qkv/kernel`` (emb_dim, 3 emb_dim), LayerNorm scales ~ 1, small biases, text
-    embedding ~ N(0, 1) as Flax initializes it, cls token and type embeddings ~ N(0, 0.02).
+    ``cfg`` holds emb_dim, depth, mlp_ratio (and dec_emb_dim, dec_depth with ``decoder``).  Dense
+    kernels ~ N(0, 1/fan_in), the fused ``qkv/kernel`` (emb_dim, 3 emb_dim), LayerNorm scales ~ 1,
+    small biases, text embedding ~ N(0, 1) as Flax initializes it, cls token, mask and type
+    embeddings ~ N(0, 0.02).  The encoder side only, as the policies' towers hold it; with
+    ``decoder`` the whole autoencoder, as Flax's ``__call__`` init creates it (output heads of
+    depth 0: one ``Dense_0`` each).
     """
     rng = np.random.default_rng(seed)
     normal = lambda shape, std: (std * rng.standard_normal(shape, dtype=np.float32))  # noqa: E731
-    e, hidden = cfg["emb_dim"], cfg["emb_dim"] * cfg["mlp_ratio"]
 
     def dense(n_in, n_out):
         return {"kernel": normal((n_in, n_out), n_in ** -0.5), "bias": normal((n_out,), 0.02)}
 
-    def layer_norm():
+    def layer_norm(e):
         return {"scale": 1.0 + normal((e,), 0.02), "bias": normal((e,), 0.02)}
 
-    encoder = {"norm": layer_norm()}
-    for i in range(cfg["depth"]):
-        encoder[f"blocks_{i}"] = {
-            "norm1": layer_norm(), "attn": {"qkv": dense(e, 3 * e), "attn_out": dense(e, e)},
-            "norm2": layer_norm(), "mlp": {"fc1": dense(e, hidden), "fc2": dense(hidden, e)},
-        }
-    return {"params": {
+    def transformer(e, depth):
+        hidden = e * cfg["mlp_ratio"]
+        stack = {"norm": layer_norm(e)}
+        for i in range(depth):
+            stack[f"blocks_{i}"] = {
+                "norm1": layer_norm(e), "attn": {"qkv": dense(e, 3 * e), "attn_out": dense(e, e)},
+                "norm2": layer_norm(e), "mlp": {"fc1": dense(e, hidden), "fc2": dense(hidden, e)},
+            }
+        return stack
+
+    e = cfg["emb_dim"]
+    params = {
         "text_embedding": {"embedding": normal((vocab, e), 1.0)},
         "image_embedding": dense(patch_dim * patch_dim * 3, e),
         "encoder_image_type_embedding": normal((1, 1, e), 0.02),
         "encoder_text_type_embedding": normal((1, 1, e), 0.02),
         "cls_token": normal((1, 1, e), 0.02),
-        "encoder": encoder,
-    }}
+        "encoder": transformer(e, cfg["depth"]),
+    }
+    if decoder:
+        d = cfg["dec_emb_dim"]
+        params.update({
+            "decoder": transformer(d, cfg["dec_depth"]),
+            "decoder_input_projection": dense(e, d),
+            "decoder_image_type_embedding": normal((1, 1, d), 0.02),
+            "decoder_text_type_embedding": normal((1, 1, d), 0.02),
+            "image_mask_embedding": normal((1, 1, d), 0.02),
+            "text_mask_embedding": normal((1, 1, d), 0.02),
+            "decoder_image_output": {"Dense_0": dense(d, patch_dim * patch_dim * 3)},
+            "decoder_text_output": {"Dense_0": dense(d, vocab)},
+        })
+    return {"params": params}
 
 
 def cosine(a, b) -> float:
@@ -3181,6 +3224,244 @@ def phase_clip_resnet(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, 
     return totals, noted
 
 
+# M3AE pretraining: train/pretrain_m3ae.py's default model (MaskedMultimodalAutoencoder.get_default_config(), model_type
+# base: 768 wide, 12 layers, 12 heads; the decoder 512 wide, 8 layers, 16 heads: head_dim 32), batch 64 of 256 px
+# frames, patch 16, 64 text tokens, the BERT vocabulary; the JAX trainer's lr and weight decay.
+PRETRAIN_MODEL = None  # config updates of the model (None: the trainer's default)
+PRETRAIN_BATCH, PRETRAIN_IMAGE, PRETRAIN_PATCH, PRETRAIN_TEXT = 64, 256, 16, 64
+PRETRAIN_PATCHES = (PRETRAIN_IMAGE // PRETRAIN_PATCH) ** 2
+PRETRAIN_KEPT_PATCHES = PRETRAIN_PATCHES // 4  # image_mask_ratio 0.75 (text_mask_ratio too)
+PRETRAIN_LR, PRETRAIN_WD = 1.5e-4, 0.05
+PRETRAIN_STEPS_PER_EPOCH = 1000  # a nominal epoch: it only places the warmup's end (1 epoch of 10) for the schedule
+PRETRAIN_WARMUP, PRETRAIN_TIMED = 2, 5
+PRETRAIN_CPU_BATCH = 4  # the card's step against the CPU's
+# The card's step against the CPU's from one state, batch and masking draw: the train phase's bounds (loss 1e-5
+# relative; gradients 1e-4 of the largest entry; params after AdamW 2e-5, outside the entries whose CPU gradient is
+# within the gradient bound of 0, where Adam's first step moves by +-lr on the sign alone).
+PRETRAIN_LOSS_REL, PRETRAIN_GRAD_REL, PRETRAIN_PARAM_ATOL = 1e-5, 1e-4, 2e-5
+RESNET_BATCH, RESNET_SIZE, RESNET_OUTPUTS = 64, 64, 1000  # ResNet18's train-mode forward, card vs CPU
+RESNET_ATOL = 1e-4
+
+
+class PretrainFrames:
+    """An in-memory stand-in for ProcgenDataset as train/pretrain_m3ae.py's FramesWithText reads it: one stacked
+    frame a row (the machine with the card has no h5py)."""
+
+    env_name = "coinrun"
+
+    def __init__(self, frames: np.ndarray):
+        self.frames = frames
+
+    def __len__(self):
+        return len(self.frames)
+
+    def _read_frames(self, key: str, index: int) -> np.ndarray:
+        return self.frames[index][None]
+
+
+def random_flax_like(tree: dict, rng) -> dict:
+    """Random values for a Flax variable tree of these names and shapes: kernels ~ N(0, 1/fan_in), scales and
+    variances ~ 1 + |N(0, 0.1)|, biases and means ~ N(0, 0.1)."""
+    out = {}
+    for key, value in tree.items():
+        if isinstance(value, dict):
+            out[key] = random_flax_like(value, rng)
+        elif key == "kernel":
+            out[key] = rng.standard_normal(value.shape, dtype=np.float32) * np.float32(np.prod(value.shape[:-1]) ** -0.5)
+        elif key in ("scale", "var"):
+            out[key] = 1.0 + np.abs(0.1 * rng.standard_normal(value.shape, dtype=np.float32))
+        else:
+            out[key] = 0.1 * rng.standard_normal(value.shape, dtype=np.float32)
+    return out
+
+
+def compare_pretrain_step_with_cpu(build, loss_fn, batch: dict, batch_on, build_optimizer) -> dict:
+    """One pretraining step on the card and on the CPU from one state, batch and masking draw (both drawn from
+    one CPU generator): loss, gradients and params after clip + AdamW (a fresh state at the schedule's peak lr)."""
+    from arp_tpu_torch.parallel.step import TrainState
+
+    def one_step(device):
+        model = build(device)
+        state = TrainState.create(model, build_optimizer(model, lambda count: PRETRAIN_LR, PRETRAIN_WD))
+        t0 = time.perf_counter()
+        loss, aux = loss_fn(model, batch_on(batch, device), torch.Generator().manual_seed(SEED))
+        loss.backward()
+        grads = [p.grad.detach().clone() for _, p in state.params]
+        state.apply_gradients(grads)
+        sync()
+        return dict(loss=float(loss.detach()), text_acc=float(aux["text_acc"]), grads=[g.cpu() for g in grads],
+                    names=[n for n, _ in state.params], params=[p.detach().cpu() for _, p in state.params],
+                    seconds=time.perf_counter() - t0)
+
+    cpu, card = one_step("cpu"), one_step(DEVICE)
+    gmax = max(float(g.abs().max()) for g in cpu["grads"])
+    errs = [float((a - b).abs().max()) / gmax for a, b in zip(cpu["grads"], card["grads"])]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    settled = [g.abs() > PRETRAIN_GRAD_REL * gmax for g in cpu["grads"]]
+    param_err = max(float(((a - b).abs() * m).max()) for a, b, m in zip(cpu["params"], card["params"], settled))
+    out = dict(batch=len(batch["image"]), loss_cpu=cpu["loss"],
+               loss_rel_err=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]), text_acc_cpu=cpu["text_acc"],
+               text_acc_card=card["text_acc"], grad_max_abs=gmax, grad_err_rel_to_max=errs[worst],
+               worst_grad=cpu["names"][worst], param_max_abs_err=param_err,
+               param_entries=sum(p.numel() for p in cpu["params"]),
+               param_entries_left_out=sum(int((~m).sum()) for m in settled), lr=PRETRAIN_LR,
+               cpu_seconds=cpu["seconds"])
+    emit("pretrain_m3ae_vs_cpu", **out)
+    check(out["loss_rel_err"] <= PRETRAIN_LOSS_REL, f"pretrain step loss: card vs CPU {out['loss_rel_err']} relative")
+    check(out["grad_err_rel_to_max"] <= PRETRAIN_GRAD_REL,
+          f"pretrain step gradients: card vs CPU {out['grad_err_rel_to_max']} of the largest entry ({out['worst_grad']})")
+    check(param_err <= PRETRAIN_PARAM_ATOL, f"pretrain step params after AdamW: card vs CPU max abs {param_err}")
+    return out
+
+
+def resnet18_train_forward_vs_cpu() -> dict:
+    """ResNet18 (models/resnet.py) in train mode at 64 x 64, batch 64, random weights and batch statistics in the
+    Flax layout through the bridge: the outputs and the updated batch_stats on the card against the CPU."""
+    from arp_tpu_torch.models import resnet
+    from arp_tpu_torch.models.clip.convert import flax_to_torch, torch_to_flax
+
+    rng = np.random.default_rng(SEED)
+    state = flax_to_torch(random_flax_like(torch_to_flax(resnet.ResNet18(num_outputs=RESNET_OUTPUTS).state_dict()), rng))
+    x = torch.from_numpy(rng.standard_normal((RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3), dtype=np.float32))
+
+    def run(device):
+        model = resnet.ResNet18(num_outputs=RESNET_OUTPUTS)
+        model.load_state_dict(state)
+        model.to(device)
+        with torch.no_grad():
+            out = model(x.to(device), train=True)
+        sync()
+        # copies: on the CPU .cpu() is the buffer itself, which the timed forwards below update
+        return out.cpu(), {k: v.to("cpu", copy=True) for k, v in model.state_dict().items() if "running" in k}, model
+
+    out_cpu, stats_cpu, _ = run("cpu")
+    out_card, stats_card, model = run(DEVICE)
+    x_card = x.to(DEVICE)
+    with torch.no_grad():
+        ms = host_ms(lambda: model(x_card, train=True))
+    res = dict(batch=RESNET_BATCH, size=RESNET_SIZE, outputs=RESNET_OUTPUTS, ms_a_forward=ms,
+               out_max_abs_err=float((out_card - out_cpu).abs().max()),
+               batch_stats_max_abs_err=max(float((stats_card[k] - stats_cpu[k]).abs().max()) for k in stats_cpu),
+               batch_stats_moved=all(not torch.equal(stats_cpu[k], state[k]) for k in stats_cpu), atol=RESNET_ATOL)
+    emit("resnet18_train_vs_cpu", **res)
+    check(bool(torch.isfinite(out_card).all()), "resnet18: non-finite outputs on the card")
+    check(res["out_max_abs_err"] <= RESNET_ATOL, f"resnet18 train forward: card vs CPU {res['out_max_abs_err']}")
+    check(res["batch_stats_max_abs_err"] <= RESNET_ATOL,
+          f"resnet18 batch_stats: card vs CPU {res['batch_stats_max_abs_err']}")
+    check(res["batch_stats_moved"], "resnet18: train mode left some batch statistics as they were")
+    return res
+
+
+def phase_pretrain_m3ae(counters) -> tuple[dict, "LaunchShapes"]:
+    """M3AE pretraining on the card through train/pretrain_m3ae.py's functions (FramesWithText over an in-memory
+    batch, prepare, the loss, the decay mask and clip + AdamW, parallel/step.py's step): first one step of
+    PRETRAIN_CPU_BATCH against the CPU's, then ms a step (median of PRETRAIN_TIMED after PRETRAIN_WARMUP),
+    frames/s, peak memory, K1's launches and shapes (every attention of the step: K1 forward, plain backward), the
+    plain backward's share, one profiled step; then ResNet18's train-mode forward against the CPU's."""
+    from arp_tpu_torch.data.loader import DataLoader
+    from arp_tpu_torch.models import m3ae as m3ae_lib
+    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+    from arp_tpu_torch.ops.attention import reference_attention
+    from arp_tpu_torch.ops.masks import MaskSpec
+    from arp_tpu_torch.parallel.step import TrainState, make_train_step
+    from arp_tpu_torch.train import pretrain_m3ae as tpre
+    from arp_tpu_torch.train.common import flops_analysis, warmup_cosine_decay_schedule
+
+    t0 = time.perf_counter()
+    cfg = m3ae_lib.MaskedMultimodalAutoencoder.get_default_config(PRETRAIN_MODEL)
+    vocab, patch_dim = tpre.BERT_VOCAB_SIZE, PRETRAIN_PATCH * PRETRAIN_PATCH * 3
+    state = flax_m3ae_to_torch(random_m3ae_variables(cfg, PRETRAIN_PATCH, vocab, SEED, decoder=True), decoder=True)
+    frames = np.random.default_rng(SEED).integers(0, 256, size=(PRETRAIN_BATCH, PRETRAIN_IMAGE, PRETRAIN_IMAGE, 3),
+                                                  dtype=np.uint8)
+    loader = DataLoader(tpre.FramesWithText(PretrainFrames(frames), PRETRAIN_TEXT), PRETRAIN_BATCH, shuffle=False,
+                        num_workers=0)
+    batch = next(iter(loader))
+    loss_fn = tpre.make_loss_fn(PRETRAIN_IMAGE, PRETRAIN_PATCH)
+
+    def build(device):
+        model = m3ae_lib.MaskedMultimodalAutoencoder(cfg, text_vocab_size=vocab, image_output_dim=patch_dim,
+                                                     decoder=True)
+        model.load_state_dict(state)  # strict: the whole autoencoder tree through the bridge
+        return model.to(device)
+
+    emit("pretrain_m3ae_setup", config={k: cfg[k] for k in ("model_type", "emb_dim", "depth", "num_heads",
+                                                             "dec_emb_dim", "dec_depth", "dec_num_heads", "mlp_ratio")},
+         params=int(sum(t.numel() for t in state.values())), batch=PRETRAIN_BATCH, image=PRETRAIN_IMAGE,
+         patch=PRETRAIN_PATCH, text=PRETRAIN_TEXT, vocab=vocab,
+         instruction_tokens=int((batch["text_padding_mask"][0] == 0).sum()), seconds=time.perf_counter() - t0)
+    compared = compare_pretrain_step_with_cpu(build, loss_fn, {k: v[:PRETRAIN_CPU_BATCH] for k, v in batch.items()},
+                                              tpre.batch_on, tpre.build_optimizer)
+
+    model = build(DEVICE)
+    warmup = PRETRAIN_STEPS_PER_EPOCH  # warmup_epochs 1.0 of 10 epochs
+    schedule = warmup_cosine_decay_schedule(0.0, PRETRAIN_LR, warmup, 10 * PRETRAIN_STEPS_PER_EPOCH)
+    st = TrainState.create(model, tpre.build_optimizer(model, schedule, PRETRAIN_WD))
+    st.step = st.opt_state.count = warmup  # where the warmup ends: a step from 0 moves a parameter by lr(0) = 0
+    step = make_train_step(loss_fn, learning_rate_fn=schedule)
+    on_card = tpre.batch_on(batch, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    before = {n: p.detach().clone() for n, p in st.params}
+    for _ in range(PRETRAIN_WARMUP):
+        step(st, on_card, gen)
+    # the operations of a step's gradient computation (cost/flops: matmuls and attention products, K1's by formula)
+    flops = flops_analysis(step.gradients, st, on_card, gen)
+    check(flops > 0, "pretrain_m3ae: the step's operations could not be counted")
+    sync()
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    with LaunchShapes() as noted, K1Recorder() as rec:
+        for _ in range(PRETRAIN_TIMED):
+            t1 = time.perf_counter()
+            _, aux = step(st, on_card, gen)
+            sync()
+            times.append((time.perf_counter() - t1) * 1e3)
+    launches = launch_counts(counters)
+    peak = torch.cuda.max_memory_allocated() if DEVICE != "cpu" else None
+    ms = float(np.median(times))
+    loss_value = float(aux["loss"])
+    check(np.isfinite(loss_value), f"pretrain_m3ae: loss {loss_value}")
+    still = [n for n, p in st.params if torch.equal(before[n], p.detach())]
+    check(not still, f"pretrain_m3ae: trained parameters that did not move: {still[:4]}")
+    per_step = cfg.depth + cfg.dec_depth  # every block's attention: K1 forward; the backward is the plain one
+    check(launches["flash_attn_fwd"] == per_step * PRETRAIN_TIMED and launches["int8_gemm"] == 0,
+          f"pretrain_m3ae: launches {launches}, expected K1 {per_step} a step")
+    shapes = rec.counts()
+    check(sum(shapes.values()) == launches["flash_attn_fwd"] and all(s.endswith(" padded grad") for s in shapes),
+          f"pretrain_m3ae: a K1 launch without key padding or a gradient: {shapes}")
+    # the plain backward that FlashAttention runs, at the step's two shapes
+    bwd_ms, bwd_share = None, None
+    if DEVICE != "cpu":
+        bwd_ms = {}
+        enc_n, dec_n = 1 + PRETRAIN_KEPT_PATCHES + PRETRAIN_TEXT // 4, 1 + PRETRAIN_PATCHES + PRETRAIN_TEXT
+        for label, n, h, d in (("encoder", enc_n, cfg.num_heads, cfg.emb_dim // cfg.num_heads),
+                               ("decoder", dec_n, cfg.dec_num_heads, cfg.dec_emb_dim // cfg.dec_num_heads)):
+            q, k, v = (torch.randn(PRETRAIN_BATCH, n, h, d, device=DEVICE, requires_grad=True) for _ in range(3))
+            pad = torch.zeros(PRETRAIN_BATCH, n, device=DEVICE)
+            pad[:, n - 8:] = 1.0
+            g_out = torch.randn(PRETRAIN_BATCH, n, h, d, device=DEVICE)
+            bwd_ms[label] = cuda_ms(lambda: torch.autograd.grad(
+                reference_attention(q, k, v, MaskSpec("none"), pad), (q, k, v), g_out))
+        bwd_share = (cfg.depth * bwd_ms["encoder"] + cfg.dec_depth * bwd_ms["decoder"]) / ms
+    emit("pretrain_m3ae", batch=PRETRAIN_BATCH, ms=ms, step_ms=times, fps=PRETRAIN_BATCH / ms * 1e3,
+         flops_a_step=flops, tflops_per_s=flops / ms * 1e-9, f32_peak_share=flops / ms * 1e3 / PEAK["f32"],
+         peak_memory_bytes=peak, loss=loss_value, image_loss=float(aux["image_loss"]),
+         text_loss=float(aux["text_loss"]), text_acc=float(aux["text_acc"]), learning_rate=aux["learning_rate"],
+         launches=launches, k1_shapes=shapes, k1_keys=dict(noted.k1),
+         trained_params=sum(p.numel() for _, p in st.params), k1_plain_backward_ms_a_call=bwd_ms,
+         k1_plain_backward_share=bwd_share)
+    emit("profile", mode="pretrain_m3ae", frames=PRETRAIN_BATCH, **device_profile(lambda: step(st, on_card, gen)))
+    del model, st, step, on_card, before
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    resnet = resnet18_train_forward_vs_cpu()
+    emit("pretrain_m3ae_phase", seconds=time.perf_counter() - t0, launches=launches, card_vs_cpu=compared,
+         resnet18=resnet)
+    return launches, noted
+
+
 def kernel_entry(name: str, launches: int, max_abs_err: float, timing: dict, **extra) -> dict:
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -3261,13 +3542,16 @@ def main() -> int:
     path_launches["ppg"] = phase_ppg(counters)
     path_launches["clip_resnet"], resnet_shapes = phase_clip_resnet(counters, ClipRewardEngine, CLIP, CONFIGS,
                                                                     flax_to_torch, label_group)
+    # M3AE pretraining: the train step at the JAX trainer's default model, and ResNet18's train-mode forward
+    path_launches["pretrain_m3ae"], pretrain_shapes = phase_pretrain_m3ae(counters)
     for path, noted in (("rollout", shapes), ("reward_serve", serve_shapes), ("reference_checkpoint", ref_shapes),
-                        ("clip_resnet", resnet_shapes)):
+                        ("clip_resnet", resnet_shapes), ("pretrain_m3ae", pretrain_shapes)):
         unheld = sorted(set(noted.k1) - k1["checked"]) + sorted(set(noted.k2) - k2["checked"])
         check(not unheld, f"the {path} runs launched kernels at shapes that no check held against the plain "
               f"version: {unheld}")
     # the PPG path runs no kernel of the port (convolutions); the ResNet engine runs K1 in its text tower
-    path_kernels = {"finetune": ("flash_attn_fwd",), "ppg": (), "clip_resnet": ("flash_attn_fwd",)}  # others: K1, K2
+    path_kernels = {"finetune": ("flash_attn_fwd",), "ppg": (), "clip_resnet": ("flash_attn_fwd",),
+                    "pretrain_m3ae": ("flash_attn_fwd",)}  # others: K1, K2
     for path, counts in path_launches.items():
         for name in path_kernels.get(path, ("flash_attn_fwd", "int8_gemm")):
             check(counts[name] > 0, f"the {path} runs never launched {name}")
@@ -3289,7 +3573,8 @@ def main() -> int:
                                        **{path: c["flash_attn_fwd"] for path, c in path_launches.items()}},
                      policy_path=shapes(k1["timings"], ("m3ae_n257_bfloat16", "m3ae_n257_float32", "m3ae_goal_n513_bfloat16",
                                                         "policy_d16_dt_n12_float32", "policy_d16_dt_n12_bfloat16")),
-                     finetune_path=shapes(k1["timings"], ("finetune_vit_float32", "finetune_text_float32"))),
+                     finetune_path=shapes(k1["timings"], ("finetune_vit_float32", "finetune_text_float32")),
+                     pretrain_path=shapes(k1["timings"], ("pretrain_encoder_float32", "pretrain_decoder_d32_float32"))),
         kernel_entry("int8_gemm", launches["int8_gemm"], k2["max_abs_err"], fc,
                      bf16_matmul_ms=fc["bf16_matmul_ms"], max_bf16_ulps=k2["max_bf16_ulps"],
                      launches_by_path={"labeling": launches["int8_gemm"] - sum(c["int8_gemm"] for c in path_launches.values()),

@@ -691,8 +691,8 @@ def test_resnet_random_weights_have_the_flax_layout():
 
 
 def test_new_phases_and_their_path_kernels_are_pinned():
-    """main runs the ppg and clip_resnet phases, counts their launches from 0, holds the ResNet path's K1 shapes,
-    and lets the PPG path launch none of the port's kernels."""
+    """main runs the ppg, clip_resnet and pretrain_m3ae phases, counts their launches from 0, holds the ResNet and
+    pretraining paths' K1 shapes, lets the PPG path launch none of the port's kernels and the pretraining path K1."""
     import inspect
 
     src = inspect.getsource(chip_smoke.main)
@@ -700,6 +700,8 @@ def test_new_phases_and_their_path_kernels_are_pinned():
     assert 'path_launches["clip_resnet"], resnet_shapes = phase_clip_resnet(' in src
     assert '("clip_resnet", resnet_shapes)' in src
     assert '"ppg": ()' in src and '"clip_resnet": ("flash_attn_fwd",)' in src
+    assert 'path_launches["pretrain_m3ae"], pretrain_shapes = phase_pretrain_m3ae(counters)' in src
+    assert '("pretrain_m3ae", pretrain_shapes)' in src and '"pretrain_m3ae": ("flash_attn_fwd",)' in src
     assert chip_smoke.PPG_FLAGS == dict(vec_env="native", num_envs=64, segment_length=256, total_iterations=3, n_pi=2,
                                         arch="dual", reward_norm=True)
     assert chip_smoke.RESNET_CLIP == "resnet_50"
@@ -731,3 +733,85 @@ def test_impala_branches_replay_another_run_s_relus_and_pools(pool_padding):
     from arp_tpu_torch.models import impala
 
     assert impala.F is torch.nn.functional
+
+
+def test_random_m3ae_autoencoder_weights_have_the_flax_layout():
+    """With ``decoder`` the whole tree of Flax's ``__call__`` init, name for name and shape for shape, and a strict
+    load into the port's autoencoder."""
+    from arp_tpu.models import m3ae as jm3ae
+    from arp_tpu_torch.models import m3ae as tm3ae
+    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+
+    cfg = dict(model_type=None, dec_emb_dim=16, dec_depth=1, dec_num_heads=2, **TINY_M3AE)
+    model = jm3ae.MaskedMultimodalAutoencoder(config_updates=cfg, text_vocab_size=101)
+    flax_vars = jax.eval_shape(lambda: model.init({"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)},
+                                                  jnp.zeros((1, 4, 768)), jnp.zeros((1, 5), jnp.int32),
+                                                  jnp.zeros((1, 5)), deterministic=True))
+    ours = chip_smoke.random_m3ae_variables(dict(cfg, dec_emb_dim=16, dec_depth=1), 16, 101, seed=0, decoder=True)
+    assert _shapes(ours) == _shapes(flax_vars)
+    port = tm3ae.MaskedMultimodalAutoencoder(cfg, text_vocab_size=101, decoder=True)
+    port.load_state_dict(flax_m3ae_to_torch(ours, decoder=True))  # strict
+
+
+def test_pretrain_cases_are_shapes_k1_takes_at_the_trainer_s_default_model():
+    """The two K1 cases of the pretraining path: the encoder (64, 81, 12, 64) and the decoder at head_dim 32
+    (64, 321, 16, 32), both padded, from the JAX trainer's default model and flags."""
+    import inspect
+
+    from arp_tpu.models import m3ae as jm3ae
+    from arp_tpu_torch.ops.attention import _HEAD_DIMS
+    from arp_tpu_torch.train import pretrain_m3ae as tpre
+
+    jcfg = jm3ae.MaskedMultimodalAutoencoder.get_default_config()
+    flags = tpre.flag_defaults()
+    assert chip_smoke.PRETRAIN_MODEL is None and {k: flags["model"][k] for k in jcfg} == dict(jcfg)
+    assert (chip_smoke.PRETRAIN_BATCH, chip_smoke.PRETRAIN_IMAGE, chip_smoke.PRETRAIN_PATCH, chip_smoke.PRETRAIN_TEXT) == (
+        flags["batch_size"], flags["image_size"], flags["patch_size"], flags["text_length"])
+    assert (chip_smoke.PRETRAIN_LR, chip_smoke.PRETRAIN_WD) == (flags["lr"], flags["weight_decay"])
+    enc_n = 1 + int(chip_smoke.PRETRAIN_PATCHES * (1 - jcfg.image_mask_ratio)) + int(chip_smoke.PRETRAIN_TEXT * (1 - jcfg.text_mask_ratio))
+    dec_n = 1 + chip_smoke.PRETRAIN_PATCHES + chip_smoke.PRETRAIN_TEXT
+    assert (enc_n, jcfg.num_heads, jcfg.emb_dim // jcfg.num_heads) == (81, 12, 64)
+    assert (dec_n, jcfg.dec_num_heads, jcfg.dec_emb_dim // jcfg.dec_num_heads) == (321, 16, 32)
+    assert 32 in _HEAD_DIMS and 64 in _HEAD_DIMS
+    src = inspect.getsource(chip_smoke.phase_k1)
+    assert 'cases["pretrain_encoder"] = (b, enc_n, 12, 64, MaskSpec("none"), enc_pad)' in src
+    assert 'cases["pretrain_decoder_d32"] = (b, dec_n, 16, 32, MaskSpec("none"), dec_pad)' in src
+    assert '"pretrain_decoder_d32": (cases["pretrain_decoder_d32"], (torch.float32,))' in src
+
+
+def test_pretrain_m3ae_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """The pretrain_m3ae phase end to end on the CPU at a tiny autoencoder and batch: the bridge from the random
+    Flax-layout weights, FramesWithText over the in-memory frames, the card-vs-CPU step (the same device twice:
+    equal), the timed steps, ResNet18's train-mode forward against the CPU's (equal).  What only the card can show
+    (K1's launches, the profile, the plain backward's time) is left out."""
+    import json
+
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import quantization, vit_infer
+
+    for name, value in dict(DEVICE="cpu", PRETRAIN_MODEL=dict(model_type="custom", emb_dim=32, depth=2, num_heads=4,
+                                                              dec_emb_dim=16, dec_depth=1, dec_num_heads=2, mlp_ratio=2),
+                            PRETRAIN_BATCH=3, PRETRAIN_CPU_BATCH=2, PRETRAIN_IMAGE=32, PRETRAIN_PATCH=8,
+                            PRETRAIN_PATCHES=16, PRETRAIN_KEPT_PATCHES=4, PRETRAIN_TEXT=16, PRETRAIN_WARMUP=1,
+                            PRETRAIN_TIMED=2, RESNET_BATCH=2, RESNET_SIZE=32, RESNET_OUTPUTS=5).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    monkeypatch.setattr(chip_smoke, "device_profile", lambda run: {"rehearsal": True})
+    real_check = chip_smoke.check
+    monkeypatch.setattr(chip_smoke, "check", lambda ok, what: real_check(ok or "launch" in what, what))
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
+                "int8_matmul": quantization.int8_matmul}
+    launches, noted = chip_smoke.phase_pretrain_m3ae(counters)
+    assert launches == dict.fromkeys(counters, 0) and not noted.k1  # on the CPU attention never reaches K1's wrapper
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    by_phase = {line["phase"]: line for line in lines}
+    setup = by_phase["pretrain_m3ae_setup"]
+    assert setup["config"]["emb_dim"] == 32 and setup["vocab"] == 30522 and setup["instruction_tokens"] > 0
+    compared = by_phase["pretrain_m3ae_vs_cpu"]  # the same device twice: equal
+    assert compared["batch"] == 2 and compared["loss_rel_err"] == 0.0 and compared["grad_err_rel_to_max"] == 0.0
+    assert compared["param_max_abs_err"] == 0.0 and compared["param_entries"] > compared["param_entries_left_out"]
+    run = by_phase["pretrain_m3ae"]
+    assert run["batch"] == 3 and len(run["step_ms"]) == 2 and np.isfinite(run["loss"]) and run["learning_rate"] > 0
+    assert run["flops_a_step"] > 0 and run["f32_peak_share"] > 0
+    assert run["k1_plain_backward_share"] is None and run["peak_memory_bytes"] is None
+    resnet = by_phase["resnet18_train_vs_cpu"]
+    assert resnet["out_max_abs_err"] == 0.0 and resnet["batch_stats_max_abs_err"] == 0.0 and resnet["batch_stats_moved"]

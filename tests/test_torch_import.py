@@ -57,7 +57,7 @@ def test_port_imports_without_jax_or_flax():
                    "native", "data.arps", "data.cache_embeddings", "reward.serve", "_pickle_compat", "ops.flop_count",
                    "collect", "collect.recorder", "collect.fuse", "collect.downsize", "collect.reward_normalizer",
                    "testing", "collect.ppg", "collect.convert_ppg", "collect.train_ppg", "collect.eval_ppg",
-                   "collect.collect"):
+                   "collect.collect", "models.resnet", "train.pretrain_m3ae"):
         assert f"arp_tpu_torch.{module}" in names, module
 
 
@@ -427,6 +427,53 @@ def test_ppg_and_resnet_paths_read_nothing_of_the_jax_package(tmp_path):
                                   batch_size=2, device="cpu", tokenizer=Char97Tokenizer())
         frames = np.random.default_rng(0).integers(0, 256, size=(3, 80, 80, 3), dtype=np.uint8)
         assert np.isfinite(engine.text_rewards(frames, "coin")).all()
+        assert not touched, touched
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_pretrain_and_resnet_paths_read_nothing_of_the_jax_package(tmp_path):
+    """With the JAX stack blocked and the audit hook of the eval path's test: the M3AE pretraining CLI trains a
+    tiny autoencoder on a synthetic demo file and writes its checkpoint, and a ResNet18 runs a train-mode
+    forward; nothing under arp_tpu/ is opened, loaded or compiled."""
+    script = _SCRIPT + textwrap.dedent(
+        f"""
+        import os, numpy as np, torch
+        JAX_DIR = os.path.join({REPO!r}, "arp_tpu") + os.sep
+        touched = []
+
+        def audit(event, args):
+            if event in ("open", "ctypes.dlopen", "subprocess.Popen", "os.listdir", "os.scandir"):
+                for a in args:
+                    items = a if isinstance(a, (list, tuple)) else [a]
+                    for x in items:
+                        if isinstance(x, (str, bytes, os.PathLike)):
+                            p = os.path.realpath(os.fsdecode(x))
+                            if p.startswith(JAX_DIR):
+                                touched.append((event, p))
+
+        sys.addaudithook(audit)
+        from tests.test_trainer_e2e import DATASET, make_labeled_dataset
+        from arp_tpu_torch.models.resnet import ResNet18
+        from arp_tpu_torch.train import pretrain_m3ae
+        tmp = {str(tmp_path)!r}
+        make_labeled_dataset(os.path.join(tmp, "demos"), n=8)
+        pretrain_m3ae.main(["--device=cpu", "--epochs=1", "--batch_size=8", "--patch_size=8", "--image_size=32",
+                            "--text_length=16", "--dataset_name=" + DATASET, "--model.model_type=custom",
+                            "--model.emb_dim=16", "--model.dec_emb_dim=8", "--model.depth=1", "--model.dec_depth=1",
+                            "--model.num_heads=2", "--model.dec_num_heads=2", "--model.mlp_ratio=2",
+                            "--data.path=" + os.path.join(tmp, "demos"), "--data.image_size=32",
+                            "--data.num_frames=8", "--data.window_size=4",
+                            "--checkpoint_dir=" + os.path.join(tmp, "ckpt"),
+                            "--logging.output_dir=" + os.path.join(tmp, "log")])
+        assert os.listdir(os.path.join(tmp, "ckpt")) == ["step_1.pt"]
+        assert ResNet18(num_outputs=3, num_filters=4)(torch.zeros(2, 32, 32, 3), train=True).shape == (2, 3)
         assert not touched, touched
         bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not bad, bad
