@@ -18,6 +18,13 @@ renamed); the newest ``max_to_keep`` steps are kept.  The best model is
 ``best.pt`` (state and score in one file) with its score in ``best.json``.
 Saves are synchronous, so :meth:`CheckpointManager.wait` has nothing to wait for.
 
+Over several processes (parallel/mesh.py) every rank calls :meth:`CheckpointManager.save`
+and ``save_best``: the state is gathered whole (a sharded tensor's gather is a
+collective), rank 0 alone writes, and the ranks meet at a barrier.  The file is
+the full state, whatever the world size or the sharding: a run saved at 2
+ranks under fsdp resumes at 1 rank exactly, and the other way round
+(:meth:`CheckpointManager.restore` cuts each tensor back to the state's layout).
+
 The reference's own format, a pickle of ``{"step", "epoch", "variant",
 "state"}`` with a flax TrainState, is read by :func:`load_pickle` /
 :func:`load_reference_checkpoint` and written by :func:`save_pickle` /
@@ -36,6 +43,8 @@ import numpy as np
 import torch
 
 from . import _pickle_compat
+from .parallel.distributed import barrier, process_index
+from .parallel.mesh import gather_to_host
 
 _STEP_FILE = re.compile(r"step_(\d+)\.pt$")
 
@@ -57,14 +66,6 @@ def latest_step(directory: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def _host(tree):
-    if isinstance(tree, dict):
-        return {k: _host(v) for k, v in tree.items()}
-    if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu()
-    return tree
-
-
 def _atomic_save(obj, path: str) -> str:
     torch.save(obj, path + ".tmp")
     os.replace(path + ".tmp", path)
@@ -73,7 +74,7 @@ def _atomic_save(obj, path: str) -> str:
 
 def policy_payload(step: int, model) -> dict:
     """What every ``step_<n>.pt`` holds: the step and the policy's trained state dict."""
-    return {"step": int(step), "state": _host(model.trained_state_dict())}
+    return {"step": int(step), "state": gather_to_host(model.trained_state_dict())}
 
 
 def state_payload(state, metadata: Optional[dict] = None) -> dict:
@@ -83,8 +84,8 @@ def state_payload(state, metadata: Optional[dict] = None) -> dict:
     opt = state.opt_state
     return dict(
         policy_payload(state.step, state.model),
-        optimizer={"count": int(opt.count), "mu": dict(zip(names, _host(list(opt.mu)))),
-                   "nu": dict(zip(names, _host(list(opt.nu))))},
+        optimizer={"count": int(opt.count), "mu": dict(zip(names, gather_to_host(list(opt.mu)))),
+                   "nu": dict(zip(names, gather_to_host(list(opt.nu))))},
         metadata=dict(metadata or {}),
     )
 
@@ -139,39 +140,50 @@ class CheckpointManager:
         return latest_step(self.directory)
 
     def save(self, step: int, state, metadata: Optional[dict] = None, wait: bool = False):
-        """Write ``state`` as ``step_<step>.pt`` (complete before it appears); keep the newest files."""
+        """Write ``state`` as ``step_<step>.pt`` (complete before it appears); keep the newest files.
+        Over several processes every rank calls it and rank 0 writes."""
         del wait  # synchronous
         payload = state_payload(state, metadata)
         payload["best_score"] = float(self.best_score)
-        _atomic_save(payload, step_path(self.directory, step))
-        for old in self.steps()[:-self.max_to_keep]:
-            os.remove(step_path(self.directory, old))
+        if process_index() == 0:
+            _atomic_save(payload, step_path(self.directory, step))
+            for old in self.steps()[:-self.max_to_keep]:
+                os.remove(step_path(self.directory, old))
+        barrier()
 
     def save_best(self, step: int, state, score: float, metadata: Optional[dict] = None) -> bool:
-        """Keep ``state`` as the best model when ``score`` beats the best so far."""
+        """Keep ``state`` as the best model when ``score`` beats the best so far (every rank calls
+        it with the same score; rank 0 writes)."""
         if score <= self.best_score:
             return False
         self.best_score = float(score)
         payload = state_payload(state, dict(metadata or {}, step=step, score=float(score)))
         payload["score"] = float(score)
-        _atomic_save(payload, os.path.join(self.directory, "best.pt"))
-        tmp = os.path.join(self.directory, f".best.json.tmp.{os.getpid()}")
-        with open(tmp, "w") as f:
-            json.dump({"step": step, "score": float(score)}, f)
-        os.replace(tmp, os.path.join(self.directory, "best.json"))
+        if process_index() == 0:
+            _atomic_save(payload, os.path.join(self.directory, "best.pt"))
+            tmp = os.path.join(self.directory, f".best.json.tmp.{os.getpid()}")
+            with open(tmp, "w") as f:
+                json.dump({"step": step, "score": float(score)}, f)
+            os.replace(tmp, os.path.join(self.directory, "best.json"))
+        barrier()
         return True
 
     def restore(self, state, step: Optional[int] = None):
-        """Load a saved step into ``state`` (model, optimizer, step) in place; returns (state, metadata)."""
+        """Load a saved step into ``state`` (model, optimizer, step) in place, each tensor laid out as
+        the state's (sharded or not); returns (state, metadata)."""
+        from .parallel.mesh import distribute_like, load_full_state
+        from .parallel.step import unwrap
+
         saved = _load_step(self.directory, step)
-        state.model.load_trained_state_dict(saved["state"])
+        load_full_state(unwrap(state.model), saved["state"])
         opt = saved["optimizer"]
         names = [n for n, _ in state.params]
         if sorted(names) != sorted(opt["mu"]):
             raise RuntimeError("the checkpoint's optimizer state does not fit the model's trained parameters")
-        dev = [p.device for _, p in state.params]
-        state.opt_state = type(state.opt_state)(int(opt["count"]), [opt["mu"][n].to(d) for n, d in zip(names, dev)],
-                                                [opt["nu"][n].to(d) for n, d in zip(names, dev)])
+        params = [p for _, p in state.params]
+        state.opt_state = type(state.opt_state)(int(opt["count"]),
+                                                [distribute_like(opt["mu"][n], p) for n, p in zip(names, params)],
+                                                [distribute_like(opt["nu"][n], p) for n, p in zip(names, params)])
         state.step = int(saved["step"])
         meta = dict(saved.get("metadata", {}), step=state.step)
         return state, meta
@@ -254,6 +266,7 @@ def save_reference_checkpoint(path: str, params, *, step: int = 0, epoch: int = 
     """
     from .models.policy.convert import export_reference_policy_params, torch_policy_to_flax
 
+    params = gather_to_host(params)  # a sharded state whole (every rank calls it then)
     exported = export_reference_policy_params(torch_policy_to_flax(params), ensemble_mode=ensemble_mode)
     state = _pickle_compat.ReferenceTrainState(step=0, apply_fn=None, params=exported, tx=None, opt_state=None)
     save_pickle({"step": int(step), "epoch": int(epoch), "variant": dict(variant or {}), "state": state}, path)

@@ -1,4 +1,4 @@
-"""Phasic Policy Gradient on one GPU: expert training for demo collection (port of arp_tpu/collect/ppg.py).
+"""Phasic Policy Gradient on GPUs: expert training for demo collection (port of arp_tpu/collect/ppg.py).
 
 The reference's torch + MPI PPG stack (phasic_policy_gradient/{ppg,ppo,roller}.py), as the JAX package
 re-designed it:
@@ -37,7 +37,15 @@ What differs from the JAX package, on purpose:
     JAX, the envs and the aux phase's segment buffer are not saved: a resumed run re-warms its
     envs.
 
-Not ported: ``mesh`` (several devices, ROADMAP Queue 1, item 12) raises ``NotImplementedError``.
+Several processes (``mesh``, parallel/mesh.py; JAX's multi-process contract): each rank rolls its own
+``num_envs`` envs with ``env_seed = seed + rank * 100003``, the params start identical (rank 0's are
+broadcast), reward normalization and advantage whitening stay per rank, and every minibatch's
+gradients are averaged over the ranks before the Adam step, so the update sees every rank's data as
+JAX's global batch does; the records' values are averaged over the ranks too.  The average is one
+all-reduce of the flat gradients, not a ``DistributedDataParallel`` wrapper: the phases' losses reach
+different parameters from the same forward's outputs (the pi phase leaves the value head without a
+gradient), which DDP's search for unused parameters, run from the outputs, cannot see.
+Checkpointing under several processes raises, as JAX asserts.
 """
 
 from __future__ import annotations
@@ -289,8 +297,11 @@ def make_adam(config: PPGConfig, n_params: int) -> AdamW:
     return AdamW(lambda count: config.lr, 0.0, [False] * n_params, None)
 
 
-def make_ppg_steps(model: PhasicValueModel, config: PPGConfig):
+def make_ppg_steps(model: PhasicValueModel, config: PPGConfig, sync: Optional[Callable] = None):
     """(ppo_step, aux_step, act, logits_of, pi_step, vf_step, init_phase_opts), as the JAX package's.
+
+    ``sync(grads)``: every minibatch's gradient list passes through it before the update (the
+    average over the ranks, under a mesh).
 
     ``ppo_step(state, batch)`` and ``aux_step(state, batch)`` take a ``parallel/step.py::TrainState``
     over ``model`` (its ``tx`` :func:`make_adam`) and return ``(state, metrics)``;
@@ -344,6 +355,8 @@ def make_ppg_steps(model: PhasicValueModel, config: PPGConfig):
         loss, aux = loss_fn(batch)
         grads = torch.autograd.grad(loss, tensors, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(tensors, grads)]
+        if sync is not None:
+            grads = sync(grads)
         return grads, {k: v.detach() for k, v in dict(aux, loss=loss).items()}
 
     def ppo_step(state, batch):
@@ -387,6 +400,16 @@ def act_generator(seed: int, iteration: int, device) -> torch.Generator:
     """The actions' random stream of an iteration: a function of (seed, iteration) alone, so a resumed
     run draws as an uninterrupted one."""
     return torch.Generator(device=device).manual_seed(seed * 1_000_003 + iteration + 1)
+
+
+def average_over_ranks(tensors: list) -> list:
+    """The tensors averaged over every rank: one all-reduce of their concatenation."""
+    import torch.distributed as dist
+
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat)
+    flat = flat / dist.get_world_size()
+    return [piece.view_as(t) for piece, t in zip(flat.split([t.numel() for t in tensors]), tensors)]
 
 
 def _host_opt(opt: AdamWState, names: list) -> dict:
@@ -491,14 +514,22 @@ def learn(
     ``venv_fn(seed) -> gym3 venv`` (``num == config.num_envs``): collect with :class:`Gym3Roller`
     over one vectorized venv instead of :class:`Roller` over ``env_fn()`` envs.  ``checkpoint_dir`` +
     ``save_every``: a ``step_<it>.pt`` every ``save_every`` iterations and at the last, and an
-    automatic resume from the newest.
+    automatic resume from the newest.  ``mesh``: the data mesh of several processes (the module's
+    docstring); it needs the process group it was built in.
     """
-    if mesh is not None:
-        raise NotImplementedError("learn(mesh): several devices are not ported yet (ROADMAP Queue 1, item 12)")
+    import torch.distributed as dist
+
     from ..checkpoint import CheckpointManager
 
+    if mesh is not None and not dist.is_initialized():
+        raise RuntimeError("learn(mesh): the mesh needs the process group it was built in "
+                           "(parallel/distributed.py::initialize)")
+    multiproc = mesh is not None and dist.get_world_size() > 1
+    # per-rank env exploration: the ENV seeds are offset by rank; the params keep the shared seed
+    env_seed = seed + (dist.get_rank() * 100003 if multiproc else 0)
+    assert not (multiproc and checkpoint_dir), (
+        "multi-process PPG checkpointing is not coordinated yet — run saves from a single-process job")
     device = resolve_device(device)
-    env_seed = seed
     venv = None
     if venv_fn is not None:
         venv = venv_fn(env_seed)
@@ -512,10 +543,15 @@ def learn(
         frame_shape = np.asarray(probe["image"][key]).shape
     model = PhasicValueModel(num_actions=15, arch=config.arch, frame_shape=tuple(frame_shape),
                              generator=torch.Generator().manual_seed(seed)).to(device)
+    if multiproc:
+        with torch.no_grad():
+            for p in model.parameters():
+                dist.broadcast(p, src=0)
     state = TrainState.create(model, make_adam(config, len(list(model.parameters()))))
     names = [n for n, _ in state.params]
 
-    ppo_step, aux_step, act, logits_of, pi_step, vf_step, init_phase_opts = make_ppg_steps(model, config)
+    ppo_step, aux_step, act, logits_of, pi_step, vf_step, init_phase_opts = make_ppg_steps(
+        model, config, sync=average_over_ranks if multiproc else None)
     separate_phases = config.ppo_epochs != config.vf_epochs
     phase_opts = init_phase_opts(state.params) if separate_phases else None
 
@@ -584,6 +620,9 @@ def learn(
 
         ep_ret = float(np.mean(roller.ep_returns[-20:])) if roller.ep_returns else 0.0
         record = {k: float(np.mean(torch.stack(v).float().cpu().numpy())) for k, v in acc.items()}
+        if multiproc:  # the global batch's values, as JAX's records hold
+            mean = average_over_ranks([torch.tensor(list(record.values()), dtype=torch.float64, device=device)])[0]
+            record = dict(zip(record, mean.tolist()))
         record.update(iteration=it, mean_episode_return=ep_ret)
         history.append(record)
         if logger is not None:

@@ -1,14 +1,17 @@
 """PPG expert training CLI: ``python -m arp_tpu_torch.collect.train_ppg`` (port of arp_tpu/collect/train_ppg.py).
 
-The reference's ``python -m phasic_policy_gradient.train`` on one GPU.  The flags are the JAX CLI's, under
-argparse, parsed as ``train/main.py`` parses its own (``--fake_env=True``, ``--logging.output_dir=...``,
-``--x=v`` or ``--x v``), plus ``--device`` (cuda unless cpu is asked for).  ``--vec_env`` "" steps
+The reference's ``python -m phasic_policy_gradient.train`` on one GPU, or on N with
+``torchrun --nproc_per_node=N -m arp_tpu_torch.collect.train_ppg --mesh_dp=N``: ``--mesh_dp`` above 1
+is the world of torchrun's processes (JAX's is that many local devices), each rank rolling its own
+``--num_envs`` envs (collect/ppg.py::learn); rank 0 logs and writes ``--checkpoint_path``.  The flags
+are the JAX CLI's, under argparse, parsed as ``train/main.py`` parses its own (``--fake_env=True``,
+``--logging.output_dir=...``, ``--x=v`` or ``--x v``), plus ``--device`` (cuda unless cpu is asked for).  ``--vec_env`` "" steps
 per-env wrappers (``envs/fake.py`` under ``--fake_env``, else ``envs/procgen.py``); "python" and
 "native" one vectorized gym3 venv (``envs/gym3_stub.py``, the C++ ``envs/native_engine.py``).
 ``--checkpoint_path`` writes ``{"params": <the Flax-layout tree, numpy>, "history": [...]}`` with
 ``checkpoint.py::save_pickle``, which the JAX package's ``eval_ppg`` and ``collect`` read, as the
-port's do.  ``--checkpoint_dir`` / ``--save_every``: ``collect/ppg.py::learn``'s checkpoints and resume.
-Not ported: ``--mesh_dp`` above 1 (ROADMAP Queue 1, item 12) raises ``NotImplementedError``.
+port's do.  ``--checkpoint_dir`` / ``--save_every``: ``collect/ppg.py::learn``'s checkpoints and resume
+(one process only, as in JAX).
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from ..checkpoint import save_pickle
 from ..config import Config, flag_leaves, parse_flag_tree
 from ..device import resolve_device
 from ..logging_utils import MetricsLogger
+from ..parallel.distributed import initialize
+from ..parallel.mesh import MeshConfig, create_mesh
 from .convert_ppg import torch_ppg_to_flax
 from .ppg import PPGConfig, learn
 
@@ -34,7 +39,7 @@ def flag_defaults() -> dict:
 
 
 def parse_flags(argv=None) -> Config:
-    return parse_flag_tree(flag_defaults(), argv, "Train a PPG expert (PyTorch, one GPU).")
+    return parse_flag_tree(flag_defaults(), argv, "Train a PPG expert (PyTorch, one GPU or several).")
 
 
 def ppg_config(flags) -> PPGConfig:
@@ -75,23 +80,22 @@ def env_fns(flags):
                             image_resolution="low")), None
 
 
-def check_ported(flags) -> None:
-    if flags.mesh_dp > 1:
-        raise NotImplementedError(f"--mesh_dp={flags.mesh_dp}: several devices are not ported yet "
-                                  "(ROADMAP Queue 1, item 12)")
-
-
 def main(argv=None):
     flags = parse_flags(argv)
-    check_ported(flags)
+    process_index = 0
+    mesh = None
+    if flags.mesh_dp > 1:
+        process_index, _ = initialize(device=flags.device)
+        mesh = create_mesh(MeshConfig(dp=flags.mesh_dp), flags.device)
     device = resolve_device(flags.device)
-    logger = MetricsLogger(config=flags.logging, variant=dict(flag_leaves(flags)))
+    logger = MetricsLogger(config=flags.logging, variant=dict(flag_leaves(flags)), enable=process_index == 0)
     env_fn, venv_fn = env_fns(flags)
     state, history = learn(
         env_fn, ppg_config(flags), total_iterations=flags.total_iterations, seed=flags.seed, logger=logger,
-        checkpoint_dir=flags.checkpoint_dir or None, save_every=flags.save_every, venv_fn=venv_fn, device=device,
+        mesh=mesh, checkpoint_dir=flags.checkpoint_dir or None, save_every=flags.save_every, venv_fn=venv_fn,
+        device=device,
     )
-    if flags.checkpoint_path:
+    if flags.checkpoint_path and process_index == 0:
         save_pickle({"params": torch_ppg_to_flax(state.model.state_dict()), "history": history},
                     flags.checkpoint_path)
     logger.close()

@@ -52,12 +52,12 @@ def main(argv=None):
                    help="w8a8 attention on the int8 fast path (needs --fast_int8). Unset = the engine's "
                         "default (True under --fast_int8, as in arp_tpu)")
     p.add_argument("--mesh_dp", type=int, default=0,
-                   help="data-parallel encoding over several devices: not ported (ROADMAP Queue 1, item 12)")
+                   help="data-parallel encoding over several devices: not ported (ROADMAP Queue 1, item 12b)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
     if args.mesh_dp != 0:
         raise NotImplementedError("--mesh_dp (encoding over several devices) is not ported yet (ROADMAP Queue 1, "
-                                  "item 12)")
+                                  "item 12b)")
 
     from ..reward.engine import ClipRewardEngine
 

@@ -30,6 +30,12 @@ Kept from the reference, each pinned by a test:
 Random draws: ``draw_preprocess`` takes the training augmentation's parameters
 (one color-jitter draw shared by the whole batch, applied with probability
 0.75) from the caller's ``torch.Generator``; ``preprocess`` applies them.
+
+Several processes: the VIP loss's ``log(ε + E[exp(...)])`` is not a mean of
+per-example terms, so a mean of the ranks' losses would be another loss.  With
+``batch_group`` set (finetune/train.py under ``--mesh_dp``), the inner mean is
+the global batch's, through an autograd-aware all-reduce of the rows' sum: the
+average of the ranks' gradients is then the global batch's gradient.
 """
 
 from __future__ import annotations
@@ -84,6 +90,8 @@ class ClipMultiscaleAdapter(nn.Module):
         self.image_residual_weight = nn.Parameter(torch.tensor(4.0))
         self.text_residual_weight = nn.Parameter(torch.tensor(4.0))
         self.lambda_id = nn.Parameter(torch.tensor(math.log(1 / 0.07), dtype=torch.float32))
+        # the process group whose ranks hold the other shares of the batch (None: the batch is whole)
+        self.batch_group = None
 
     @property
     def device(self) -> torch.device:
@@ -161,6 +169,17 @@ class ClipMultiscaleAdapter(nn.Module):
 
     # -- losses --------------------------------------------------------------------------------------
 
+    def batch_mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the global batch: over this rank's rows, or with ``batch_group``
+        over every rank's equal share (an all-reduce the gradient flows back through)."""
+        if self.batch_group is None:
+            return torch.mean(x)
+        import torch.distributed as dist
+        from torch.distributed.nn.functional import all_reduce
+
+        total = all_reduce(torch.sum(x), group=self.batch_group)
+        return total / (x.numel() * dist.get_world_size(self.batch_group))
+
     @staticmethod
     def tcn_distance(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         return torch.sum((x1 - x2) ** 2, dim=-1)
@@ -207,7 +226,7 @@ class ClipMultiscaleAdapter(nn.Module):
 
             r = on(batch["r"]).reshape(-1).float() - 1.0
             vip_loss = (1 - self.gamma) * (-torch.mean(score_0)) + torch.log(
-                1e-8 + torch.mean(torch.exp(-(r + self.gamma * score_2 - score_1))))
+                1e-8 + self.batch_mean(torch.exp(-(r + self.gamma * score_2 - score_1))))
 
             concat = torch.cat([torch.cat([f1, cond], -1), torch.cat([f2, cond], -1)], dim=-1)
             action_logits = self.inverse_layer(concat)

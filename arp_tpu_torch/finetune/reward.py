@@ -15,7 +15,7 @@ batching, host stage and reward functions are its own.  As in the JAX engine:
   * features come back L2-normalized whatever ``normalize`` asks;
   * text rewards are ``exp(CLIP logit_scale) * cos`` of the adapter features.
 
-``mesh`` raises (several devices are ROADMAP Queue 1, item 12).
+``mesh`` raises (a local-device mesh is ROADMAP Queue 1, item 12b).
 """
 
 from __future__ import annotations
@@ -81,7 +81,7 @@ class ClipFtRewardEngine(ClipRewardEngine):
                  clip_config: Optional[dict] = None, model: Optional[CLIP] = None,
                  device: Union[str, torch.device] = "cuda", mesh=None):
         if mesh is not None:
-            raise NotImplementedError("ClipFtRewardEngine(mesh) is not ported yet (ROADMAP Queue 1, item 12)")
+            raise NotImplementedError("ClipFtRewardEngine(mesh) is not ported yet (ROADMAP Queue 1, item 12b)")
         cfg = clip_config or CONFIGS[clip_model_name]
         if model is None:
             model = CLIP(**cfg, image_size=image_size)

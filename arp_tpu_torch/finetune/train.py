@@ -1,4 +1,4 @@
-"""CLIP adapter fine-tuning on one GPU — ``python -m arp_tpu_torch.finetune.train`` (port of arp_tpu/finetune/train.py).
+"""CLIP adapter fine-tuning on GPUs — ``python -m arp_tpu_torch.finetune.train`` (port of arp_tpu/finetune/train.py).
 
 The frozen CLIP (random weights from the seed with ``--clip_checkpoint
 random``, a local OpenAI checkpoint otherwise: ``load_model_vars``) and the
@@ -14,7 +14,16 @@ drawn on the card from one ``torch.Generator`` seeded with ``--seed``.
 ``ARP_TPU_TINY_CLIP=1`` registers the ``tiny_test`` CLIP config for tests, as
 the JAX CLI does, with a vocabulary that holds the tokenizer's ids (the JAX
 config's 97 does not: Flax's embedding turns an id beyond it into NaN, torch's
-raises).  ``--mesh_dp`` above 1 raises (ROADMAP Queue 1, item 12).
+raises).
+
+Several GPUs: ``torchrun --nproc_per_node=N -m arp_tpu_torch.finetune.train
+--mesh_dp=N``.  Every rank builds the same loader from the same seed and takes
+its rows of each batch (parallel/mesh.py::batch_share), the adapter wrapped in
+``DistributedDataParallel``; the VIP loss's inner mean is the global batch's
+(adapter_model.py::batch_mean), the batch-shared color jitter is one draw from
+the shared generator (the adapter draws nothing per row: it has no dropout), the
+validation metrics are averaged over the ranks, and rank 0 logs and writes
+``best.pt`` and ``step_<n>.pt``.
 """
 
 from __future__ import annotations
@@ -33,7 +42,9 @@ from ..device import resolve_device
 from ..logging_utils import MetricsLogger
 from ..models.clip.convert import flax_to_torch
 from ..models.clip.model import CLIP, CONFIGS, load_model_vars
-from ..parallel.step import TrainState, make_eval_step, make_train_step, trainable_parameters
+from ..parallel.distributed import initialize
+from ..parallel.mesh import MeshConfig, batch_share, create_mesh, data_share
+from ..parallel.step import TrainState, make_eval_step, make_train_step, shard_train_state, trainable_parameters
 from ..train.common import AdamW
 from .adapter_model import ClipMultiscaleAdapter
 from .dataset import ProcgenActionDataset
@@ -83,14 +94,14 @@ def build_clip(name: str, checkpoint: str, device) -> CLIP:
 
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
-    flags = parse_flag_tree(flag_defaults(), argv, "Fine-tune the CLIP multiscale adapter (PyTorch, one GPU).")
-    if flags.mesh_dp > 1:
-        raise NotImplementedError(f"--mesh_dp={flags.mesh_dp}: several devices are not ported yet (ROADMAP Queue 1, item 12)")
+    flags = parse_flag_tree(flag_defaults(), argv, "Fine-tune the CLIP multiscale adapter (PyTorch, GPUs).")
+    process_index, _ = initialize(device=flags.device)
     device = resolve_device(flags.device)
+    mesh = create_mesh(MeshConfig(dp=flags.mesh_dp), device)
     np.random.seed(flags.seed)
     random.seed(flags.seed)
     torch.manual_seed(flags.seed)
-    logger = MetricsLogger(config=flags.logging, variant=dict(flag_leaves(flags)))
+    logger = MetricsLogger(config=flags.logging, variant=dict(flag_leaves(flags)), enable=process_index == 0)
 
     train_dataset = ProcgenActionDataset(flags.data, dataset_name=flags.dataset_name, split="train")
     val_dataset = ProcgenActionDataset(flags.data, dataset_name=flags.dataset_name, split="val")
@@ -111,20 +122,32 @@ def main(argv=None):
     with torch.no_grad():
         model(clip, next(iter(train_loader)), train=False)
     state = TrainState.create(model, build_optimizer(model, flags.lr, flags.weight_decay))
+    if mesh is not None:
+        model.batch_group = mesh["dp"].get_group()
+    # a loss without the text (goal_conditioned) leaves the text adapter without a gradient, and the
+    # VIP loss alone the inverse layer and lambda_id
+    unreached = flags.goal_conditioned or (flags.use_vip_loss and not flags.use_id_loss)
+    state = shard_train_state(state, mesh, find_unused_parameters=unreached)
     ckpt = CheckpointManager(flags.checkpoint_dir) if flags.checkpoint_dir else None
-    train_step = make_train_step(make_loss_fn(clip, train=True))
-    val_step = make_eval_step(make_loss_fn(clip, train=False))
+    train_step = make_train_step(make_loss_fn(clip, train=True), mesh=mesh)
+    val_step = make_eval_step(make_loss_fn(clip, train=False), mesh=mesh)
     generator = torch.Generator(device=device).manual_seed(flags.seed)
+    shares = data_share(mesh)[1]
+
+    def mine(batch):
+        """This rank's rows; a tail batch that does not split goes whole to every rank."""
+        rows = len(batch["action"])
+        return batch_share(batch, mesh) if rows % shares == 0 else batch
 
     step, best_val = 0, np.inf
     for epoch in range(flags.epochs):
         for batch in train_loader:
-            state, metrics = train_step(state, batch, generator)
+            state, metrics = train_step(state, batch_share(batch, mesh), generator)
             if step % flags.log_freq == 0:
                 logged = {f"train_{k}": float(v) for k, v in metrics.items() if k != "train_state_step"}
                 logger.log(dict(logged, step=step, epoch=epoch))
             step += 1
-        val_losses = [float(val_step(state, batch, None)["loss"]) for batch in val_loader]
+        val_losses = [float(val_step(state, mine(batch), None)["loss"]) for batch in val_loader]
         val_loss = float(np.mean(val_losses)) if val_losses else np.inf
         logger.log({"val_loss": val_loss, "epoch": epoch, "step": step})
         if ckpt is not None and val_loss < best_val:

@@ -309,9 +309,11 @@ class MaskedMultimodalAutoencoder(_ImageEncoder):
         return self.encoder(_cat(tensors), deterministic, MaskSpec("none"), None)
 
     def forward_encoder(self, image, text, text_padding_mask, deterministic: bool = False,
-                        generator: Optional[torch.Generator] = None):
+                        generator: Optional[torch.Generator] = None,
+                        dropout_generator: Optional[torch.Generator] = None):
         """[cls, kept image tokens, kept text tokens] through the encoder, key padding the kept text's.
-        The image's masking draw comes first from ``generator``, then the text's.  Returns
+        The image's masking draw comes first from ``generator``, then the text's; the encoder's dropout
+        masks come from ``dropout_generator`` (``generator`` without one).  Returns
         ``(cls_x, image_x, text_x, image_mask, text_mask, image_ids_restore, text_ids_restore)``."""
         cfg = self.config
         first = image if image is not None else text
@@ -332,7 +334,7 @@ class MaskedMultimodalAutoencoder(_ImageEncoder):
             tensors.append(text_x)
             paddings.append(kept_padding)
         x = self.encoder(_cat(tensors), deterministic, MaskSpec("none"), torch.cat(paddings, dim=1),
-                         generator=generator)
+                         generator=generator if dropout_generator is None else dropout_generator)
         cls_x = x[:, :1]
         if image is None:
             image_x, text_x = None, x[:, 1:]
@@ -372,13 +374,15 @@ class MaskedMultimodalAutoencoder(_ImageEncoder):
         return self.decoder_image_output(x[:, 1:n_img + 1]), self.decoder_text_output(x[:, n_img + 1:])
 
     def forward(self, image, text, text_padding_mask, deterministic: bool = False,
-                generator: Optional[torch.Generator] = None):
-        """Flax's ``__call__``: ``(image_output, text_output, image_mask, text_mask)``."""
+                generator: Optional[torch.Generator] = None, dropout_generator: Optional[torch.Generator] = None):
+        """Flax's ``__call__``: ``(image_output, text_output, image_mask, text_mask)``.  The masking draws
+        come from ``generator``, the dropout masks from ``dropout_generator`` (``generator`` without one)."""
         self._need_decoder()
         cls_x, image_x, text_x, image_mask, text_mask, image_ids_restore, text_ids_restore = self.forward_encoder(
-            image, text, text_padding_mask, deterministic, generator)
-        image_output, text_output = self.forward_decoder(cls_x, image_x, text_x, image_ids_restore, text_ids_restore,
-                                                         text_padding_mask, deterministic, generator)
+            image, text, text_padding_mask, deterministic, generator, dropout_generator)
+        image_output, text_output = self.forward_decoder(
+            cls_x, image_x, text_x, image_ids_restore, text_ids_restore, text_padding_mask, deterministic,
+            generator if dropout_generator is None else dropout_generator)
         return image_output, text_output, image_mask, text_mask
 
 

@@ -24,7 +24,7 @@ before ``load_trained_state_dict``); a frozen tower is a submodule with
 ``requires_grad`` off, cast once at construction, and its weights come from
 ``pt_variables`` (a state dict) or from the loader of its family; the batch
 may hold numpy arrays or tensors and is moved to the module's device.
-``pp_stages > 1`` (pipeline parallelism over several devices) is not ported.
+``pp_stages > 1`` (pipeline parallelism over several devices) is not ported (ROADMAP Queue 1, item 12c).
 
 Size presets: names in the preset table ("tiny", "base", ...) set the dims;
 "vit*" names keep the explicit dims and select the DT block mask.
@@ -258,7 +258,8 @@ class BasePolicy(nn.Module):
             {"score_dtype": resolve_compute_dtype(cfg.frozen_score_dtype)} if cfg.get("frozen_bf16", False) else {}
         )
         if cfg.get("pp_stages", 1) > 1:
-            raise NotImplementedError("pp_stages > 1 (pipeline parallelism over several devices) is not ported")
+            raise NotImplementedError("pp_stages > 1 (pipeline parallelism over several devices) is not ported yet "
+                                      "(ROADMAP Queue 1, item 12c)")
         self.policy = Transformer(
             emb_dim=cfg.emb_dim, depth=cfg.depth, att_drop=cfg.att_drop, drop=cfg.drop, num_heads=cfg.num_heads,
             mlp_ratio=cfg.mlp_ratio, alibi_bias=cfg.alibi_bias, remat=cfg.get("remat", False),

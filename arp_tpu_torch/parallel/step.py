@@ -1,4 +1,4 @@
-"""Train and eval steps on one device (port of the one-device half of arp_tpu/parallel/step.py).
+"""Train and eval steps, on one device or over the data mesh (port of arp_tpu/parallel/step.py).
 
 ``loss_fn(model, batch, generator) -> (loss, aux)`` stands in for JAX's pure
 ``loss_fn(params, batch, rng)``: the model holds the parameters, and every
@@ -12,15 +12,27 @@ contiguous chunk ``x.reshape(accum_steps, -1, ...)[i]`` of every batch leaf,
 draws from a generator of its own, and the gradients and aux values are
 summed over the microbatches, then multiplied by ``1 / accum_steps``.
 
-Not ported: ``state_shardings`` and ``shard_train_state`` (several devices).
+Over several processes (parallel/mesh.py) :func:`shard_train_state` wraps the
+model, as JAX's ``shard_train_state`` commits the state to the mesh: with fsdp 1
+in ``DistributedDataParallel`` (the gradients averaged over the ranks), with
+fsdp above 1 in FSDP2's ``fully_shard`` over the (dp, fsdp) mesh, block by
+block (the trained parameters and the AdamW moments sharded over fsdp,
+replicated over dp).  Each rank's loss is the mean over its share of the
+global batch, so the averaged gradient is the global batch's, as JAX's GSPMD
+step computes it; the step averages the aux values over the ranks too, so the
+logged ``loss`` and ``acc`` are the global batch's.  Under ``accum_steps > 1``
+the gradients are exchanged once, after the last microbatch.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 from torch.nn.parameter import UninitializedParameter
 
 
@@ -37,18 +49,37 @@ def trainable_parameters(model: torch.nn.Module) -> list:
             if p.requires_grad and not isinstance(p, UninitializedParameter)]
 
 
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def l2_weight_penalty(params) -> torch.Tensor:
     """sum ||W||^2 over the parameters of rank > 1 (the reference's main_procgen.py:114-117);
-    ``params``: (name, tensor) pairs."""
+    ``params``: (name, tensor) pairs.  A sharded parameter counts whole: its shards' sums are
+    added over the ranks (differentiably)."""
     terms = [torch.sum(p.float() ** 2) for _, p in params if p.ndim > 1]
-    return torch.stack(terms).sum() if terms else torch.zeros(())
+    if not terms:
+        return torch.zeros(())
+    sharded = [t for t in terms if _is_dtensor(t)]
+    if not sharded:
+        return torch.stack(terms).sum()
+    total = torch.stack(sharded).sum().full_tensor()
+    plain = [t for t in terms if not _is_dtensor(t)]
+    return total + torch.stack(plain).sum() if plain else total
 
 
 class TrainState:
-    """The model, its trained parameters, the optimizer's state and the step (Flax's TrainState)."""
+    """The model, its trained parameters, the optimizer's state and the step (Flax's TrainState).
+
+    After :func:`shard_train_state`, ``model`` is the wrapped model the step calls and ``synced``
+    the indices of the trained parameters FSDP2 leaves out (scalars), whose gradients the step
+    averages itself."""
 
     def __init__(self, model, tx, params, opt_state, step: int = 0):
         self.model, self.tx, self.params, self.opt_state, self.step = model, tx, params, opt_state, step
+        self.synced = []
 
     @classmethod
     def create(cls, model, tx) -> "TrainState":
@@ -73,15 +104,143 @@ def _scalar(v) -> torch.Tensor:
     return v.detach().float() if isinstance(v, torch.Tensor) else torch.tensor(float(v))
 
 
-def make_train_step(loss_fn: Callable, *, weight_decay: float = 0.0, learning_rate_fn: Optional[Callable] = None,
-                    accum_steps: int = 1):
+class DistributedModel(DistributedDataParallel):
+    """``DistributedDataParallel`` whose other attributes are the wrapped model's (``device``,
+    ``trained_state_dict``, ``greedy_action``...), so the code around the step sees the model."""
+
+    def __getattr__(self, name):
+        try:
+            return super().__getattr__(name)
+        except AttributeError:
+            return getattr(self.module, name)
+
+
+def unwrap(model):
+    """The model inside a ``DistributedModel``; any other model as it is."""
+    return model.module if isinstance(model, DistributedDataParallel) else model
+
+
+def shard_train_state(state: "TrainState", mesh, *, find_unused_parameters: bool = False) -> "TrainState":
+    """Put ``state`` on the data mesh (parallel/mesh.py); None leaves it as it is.
+
+    fsdp 1: :func:`replicate_train_state` (DistributedDataParallel over the world); fsdp above 1:
+    :func:`fully_shard_train_state` (FSDP2 over the (dp, fsdp) mesh).  ``find_unused_parameters``: a
+    loss that does not reach every trained parameter (the fine-tuning adapter without text) needs it
+    under the DDP wrapper.  The model must have run its first forward: its lazy layers take their
+    shapes there.
+    """
+    if mesh is None:
+        return state
+    if mesh["fsdp"].size() > 1:
+        return fully_shard_train_state(state, mesh)
+    return replicate_train_state(state, mesh, find_unused_parameters=find_unused_parameters)
+
+
+def _trained_names(state: "TrainState", module) -> list:
+    names = [n for n, _ in trainable_parameters(module)]
+    if names != [n for n, _ in state.params]:
+        raise RuntimeError("the state's parameters are not the model's trained parameters")
+    return names
+
+
+def replicate_train_state(state: "TrainState", mesh, *, find_unused_parameters: bool = False) -> "TrainState":
+    """The model wrapped in :class:`DistributedModel` over the mesh's dp group: parameters and
+    moments replicated, the wrapper broadcasting rank 0's parameters once and averaging the
+    gradients in the backward."""
+    module = unwrap(state.model)
+    _trained_names(state, module)
+    # the wrapper syncs and reduces the trained parameters only: lazy layers that never ran, the
+    # frozen tower and the buffers are alike on every rank by construction
+    DistributedDataParallel._set_params_and_buffers_to_ignore_for_model(
+        module, [n for n, p in module.named_parameters()
+                 if isinstance(p, UninitializedParameter) or not p.requires_grad]
+        + [n for n, _ in module.named_buffers()])
+    dev = next(p for _, p in state.params).device
+    state.model = DistributedModel(module, device_ids=[dev.index] if dev.type == "cuda" else None,
+                                   process_group=mesh["dp"].get_group(), broadcast_buffers=False,
+                                   find_unused_parameters=find_unused_parameters)
+    return state
+
+
+def fully_shard_train_state(state: "TrainState", mesh) -> "TrainState":
+    """FSDP2's ``fully_shard`` over the (dp, fsdp) mesh, which replicates over dp and shards over
+    fsdp: each transformer block (layers.Block) that holds trained parameters is a unit of its own,
+    gathered for its forward and backward and sharded again after them, and the root holds the rest.
+    The trained parameters become ``DTensor`` s and the AdamW moments are cut the same way.  The
+    frozen parameters and the scalars (which ``fully_shard`` refuses) stay whole on every rank; the
+    step averages the scalars' gradients itself.  Every rank starts from rank 0's parameters."""
+    from torch.distributed.fsdp import fully_shard
+
+    from ..models.layers import Block
+    from .mesh import distribute_like
+
+    module = unwrap(state.model)
+    names = _trained_names(state, module)
+    ignored = {p for p in module.parameters()
+               if isinstance(p, UninitializedParameter) or not p.requires_grad or p.ndim == 0}
+    with torch.no_grad():
+        for _, p in state.params:
+            dist.broadcast(p, src=0)
+    for block in module.modules():
+        if isinstance(block, Block) and any(p not in ignored for p in block.parameters()):
+            fully_shard(block, mesh=mesh, ignored_params=ignored)
+    fully_shard(module, mesh=mesh, ignored_params=ignored)
+    params = trainable_parameters(module)
+    if [n for n, _ in params] != names:
+        raise RuntimeError("fully_shard changed the order of the trained parameters")
+    opt = state.opt_state
+    if hasattr(opt, "mu"):
+        state.opt_state = type(opt)(opt.count, [distribute_like(m, p) for m, (_, p) in zip(opt.mu, params)],
+                                    [distribute_like(v, p) for v, (_, p) in zip(opt.nu, params)])
+    state.params = params
+    state.synced = [i for i, (_, p) in enumerate(params) if not _is_dtensor(p)]
+    state.model = module
+    return state
+
+
+def mean_over_ranks(values: dict, mesh) -> dict:
+    """Each 0-dim tensor of ``values`` averaged over every rank of ``mesh`` (one collective)."""
+    if mesh is None or not values:
+        return values
+    keys = list(values)
+    device = torch.device(mesh.device_type, torch.cuda.current_device()) if mesh.device_type == "cuda" else "cpu"
+    packed = torch.stack([values[k].to(device, torch.float32) for k in keys])
+    dist.all_reduce(packed)
+    packed = packed / dist.get_world_size()
+    return dict(zip(keys, packed.unbind(0)))
+
+
+def _average_plain_gradients(grads: list, indices: list) -> None:
+    """The gradients at ``indices`` (parameters FSDP2 left whole) averaged over the world, in place."""
+    if not indices:
+        return
+    flat = torch.cat([grads[i].reshape(-1) for i in indices])
+    dist.all_reduce(flat)
+    flat = flat / dist.get_world_size()
+    for i, piece in zip(indices, flat.split([grads[i].numel() for i in indices])):
+        grads[i] = piece.view_as(grads[i])
+
+
+def _gradient_sync(model, on: bool):
+    """A context in which ``model``'s backward exchanges gradients only when ``on``."""
+    if isinstance(model, DistributedDataParallel):
+        return contextlib.nullcontext() if on else model.no_sync()
+    if hasattr(model, "set_requires_gradient_sync"):  # FSDP2
+        model.set_requires_gradient_sync(on)
+    return contextlib.nullcontext()
+
+
+def make_train_step(loss_fn: Callable, *, mesh=None, weight_decay: float = 0.0,
+                    learning_rate_fn: Optional[Callable] = None, accum_steps: int = 1):
     """``step(state, batch, generator) -> (state, aux)``: one optimizer step.
 
     ``weight_decay > 0`` adds ``weight_decay * 0.5 * l2_weight_penalty`` to the loss (the
     reference's explicit penalty, on top of AdamW's decoupled decay).  ``aux`` holds the loss
     function's values (``loss`` with the penalty), ``weight_penalty`` and ``weight_l2`` with a
     penalty, ``train_state_step`` (the step before the update) and, given the schedule,
-    ``learning_rate`` at it: 0-dim tensors left on the device, and two numbers.
+    ``learning_rate`` at it: 0-dim tensors left on the device, and two numbers.  ``mesh`` (the
+    state's, :func:`shard_train_state`): the tensors are averaged over the ranks.  Every rank
+    passes a generator seeded alike: the draws of the step are the same on every rank.
     """
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
@@ -109,8 +268,9 @@ def make_train_step(loss_fn: Callable, *, weight_decay: float = 0.0, learning_ra
             aux = None
             for i in range(accum_steps):
                 own = torch.Generator(device=generator.device).manual_seed(base + i)
-                loss, mb_aux = loss_with_penalty(state, _microbatch(batch, i, accum_steps), own)
-                loss.backward()
+                with _gradient_sync(state.model, i == accum_steps - 1):
+                    loss, mb_aux = loss_with_penalty(state, _microbatch(batch, i, accum_steps), own)
+                    loss.backward()
                 mb_aux = {k: _scalar(v) for k, v in mb_aux.items()}
                 aux = mb_aux if aux is None else {k: aux[k] + mb_aux[k] for k in aux}
             aux = {k: v * (1.0 / accum_steps) for k, v in aux.items()}
@@ -119,6 +279,9 @@ def make_train_step(loss_fn: Callable, *, weight_decay: float = 0.0, learning_ra
             g = torch.zeros_like(p) if p.grad is None else p.grad
             grads.append(g if accum_steps == 1 else g * (1.0 / accum_steps))
             p.grad = None
+        if mesh is not None:
+            _average_plain_gradients(grads, state.synced)
+            aux = mean_over_ranks(aux, mesh)
         return grads, aux
 
     def train_step(state, batch, generator):
@@ -135,18 +298,31 @@ def make_train_step(loss_fn: Callable, *, weight_decay: float = 0.0, learning_ra
     return train_step
 
 
-def make_eval_step(loss_fn: Callable):
-    """``step(state, batch, generator) -> aux``, without gradients."""
+def make_eval_step(loss_fn: Callable, mesh=None):
+    """``step(state, batch, generator) -> aux``, without gradients; ``mesh``: the values averaged
+    over the ranks."""
 
     def eval_step(state, batch, generator):
         with torch.no_grad():
             _, aux = loss_fn(state.model, batch, generator)
-        return {k: _scalar(v) for k, v in aux.items()}
+        return mean_over_ranks({k: _scalar(v) for k, v in aux.items()}, mesh)
 
     return eval_step
 
 
+def local_part(t):
+    """A ``DTensor``'s shard on this rank (sharing its storage); any other tensor as it is."""
+    return t.to_local() if _is_dtensor(t) else t
+
+
 def tree_finite(tensors) -> bool:
-    """True when every floating tensor is finite (one reduction; a NaN or inf propagates into it)."""
-    sums = [t.detach().float().abs().sum() for t in tensors if t.is_floating_point()]
-    return bool(np.isfinite(float(torch.stack(sums).sum()))) if sums else True
+    """True when every floating tensor is finite (one reduction; a NaN or inf propagates into it).
+    Sharded tensors are judged whole: the shards' sums are added over the ranks, so every rank
+    answers alike."""
+    tensors = [t for t in tensors if t.is_floating_point()]
+    if not tensors:
+        return True
+    total = torch.stack([local_part(t).detach().float().abs().sum() for t in tensors]).sum()
+    if any(_is_dtensor(t) for t in tensors):
+        dist.all_reduce(total)
+    return bool(np.isfinite(float(total)))

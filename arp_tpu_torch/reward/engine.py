@@ -52,7 +52,7 @@ preprocessing.
 
 :meth:`ClipRewardEngine.save_npz` writes the engine's spec (config, tokenizer
 tag, image size, float32 weights in the Flax layout) for both packages'
-``from_npz``.  Not ported yet: ``mesh`` (ROADMAP Queue 1, item 12) raises
+``from_npz``.  Not ported yet: ``mesh`` (ROADMAP Queue 1, item 12b) raises
 ``NotImplementedError``.  The TPU's 64-multiple batch guard is left out.
 Without ``variables`` or ``model`` the engine reads the OpenAI checkpoint of
 ``model_name`` from a local file
@@ -142,7 +142,7 @@ class ClipRewardEngine:
         if resize_mode not in ("pil", "fast", "host"):
             raise ValueError(f"resize_mode must be 'pil', 'fast' or 'host', got {resize_mode!r}")
         if mesh is not None:
-            raise NotImplementedError("ClipRewardEngine(mesh) is not ported yet (ROADMAP Queue 1, item 12)")
+            raise NotImplementedError("ClipRewardEngine(mesh) is not ported yet (ROADMAP Queue 1, item 12b)")
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {_DTYPES}, got {compute_dtype}")
         fast = bool(fast_encode or fast_int8)

@@ -385,7 +385,7 @@ def main(argv=None):
                              "(True under --fast_int8, as in arp_tpu)")
     parser.add_argument("--mesh_dp", type=int, default=0,
                         help="data-parallel labeling over several devices: not ported (ROADMAP Queue 1, "
-                             "item 12); only 0, one device, runs")
+                             "item 12b); only 0, one device, runs")
     parser.add_argument("--num_hosts", type=int, default=1,
                         help="hosts splitting this file (whole-trajectory contiguous shares; each host "
                              "writes a .rshard{i}.npz sidecar; assemble them with --merge)")
@@ -410,7 +410,7 @@ def main(argv=None):
         return
     if args.mesh_dp != 0:
         raise NotImplementedError("--mesh_dp (labeling over several devices) is not ported yet (ROADMAP Queue 1, "
-                                  "item 12); split the file across hosts with --num_hosts / --host_index")
+                                  "item 12b); split the file across hosts with --num_hosts / --host_index")
 
     fast_kwargs = dict(fast_encode=args.fast, fast_int8=args.fast_int8, fast_score_bf16=args.fast_score_bf16,
                        fast_int8_attn=args.fast_int8_attn)

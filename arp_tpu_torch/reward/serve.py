@@ -219,7 +219,7 @@ def main(argv=None):
                         help="w8a8 attention on the int8 fast path (needs --fast_int8). Unset = the "
                              "engine's default (True under --fast_int8, as in arp_tpu)")
     parser.add_argument("--mesh_dp", type=int, default=0,
-                        help="data-parallel encoding over several devices: not ported (ROADMAP Queue 1, item 12)")
+                        help="data-parallel encoding over several devices: not ported (ROADMAP Queue 1, item 12b)")
     parser.add_argument("--warmup", action="store_true",
                         help="run the image and text towers before accepting requests")
     parser.add_argument("--warmup_frames", default=None,
@@ -232,7 +232,7 @@ def main(argv=None):
                      "activation scales; synthetic ones would mis-scale every later request)")
     if args.mesh_dp != 0:
         raise NotImplementedError("--mesh_dp (serving over several devices) is not ported yet (ROADMAP Queue 1, "
-                                  "item 12)")
+                                  "item 12b)")
 
     fast_kwargs = dict(fast_encode=args.fast, fast_int8=args.fast_int8, fast_int8_attn=args.fast_int8_attn)
     if args.model_type.startswith("clip_ft"):

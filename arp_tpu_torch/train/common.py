@@ -81,13 +81,27 @@ def load_frozen_amax(checkpoint_dir: str):
         return {"img": z["img"], "layers": {k.split("/", 1)[1]: z[k] for k in z.files if k.startswith("layers/")}}
 
 
+def _max_over_ranks(amax: dict, device) -> dict:
+    """The calibration scales' elementwise maximum over every rank (one collective)."""
+    import torch.distributed as dist
+
+    values = [torch.as_tensor(v) for v in [amax["img"], *amax["layers"].values()]]
+    flat = torch.cat([v.reshape(-1).to(device, torch.float32) for v in values])
+    dist.all_reduce(flat, op=dist.ReduceOp.MAX)
+    pieces = [p.reshape(v.shape).to(v.dtype).cpu() for p, v in zip(flat.split([v.numel() for v in values]), values)]
+    return {"img": pieces[0], "layers": dict(zip(amax["layers"], pieces[1:]))}
+
+
 def maybe_build_frozen_qpack(flags_obj, sample_batch, use_goal: bool, checkpoint_dir: str = "", save: bool = False,
-                             device="cuda", m3ae_loader=None):
+                             device="cuda", m3ae_loader=None, mesh=None):
     """The calibrated int8 pack for ``--model.frozen_int8`` (None otherwise).
 
     ``sample_batch`` is a real host batch: the int8 activation scales calibrate on it.  Saved
     scales in ``checkpoint_dir`` win over a fresh calibration; with ``save`` fresh ones are kept
     there.  The pack is built on ``device`` (the card unless the caller asks for the CPU).
+    ``mesh``: ``sample_batch`` is this rank's share of the first batch; each scale is the maximum
+    over the ranks (the global batch's, the same on every rank, as JAX's replicated step needs),
+    and rank 0 alone writes the file.
     """
     if not flags_obj.model.get("frozen_int8", False) or flags_obj.model.use_from_scratch:
         return None
@@ -97,13 +111,20 @@ def maybe_build_frozen_qpack(flags_obj, sample_batch, use_goal: bool, checkpoint
     if getattr(flags_obj, "encode_image_size", 0) > 0:
         image_size = flags_obj.encode_image_size
     kw = dict(image_size=image_size, use_goal=use_goal, device=device, m3ae_loader=m3ae_loader)
+    from ..parallel.distributed import barrier, process_index
+
     amax = load_frozen_amax(checkpoint_dir)
+    if mesh is not None:
+        barrier()  # every rank has looked for the file before rank 0 may write it
     if amax is not None:
         log.info("frozen_int8: rebuilding the pack from saved calibration scales (%s)", _frozen_amax_path(checkpoint_dir))
         return build_frozen_qpack(flags_obj.model, sample_batch, flags_obj.patch_dim, amax=amax, **kw)
     log.info("frozen_int8: calibrating the packed encoder on a real batch")
     qpack, amax = build_frozen_qpack(flags_obj.model, sample_batch, flags_obj.patch_dim, return_amax=True, **kw)
-    if save and checkpoint_dir:
+    if mesh is not None:
+        amax = _max_over_ranks(amax, resolve_device(device))
+        qpack = build_frozen_qpack(flags_obj.model, sample_batch, flags_obj.patch_dim, amax=amax, **kw)
+    if save and checkpoint_dir and process_index() == 0:
         save_frozen_amax(checkpoint_dir, amax)
     return qpack
 
@@ -190,18 +211,27 @@ class AdamW:
 
     @torch.no_grad()
     def update(self, params: list, grads: list, state: AdamWState) -> AdamWState:
-        """Updates ``params`` in place from ``grads``; returns the new state."""
+        """Updates ``params`` in place from ``grads``; returns the new state.
+
+        Sharded parameters (``DTensor`` s of FSDP2, their gradients and moments alike) are updated
+        shard by shard: every step but the norm is elementwise, and the norm is the whole
+        gradient's, its shards' squares added over the ranks."""
+        from ..parallel.step import local_part
+
         b1, b2 = self.b1, self.b2
+        like = list(state.mu)
+        params, grads = [local_part(p) for p in params], [local_part(g) for g in grads]
+        mu_prev, nu_prev = [local_part(m) for m in state.mu], [local_part(v) for v in state.nu]
         if self.clip is not None:
             # clip_by_global_norm: a select on the device, no host round trip
-            g_norm = torch.sqrt(torch.stack([torch.sum(g * g) for g in grads]).sum())
+            g_norm = torch.sqrt(global_sum_of_squares(grads, like))
             clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), self.clip)
             keep = g_norm < self.clip
             grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
         # scale_by_adam
-        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1), torch._foreach_mul(state.mu, b1))
+        mu = torch._foreach_add(torch._foreach_mul(grads, 1 - b1), torch._foreach_mul(mu_prev, b1))
         nu = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
-                                torch._foreach_mul(state.nu, b2))
+                                torch._foreach_mul(nu_prev, b2))
         count = state.count + 1
         mu_hat = torch._foreach_div(mu, float(_f32(1) - _f32(b1) ** _f32(count)))
         nu_hat = torch._foreach_div(nu, float(_f32(1) - _f32(b2) ** _f32(count)))
@@ -215,7 +245,38 @@ class AdamW:
                 updates[i] = u
         # scale_by_learning_rate at the count before this update, then apply_updates
         torch._foreach_add_(params, torch._foreach_mul(updates, -self.learning_rate(state.count)))
-        return AdamWState(count, list(mu), list(nu))
+        return AdamWState(count, _laid_out_as(mu, like), _laid_out_as(nu, like))
+
+
+def _laid_out_as(local: list, like: list) -> list:
+    """Local shards back into ``DTensor`` s where ``like`` holds them."""
+    from torch.distributed.tensor import DTensor
+
+    return [DTensor.from_local(t, r.device_mesh, r.placements, shape=r.shape, stride=r.stride())
+            if isinstance(r, DTensor) else t for t, r in zip(local, like)]
+
+
+def global_sum_of_squares(local: list, like: list) -> torch.Tensor:
+    """sum g^2 over whole tensors, given their local parts ``local``: where ``like[i]`` is a sharded
+    ``DTensor`` the shards' sums are added over the ranks that hold its other shards (one
+    collective for all of them); the rest is summed as it is, in order."""
+    from torch.distributed.tensor import DTensor
+
+    squares = [torch.sum(g * g) for g in local]
+    sharded = [sq for sq, r in zip(squares, like) if isinstance(r, DTensor)]
+    if not sharded:
+        return torch.stack(squares).sum()
+    ref = next(r for r in like if isinstance(r, DTensor))
+    part = DTensor.from_local(torch.stack(sharded).sum(), ref.device_mesh,
+                              [_partial_where_sharded(p) for p in ref.placements]).full_tensor()
+    rest = [sq for sq, r in zip(squares, like) if not isinstance(r, DTensor)]
+    return part + torch.stack(rest).sum() if rest else part
+
+
+def _partial_where_sharded(placement):
+    from torch.distributed.tensor import Partial, Replicate
+
+    return Partial() if placement.is_shard() else Replicate()
 
 
 def build_optimizer(flags_obj, learning_rate: Callable, model, params: Optional[list] = None) -> AdamW:
@@ -223,8 +284,9 @@ def build_optimizer(flags_obj, learning_rate: Callable, model, params: Optional[
 
     ``params``: the (name, parameter) pairs the optimizer will update; by default the model's
     trained parameters, which exist only after its first forward."""
-    from ..parallel.step import trainable_parameters
+    from ..parallel.step import trainable_parameters, unwrap
 
+    model = unwrap(model)  # the names are the model's own, never a wrapper's "module." ones
     params = trainable_parameters(model) if params is None else params
     no_decay = model.no_decay_list()
     decay = [not any(nd in part for nd in no_decay for part in name.split(".")) for name, _ in params]
@@ -316,19 +378,46 @@ def flops_analysis(fn, *args) -> float:
         return -1.0
 
 
-def make_loss_fn(model, augment_fn, image_size: int, use_goal: bool):
+def augment_share(augment_fn, images: torch.Tensor, generator: torch.Generator, share=(0, 1)) -> torch.Tensor:
+    """``augment_fn(images, generator)`` on this rank's ``share`` (index, count) of a global batch:
+    the parameters are drawn for the ``count`` shares' frames, and these frames take the index-th
+    share's, so they are augmented as the one-rank run augments the same rows."""
+    index, count = share
+    if count == 1:
+        return augment_fn(images, generator)
+    n = images.shape[0]
+    draws = augment_fn.draw(n * count, generator)
+    mine = [{k: v[index * n:(index + 1) * n] for k, v in params.items()} for params in draws]
+    return augment_fn.apply(images, mine)
+
+
+def rank_generator(generator: torch.Generator, index: int) -> torch.Generator:
+    """A stream for this rank's own draws (dropout masks) after the shared ones: a function of the
+    shared stream's state and the rank, so of (seed, step, rank)."""
+    base = int(torch.randint(0, 2 ** 62, (), generator=generator, device=generator.device))
+    return torch.Generator(device=generator.device).manual_seed(base + index)
+
+
+def make_loss_fn(model, augment_fn, image_size: int, use_goal: bool, share=(0, 1)):
     """``loss_fn(model, batch, generator)``: the augmentation on the model's device inside the step
     (each view's frames, then the goals' under ``use_goal``), then the training forward, every draw
-    from ``generator``.  ``model`` and ``image_size`` are the JAX signature's; the step passes the model."""
+    from ``generator``.  ``model`` and ``image_size`` are the JAX signature's; the step passes the model.
+
+    ``share`` (index, count; parallel/mesh.py::data_share): the batch is this rank's share of the
+    global batch; the augmentation is drawn for the global batch (:func:`augment_share`), and the
+    forward's dropout masks from :func:`rank_generator`."""
     del image_size
 
     def loss_fn(model, batch, generator):
         batch = dict(batch)
         if augment_fn is not None and batch.get("image") is not None:
-            batch["image"] = _frames(batch["image"], lambda x: augment_fn(x, generator), model.device)
+            batch["image"] = _frames(batch["image"], lambda x: augment_share(augment_fn, x, generator, share),
+                                     model.device)
             if use_goal and batch.get("goal") is not None:
-                batch["goal"] = _frames(batch["goal"], lambda x: augment_fn(x, generator), model.device)
-        output = model(batch, deterministic=False, generator=generator)
+                batch["goal"] = _frames(batch["goal"], lambda x: augment_share(augment_fn, x, generator, share),
+                                        model.device)
+        forward = generator if share[1] == 1 else rank_generator(generator, share[0])
+        output = model(batch, deterministic=False, generator=forward)
         return output["loss"], _aux(output)
 
     return loss_fn
@@ -471,6 +560,38 @@ def eval_generator(seed: int, call: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed) * 1_000_003 + call)
 
 
+def _rank_zero_test_step(build, model):
+    """The rollout eval of a train state on the mesh, as JAX's ``parallel_test_step_fn`` evaluates the
+    gathered parameters: rank 0 runs the rollouts of ``build()``'s step on an unsharded model (the
+    trained one under DDP; ``model``, loaded with the gathered state, when FSDP shards it) and
+    broadcasts (metric, info); the other ranks take part in the gather and wait for the score."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import gather_to_host
+    from ..parallel.step import local_part, unwrap
+
+    main_process = dist.get_rank() == 0
+    inner = build() if main_process else None
+
+    def test_step_fn(state, seed):
+        params = [p for _, p in state.params]
+        if any(local_part(p) is not p for p in params):  # sharded: gather the whole state first
+            full = gather_to_host(state.model)
+            target = model
+            if main_process:
+                with torch.no_grad():
+                    model.load_trained_state_dict(full)
+        else:
+            target = unwrap(state.model)
+        result = inner(target, seed) if main_process else None
+        shared = [result[:2] if main_process else None]
+        dist.broadcast_object_list(shared, src=0)
+        metric, info = shared[0]
+        return metric, info, result[2] if main_process else []
+
+    return test_step_fn
+
+
 def build_test_step(flags_obj, model, train_dataset, eval_transform, use_text, mesh=None, device="cuda"):
     """Rollout-eval step factory (reference create_test_step, main_procgen.py:171-229).
 
@@ -480,10 +601,13 @@ def build_test_step(flags_obj, model, train_dataset, eval_transform, use_text, m
     ``eval_transform`` gives float32 frames on ``device``, where the policy's windows and the
     reward engine (:func:`build_reward_engine`) live.  Returns None (with a loud warning) for cached-embedding
     policies: rollout eval needs live image encoding, and a ``*_cached`` model has no encoder to
-    run on env frames; every caller must handle the None.
+    run on env frames; every caller must handle the None.  ``mesh`` (parallel/mesh.py): ``state``
+    is a TrainState on it, every rank calls the step, rank 0 runs the rollouts
+    (:func:`_rank_zero_test_step`; ``model`` is rank 0's unsharded model).
     """
-    if mesh is not None:
-        raise NotImplementedError("build_test_step(mesh) is not ported yet (ROADMAP Queue 1, item 12)")
+    if mesh is not None and not flags_obj.model.transfer_type.endswith("_cached"):
+        return _rank_zero_test_step(lambda: build_test_step(flags_obj, model, train_dataset, eval_transform, use_text,
+                                                            device=device), model)
     if flags_obj.model.transfer_type.endswith("_cached"):
         log.warning("rollout eval disabled: transfer_type=%s consumes precomputed embeddings and cannot encode env "
                     "frames — evaluate the converted live-encoder model instead", flags_obj.model.transfer_type)

@@ -1,4 +1,4 @@
-"""Policy trainer on one GPU — ``python -m arp_tpu_torch.train.main`` (port of arp_tpu/train/main.py).
+"""Policy trainer on GPUs — ``python -m arp_tpu_torch.train.main`` (port of arp_tpu/train/main.py).
 
 The flags are the JAX trainer's, under argparse, with the same dotted names
 for the nested configs (``--model.transfer_type=m3ae_vit_b16``,
@@ -32,8 +32,20 @@ trainer does: the params from the file, the state's step from its
 zero moments), so the applied learning rate restarts from the schedule's
 start while the logged ``learning_rate`` reads the state's step.
 
-Not ported, raising ``NotImplementedError`` with its ROADMAP item: several
-devices (``--mesh_*`` above 1).
+Several GPUs: ``torchrun --nproc_per_node=N -m arp_tpu_torch.train.main
+--mesh_dp=N ...`` (or ``--mesh_fsdp``, ``--mesh_dcn_dp``; parallel/mesh.py), one
+process a GPU.  Rank r of N is the JAX trainer's process r of N: it loads
+``batch_size / N`` rows a step from the dataset offset by ``r / N``, seeds its
+host draws with ``seed * (r + 1)``, and logs (heartbeat and profiler too) only
+on rank 0 unless ``--log_all_worker``.  The model is built alike on every rank
+(torch's seed is ``seed``), the step is wrapped by parallel/step.py's
+``shard_train_state``, and the step's draws come from the (seed, step)
+generator, the same on every rank: the augmentation is drawn for the global
+batch and each rank applies its rows (train/common.py::make_loss_fn).  Rank 0
+writes the checkpoints (the full state, whatever the world size) and runs the
+rollout eval on the gathered parameters; the score is broadcast.
+``--mesh_tp`` and ``--mesh_pp`` above 1 raise ``NotImplementedError`` (ROADMAP
+Queue 1, item 12c).
 """
 
 from __future__ import annotations
@@ -55,8 +67,10 @@ from ..device import resolve_device
 from ..logging_utils import MetricsLogger
 from ..models.policy import get_policy_default_config
 from ..ops.augment import make_augment_fn, make_eval_transform
+from ..parallel.distributed import initialize
+from ..parallel.mesh import MeshConfig, create_mesh, data_share
 from ..parallel.prefetch import ThreadedPrefetch, batch_to_device, pin_batch
-from ..parallel.step import TrainState, make_eval_step, make_train_step, tree_finite
+from ..parallel.step import TrainState, make_eval_step, make_train_step, shard_train_state, tree_finite
 from ..profiling import StepTimer, Trace
 from ..resilience import FaultDetector, Heartbeat, PreemptionHandler
 from .common import (
@@ -106,14 +120,15 @@ def flag_defaults() -> dict:
 
 def parse_flags(argv=None) -> Config:
     """The flags as a Config tree: the defaults, with every ``--name[.sub]=value`` of ``argv`` applied."""
-    return parse_flag_tree(flag_defaults(), argv, "Train an ARP-DT / BC / GCBC policy (PyTorch, one GPU).")
+    return parse_flag_tree(flag_defaults(), argv, "Train an ARP-DT / BC / GCBC policy (PyTorch, GPUs).")
 
 
 def check_ported(flags) -> None:
     """Every flag whose path is not ported raises, naming its ROADMAP item."""
-    for name in ("mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_pp", "mesh_dcn_dp"):
+    for name in ("mesh_tp", "mesh_pp"):
         if flags[name] > 1:
-            raise NotImplementedError(f"--{name}={flags[name]}: several devices are not ported yet (ROADMAP Queue 1, item 12)")
+            raise NotImplementedError(f"--{name}={flags[name]}: tensor and pipeline parallelism are not ported yet "
+                                      "(ROADMAP Queue 1, item 12c)")
 
 
 def start_from_reference_checkpoint(state, path: str) -> int:
@@ -146,20 +161,27 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     flags = parse_flags(argv)
     check_ported(flags)
+    process_index, process_count = initialize(device=flags.device)
     device = resolve_device(flags.device)
+    mesh = create_mesh(MeshConfig(dp=flags.mesh_dp, fsdp=flags.mesh_fsdp, tp=flags.mesh_tp, pp=flags.mesh_pp,
+                                  dcn_dp=flags.mesh_dcn_dp), device)
+    if flags.batch_size % process_count:
+        raise ValueError(f"--batch_size={flags.batch_size} does not split over {process_count} processes")
+    process_batch_size = flags.batch_size // process_count
     variant = dict(flag_leaves(flags))
-    variant.update(process_index=0, process_count=1, process_batch_size=flags.batch_size)
+    variant.update(process_index=process_index, process_count=process_count, process_batch_size=process_batch_size)
     lr_scale = flags.batch_size / 256 if flags.auto_scale_lr else 1.0
+    main_process = process_index == 0
 
     flags.model.use_discrete_action = True
     use_text = flags.use_text
     if not flags.use_vl and flags.vl_type == "BC":
         use_text = True  # InstructRL baseline
 
-    logger = MetricsLogger(config=flags.logging, variant=variant, enable=True)
-    np.random.seed(flags.seed)
-    random.seed(flags.seed)
-    torch.manual_seed(flags.seed)
+    logger = MetricsLogger(config=flags.logging, variant=variant, enable=flags.log_all_worker or main_process)
+    np.random.seed(flags.seed * (process_index + 1))
+    random.seed(flags.seed * (process_index + 1))
+    torch.manual_seed(flags.seed)  # the model's initialization, the same on every rank
 
     dataset_name = dataset_dirname(flags.game_name, flags.env_distribution_mode, flags.env_start_level,
                                    flags.env_num_levels, flags.data.num_demonstrations, flags.data.num_frames,
@@ -178,11 +200,15 @@ def main(argv=None):
                 raise ValueError(f"invalid demo file {path}: " + "; ".join(rep.errors)
                                  + " (rerun with --validate_data=False to override)")
 
-    train_dataset = ProcgenDataset(update=flags.data, dataset_name=dataset_name, start_offset_ratio=0.0, split="train")
-    val_dataset = ProcgenDataset(update=flags.data, dataset_name=dataset_name, start_offset_ratio=0.0, split="val")
-    train_loader = DataLoader(train_dataset, batch_size=flags.batch_size, shuffle=flags.dataloader_shuffle,
+    offset = process_index / process_count
+    train_dataset = ProcgenDataset(update=flags.data, dataset_name=dataset_name, start_offset_ratio=offset,
+                                   split="train")
+    val_dataset = ProcgenDataset(update=flags.data, dataset_name=dataset_name, start_offset_ratio=offset, split="val")
+    train_loader = DataLoader(train_dataset, batch_size=process_batch_size, shuffle=flags.dataloader_shuffle,
                               num_workers=flags.dataloader_n_workers, seed=flags.seed)
-    val_batch_size = max(1, min(flags.batch_size, len(val_dataset)))
+    val_batch_size = max(1, min(process_batch_size, len(val_dataset) // process_count))
+    # as JAX's: a multiple of the device count (here one device a process)
+    val_batch_size = max(process_count, (val_batch_size // process_count) * process_count)
     val_loader = DataLoader(val_dataset, batch_size=val_batch_size, shuffle=flags.dataloader_shuffle,
                             num_workers=flags.dataloader_n_workers, seed=flags.seed + 1)
 
@@ -197,14 +223,19 @@ def main(argv=None):
         sample = _host_batch_to_arrays(next(iter(train_loader)), use_text, use_goal)
         # the calibration scales are kept beside the checkpoints: a restore rebuilds this pack
         frozen_qpack = maybe_build_frozen_qpack(flags, sample, use_goal, checkpoint_dir=flags.checkpoint_dir,
-                                                save=True, device=device)
-    model = build_model(flags, train_dataset.num_actions, frozen_qpack=frozen_qpack).to(device)
+                                                save=True, device=device, mesh=mesh)
     dummy_input = get_dummy_input(flags, train_dataset)
     if use_text:
         ids, pad = train_dataset.tokenizer(get_m3ae_instruct(flags.game_name) or "")
         dummy_input["instruct"], dummy_input["text_padding_mask"] = ids[None], pad[None]
-    with torch.no_grad():
-        model(dummy_input, deterministic=True)  # the lazy layers take their shapes, as at Flax's init
+
+    def new_model():
+        built = build_model(flags, train_dataset.num_actions, frozen_qpack=frozen_qpack).to(device)
+        with torch.no_grad():
+            built(dummy_input, deterministic=True)  # the lazy layers take their shapes, as at Flax's init
+        return built
+
+    model = new_model()
     learning_rate = build_lr_schedule(flags, steps_per_epoch, total_steps, lr_scale)
     state = TrainState.create(model, build_optimizer(flags, learning_rate, model))
 
@@ -220,6 +251,10 @@ def main(argv=None):
     num_params = sum(p.numel() for _, p in state.params)
     logger.log({"cost/num_params": num_params})
     log.info("num_params: %d", num_params)
+    # the rollout eval's model on rank 0: the trained one itself unless fsdp shards it in place
+    sharded = mesh is not None and mesh["fsdp"].size() > 1
+    eval_model = new_model() if sharded and main_process and flags.eval_env != "none" else model
+    state = shard_train_state(state, mesh)
 
     # the augmentation runs on the device inside the step
     image_size = model_image_size(flags)
@@ -227,24 +262,28 @@ def main(argv=None):
     augment_fn = None if transfer.endswith("_cached") else make_augment_fn(
         flags.data.augmentations, image_size=image_size, source_size=flags.data.image_size)
     eval_transform = make_eval_transform(image_size=image_size, device=device)
-    loss_fn = make_loss_fn(model, augment_fn, image_size, use_goal)
+    loss_fn = make_loss_fn(model, augment_fn, image_size, use_goal, share=data_share(mesh))
     train_step = make_train_step(
         loss_fn,
+        mesh=mesh,
         # AdamW decays already; the reference adds an explicit 0.5 * wd * ||W||^2 on top
         weight_decay=flags.weight_decay if flags.explicit_l2_penalty else 0.0,
         learning_rate_fn=learning_rate,
         accum_steps=flags.accum_steps,
     )
-    eval_step = make_eval_step(make_eval_loss_fn(model, eval_transform, use_goal))
+    eval_step = make_eval_step(make_eval_loss_fn(model, eval_transform, use_goal), mesh=mesh)
     pin = device.type == "cuda"
     first = batch_to_device(pin_batch(_host_batch_to_arrays(next(iter(train_loader)), use_text, use_goal), pin), device)
-    # one step's gradient computation on the first batch; the state is left as it was
-    logger.log({"cost/flops": flops_analysis(train_step.gradients, state, first, step_generator(flags.seed, 0, device))})
+    # one step's gradient computation on the first batch (every rank's share: the global step's
+    # count, as XLA's cost analysis of the global jit); the state is left as it was
+    flops = flops_analysis(train_step.gradients, state, first, step_generator(flags.seed, 0, device))
+    logger.log({"cost/flops": flops * data_share(mesh)[1] if flops >= 0 else flops})
     del first
     # rollout eval (None for cached-embedding policies, which cannot encode env frames)
     test_step_fn = None
     if flags.eval_env != "none":
-        test_step_fn = build_test_step(flags, model, train_dataset, eval_transform, use_text, device=device)
+        test_step_fn = build_test_step(flags, eval_model, train_dataset, eval_transform, use_text, mesh=mesh,
+                                       device=device)
     best_eval_score = -np.inf
 
     # exact resume: the loader fast-forwards past the batches already consumed
@@ -256,7 +295,7 @@ def main(argv=None):
     faults = FaultDetector()
     step_timer = StepTimer()
     heartbeat = None
-    if flags.heartbeat_path != "off":
+    if flags.heartbeat_path != "off" and main_process:
         heartbeat = Heartbeat(flags.heartbeat_path or os.path.join(logger.config.output_dir, "heartbeat"),
                               interval_s=flags.heartbeat_interval)
 
@@ -270,7 +309,7 @@ def main(argv=None):
     tracer = None
     try:
         for step in range(start_step, total_steps):
-            if flags.profile_dir:
+            if flags.profile_dir and main_process:
                 if step == profile_start:
                     log.info("profiler: tracing %d steps to %s", profile_stop - profile_start, flags.profile_dir)
                     tracer = Trace(flags.profile_dir)

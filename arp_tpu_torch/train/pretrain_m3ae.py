@@ -1,4 +1,4 @@
-"""M3AE pretraining on one GPU — ``python -m arp_tpu_torch.train.pretrain_m3ae`` (port of arp_tpu/train/pretrain_m3ae.py).
+"""M3AE pretraining on GPUs — ``python -m arp_tpu_torch.train.pretrain_m3ae`` (port of arp_tpu/train/pretrain_m3ae.py).
 
 Masked multimodal autoencoding (image-patch MSE + text cross entropy) on demonstration
 frames and their game's instruction, producing an M3AE whose encoder the policy models
@@ -25,9 +25,17 @@ port's.  As in the JAX trainer:
 What differs, on purpose: checkpoints are the port's ``step_<n>.pt`` files
 (checkpoint.py::CheckpointManager; JAX writes orbax directories, which need
 tensorstore and jax, ROADMAP item 10), and a step's masking draws come from a
-generator seeded by (seed, step), not JAX's key chain.  Not ported, raising
-``NotImplementedError`` with its ROADMAP item: ``--mesh_dp`` / ``--mesh_fsdp``
-other than 1 or -1 (several devices, item 12).
+generator seeded by (seed, step), not JAX's key chain.
+
+Several GPUs: ``torchrun --nproc_per_node=N -m arp_tpu_torch.train.pretrain_m3ae
+--mesh_dp=N`` (or ``--mesh_fsdp``).  JAX loads the global batch in one process and
+shards it over the devices; here every rank builds the same loader from the same
+seed and takes its rows (parallel/mesh.py::batch_share), so N ranks see the
+batches of one.  The masking permutation is one a batch, drawn from the shared
+(seed, step) generator: the same on every rank; the dropout masks are each
+rank's own, from (seed, step, rank).  The losses are per-sequence
+means averaged over the batch, so the average of the ranks' gradients is the
+global batch's.  Rank 0 logs and writes the checkpoints.
 """
 
 from __future__ import annotations
@@ -55,8 +63,10 @@ from ..models.m3ae import (
 from ..models.policy.convert import flax_path
 from ..ops.augment import resize_image
 from ..ops.quantization import true_divide
-from ..parallel.step import TrainState, make_train_step, trainable_parameters
-from .common import AdamW, warmup_cosine_decay_schedule
+from ..parallel.distributed import initialize
+from ..parallel.mesh import MeshConfig, batch_share, create_mesh, data_share
+from ..parallel.step import TrainState, make_train_step, shard_train_state, trainable_parameters
+from .common import AdamW, rank_generator, warmup_cosine_decay_schedule
 from .main import step_generator
 
 log = logging.getLogger("arp_tpu_torch.pretrain_m3ae")
@@ -76,13 +86,7 @@ def flag_defaults() -> dict:
 
 
 def parse_flags(argv=None) -> Config:
-    return parse_flag_tree(flag_defaults(), argv, "Pretrain an M3AE on demonstration frames (PyTorch, one GPU).")
-
-
-def check_ported(flags) -> None:
-    for name in ("mesh_dp", "mesh_fsdp"):
-        if flags[name] not in (-1, 1):
-            raise NotImplementedError(f"--{name}={flags[name]}: several devices are not ported yet (ROADMAP Queue 1, item 12)")
+    return parse_flag_tree(flag_defaults(), argv, "Pretrain an M3AE on demonstration frames (PyTorch, GPUs).")
 
 
 class FramesWithText:
@@ -109,16 +113,23 @@ def prepare(image: torch.Tensor, image_size: int, patch_size: int) -> torch.Tens
     return extract_patches(image, patch_size)
 
 
-def make_loss_fn(image_size: int, patch_size: int):
+def make_loss_fn(image_size: int, patch_size: int, share=(0, 1)):
     """``loss_fn(model, batch, generator) -> (loss, aux)`` for parallel/step.py: the masking draws
-    come from ``generator``."""
+    come from ``generator``.  ``share`` (index, count; parallel/mesh.py::data_share): the batch is this
+    rank's share of the global batch; the masking draws stay the shared stream's, and the dropout
+    masks come from train/common.py::rank_generator over a copy of it, so from (seed, step, rank)."""
 
     def loss_fn(model, batch, generator):
         patches = prepare(batch["image"], image_size, patch_size)
         text = batch["text"].long()
         pad = batch["text_padding_mask"].to(torch.float32)
+        dropout = None
+        if share[1] > 1:
+            fork = torch.Generator(device=generator.device)
+            fork.set_state(generator.get_state())
+            dropout = rank_generator(fork, share[0])
         image_out, text_out, image_mask, text_mask = model(patches, text, pad, deterministic=False,
-                                                           generator=generator)
+                                                           generator=generator, dropout_generator=dropout)
         img_loss = patch_mse_loss(image_out, patches, image_mask)
         txt_loss, txt_acc = cross_entropy_loss_and_accuracy(text_out, text, (1.0 - pad) * text_mask)
         return img_loss + txt_loss, {"image_loss": img_loss, "text_loss": txt_loss, "text_acc": txt_acc}
@@ -146,12 +157,13 @@ def batch_on(batch: dict, device) -> dict:
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     flags = parse_flags(argv)
-    check_ported(flags)
+    process_index, _ = initialize(device=flags.device)
     device = resolve_device(flags.device)
+    mesh = create_mesh(MeshConfig(dp=flags.mesh_dp, fsdp=flags.mesh_fsdp), device)
     np.random.seed(flags.seed)
     random.seed(flags.seed)
     torch.manual_seed(flags.seed)
-    logger = MetricsLogger(config=flags.logging, variant=dict(flag_leaves(flags)))
+    logger = MetricsLogger(config=flags.logging, variant=dict(flag_leaves(flags)), enable=process_index == 0)
 
     base = ProcgenDataset(flags.data, dataset_name=flags.dataset_name, split="train")
     dataset = FramesWithText(base, flags.text_length)
@@ -166,14 +178,16 @@ def main(argv=None):
     total_steps = steps_per_epoch * flags.epochs
     warmup_steps = min(int(flags.warmup_epochs * steps_per_epoch), max(total_steps - 1, 0))
     schedule = warmup_cosine_decay_schedule(0.0, flags.lr, warmup_steps, total_steps)
-    state = TrainState.create(model, build_optimizer(model, schedule, flags.weight_decay))
-    step_fn = make_train_step(make_loss_fn(flags.image_size, flags.patch_size), learning_rate_fn=schedule)
+    state = shard_train_state(TrainState.create(model, build_optimizer(model, schedule, flags.weight_decay)), mesh)
+    step_fn = make_train_step(make_loss_fn(flags.image_size, flags.patch_size, data_share(mesh)), mesh=mesh,
+                              learning_rate_fn=schedule)
     ckpt = CheckpointManager(flags.checkpoint_dir) if flags.checkpoint_dir else None
 
     step = 0
     for epoch in range(flags.epochs):
         for batch in loader:
-            state, aux = step_fn(state, batch_on(batch, device), step_generator(flags.seed, step, device))
+            state, aux = step_fn(state, batch_on(batch_share(batch, mesh), device),
+                                 step_generator(flags.seed, step, device))
             if step % flags.log_freq == 0:
                 logged = {k: float(v) for k, v in aux.items()}
                 logged.update(step=step, epoch=epoch)

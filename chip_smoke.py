@@ -133,6 +133,21 @@ Phases, each printing one JSON line:
                (64, 321, 16, 32), both held by k1_check), the plain backward's share, one profiled step; then
                ResNet18 (models/resnet.py) in train mode at 64 x 64, batch 64, on the card against the CPU:
                outputs and updated batch_stats.
+ 21. distributed — training over several processes (arp_tpu_torch/parallel/): (a) a real NCCL world of one
+               started in-process on a free port of 127.0.0.1: the train phase's flagship step (float32 and
+               frozen_int8 towers, 128 x 4) unwrapped, wrapped by DistributedDataParallel and by FSDP2 over
+               the (1, 1) mesh, three AdamW steps each from one state, batch and generator: params within 1e-6
+               relative and the losses equal, ms a step and peak memory of each; the FSDP2 state saved whole
+               and restored unwrapped, bit for bit; one pretraining step (base model with the decoder, K1 at
+               head_dim 32) unwrapped, by DDP and by FSDP2; one fine-tuning step (32 quadruples, the VIP
+               loss's inner mean over the group) unwrapped and by DDP; one PPG minibatch step with the
+               gradients averaged over the group against the step without (bit for bit).  K1's and K2's
+               launches counted from 0 in the wrapped runs, their shapes held by k1_check / k2_check.
+               (b) two gloo ranks sharing the card (spawned processes on cuda:0, DDP, 64 of the 128 rows
+               each, three clipped-SGD steps) against one process on the 128 rows: params within 1e-4 of
+               one process's largest move, losses within 1e-5 relative, K1's launches in each rank; two
+               faults run in one process (rank 0's rows alone, as a rank that skips the all-reduce, and
+               half the batch) held above that bound; whether NCCL takes two ranks on one device.
 Each timed shape of k1, k2 and k3 also carries ``bound_ms``: the least time the
 card could take, the larger of the bytes the function must move over the memory
 rate and its operations over the peak rate of their type (PEAK below).
@@ -3462,6 +3477,512 @@ def phase_pretrain_m3ae(counters) -> tuple[dict, "LaunchShapes"]:
     return launches, noted
 
 
+# -- phase distributed: the train state wrapped for several processes ------------------------------------
+
+DIST_STEPS = 3  # steps of each variant held against the unwrapped run
+DIST_TIMED = 3  # steps timed after them (their median is ms a step)
+DIST_MODES = ("float32", "frozen_int8")  # the train phase's flagship towers that the wrappers run
+# A world of one process: the wrapper's all-reduce and FSDP2's all-gather and reduce-scatter over one rank
+# move the same float32 values, so the wrapped steps equal the unwrapped ones; held to 1e-6 relative.
+DIST_WORLD_OF_ONE_REL = 1e-6
+# Two ranks on one card over gloo (each on 64 of the 128 rows): the gradient is the sum of two halves,
+# averaged, against one process's sum over 128 rows: float32 rounding.  The params are held to 1e-4 of the
+# largest move of one process's params over the run (a tensor's own largest entry is no scale for a bias
+# that starts at 0); the card read 2.02e-5 there.  A rank that skips the all-reduce, or a step on half the
+# batch, must read above it: the phase runs both faults in one process and holds them there.  Losses: 1e-5.
+# SGD (clip 10, lr 0.01): Adam's first step turns a rounding of a near-zero gradient into +-lr.
+DIST_TWO_RANK_MOVE_REL, DIST_TWO_RANK_LOSS_REL = 1e-4, 1e-5
+DIST_SGD_LR, DIST_SGD_CLIP = 0.01, 10.0
+DIST_TWO_RANK_TIMEOUT_S = 600.0
+DIST_NCCL_PROBE_TIMEOUT_S = 90.0
+# what the two spawned ranks take from this module as the parent holds it (a CPU rehearsal shrinks them)
+DIST_SHARED = ("DEVICE", "SEED", "POLICY_BATCH", "POLICY_WINDOW", "POLICY_CFG", "POLICY_MODES", "M3AE_CFG", "M3AE_DIMS",
+               "TRAIN_FLAGS", "TRAIN_STEPS_PER_EPOCH", "CPU_FRAMES", "DIST_STEPS", "DIST_TIMED", "DIST_SGD_LR",
+               "DIST_SGD_CLIP")
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on now (the process group's store takes it)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ClippedSGD:
+    """``optax.chain(clip_by_global_norm(clip), sgd(lr))`` on the port's train state (the two-rank
+    comparison's optimizer): the norm over whole tensors, the step shard by shard."""
+
+    def __init__(self, lr: float, clip: float):
+        self.lr, self.clip = lr, clip
+
+    def init(self, params):
+        from arp_tpu_torch.train.common import AdamWState
+
+        return AdamWState(0, [], [])
+
+    @torch.no_grad()
+    def update(self, params, grads, state):
+        from arp_tpu_torch.parallel.step import local_part
+        from arp_tpu_torch.train.common import AdamWState, global_sum_of_squares
+
+        local = [local_part(g) for g in grads]
+        norm = torch.sqrt(global_sum_of_squares(local, list(grads)))
+        clipped = torch._foreach_mul(torch._foreach_div(local, norm), self.clip)
+        keep = norm < self.clip
+        steps = [torch.where(keep, g, c) for g, c in zip(local, clipped)]
+        torch._foreach_add_([local_part(p) for p in params], torch._foreach_mul(steps, -self.lr))
+        return AdamWState(state.count + 1, [], [])
+
+
+def max_rel_diff(got: dict, want: dict) -> float:
+    """The largest entry difference of two state dicts, each tensor's relative to its largest entry."""
+    return max(per_tensor_rel_diff(got, want).values(), default=0.0)
+
+
+def per_tensor_rel_diff(got: dict, want: dict) -> dict:
+    """Each tensor's largest entry difference relative to its largest entry (absolute where that is 0)."""
+    out = {}
+    for k, w in want.items():
+        g, w = torch.as_tensor(got[k]).double(), torch.as_tensor(w).double()
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        diff = float((g - w).abs().max()) if w.numel() else 0.0
+        out[k] = diff / scale if scale > 0 else diff
+    return out
+
+
+def rel_to_largest(got: dict, want: dict, start: dict = None) -> float:
+    """The largest entry difference of two state dicts relative to the largest entry of ``want`` (or,
+    given ``start``, to the largest move from ``start``)."""
+    diff = max((float((torch.as_tensor(got[k]).double() - torch.as_tensor(w).double()).abs().max())
+                for k, w in want.items() if torch.as_tensor(w).numel()), default=0.0)
+    ref = {k: torch.as_tensor(w).double() - (0 if start is None else torch.as_tensor(start[k]).double())
+           for k, w in want.items()}
+    scale = max((float(r.abs().max()) for r in ref.values() if r.numel()), default=0.0)
+    return diff / scale if scale > 0 else diff
+
+
+def peak_reset() -> None:
+    if DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes():
+    return torch.cuda.max_memory_allocated() if DEVICE != "cpu" else None
+
+
+def policy_setup(mode: str, pt: dict, raw: dict):
+    """(flags, schedule, augment, qpack) of the train phase's flagship at ``mode``."""
+    from arp_tpu_torch.ops.augment import make_augment_fn
+    from arp_tpu_torch.train import common
+
+    flags = train_flags(dict(POLICY_CFG, m3ae=M3AE_CFG, **POLICY_MODES[mode]))
+    schedule = common.build_lr_schedule(flags, TRAIN_STEPS_PER_EPOCH, TRAIN_STEPS_PER_EPOCH * flags.epochs)
+    augment = make_augment_fn(flags.data.augmentations, image_size=256, source_size=flags.data.image_size)
+    small = head_batch(raw, CPU_FRAMES // POLICY_WINDOW)
+    qpack = common.maybe_build_frozen_qpack(flags, small, use_goal=False, device=DEVICE, m3ae_loader=lambda name: pt)
+    return flags, schedule, augment, qpack
+
+
+def policy_model(flags, qpack, pt: dict, raw: dict, trained=None):
+    """The flagship policy on the card as the trainer builds it, its first forward run (the lazy layers take
+    their shapes), with ``trained`` loaded when given."""
+    from arp_tpu_torch.train import common
+
+    torch.manual_seed(SEED)
+    model = common.build_model(flags, 15, frozen_qpack=qpack, pt_variables=pt).to(DEVICE)
+    with torch.no_grad():
+        model(to_device(head_batch(raw, 1), DEVICE), deterministic=True)
+        if trained is not None:
+            model.load_trained_state_dict(trained)
+    return model
+
+
+def run_policy_steps(state, step, batch, steps: int, timed: int) -> dict:
+    """``steps`` steps, each drawing from the trainer's (SEED, step) generator, then ``timed`` more timed:
+    losses, ms, peak memory."""
+    from arp_tpu_torch.train.main import step_generator
+
+    losses = []
+    for i in range(steps):
+        _, aux = step(state, batch, step_generator(SEED, i, DEVICE))
+        losses.append(float(aux["loss"]))
+    sync()
+    peak_reset()
+    times = []
+    for i in range(steps, steps + timed):
+        t0 = time.perf_counter()
+        step(state, batch, step_generator(SEED, i, DEVICE))
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "ms": float(np.median(times)) if times else None, "step_ms": times,
+            "peak_memory_bytes": peak_bytes()}
+
+
+def run_variant(counters, shapes, launches: dict, wrapped: bool, state, step, batch, steps: int, timed: int) -> dict:
+    """:func:`run_policy_steps` of one variant and its gathered params; a wrapped variant's launches are
+    counted from 0 into ``launches`` and their shapes noted in ``shapes``."""
+    from arp_tpu_torch.parallel.mesh import gather_to_host
+
+    for fn in counters.values():
+        fn.launches = 0
+    if wrapped:
+        with shapes:
+            run = run_policy_steps(state, step, batch, steps, timed)
+        for name, n in launch_counts(counters).items():
+            launches[name] += n
+    else:
+        run = run_policy_steps(state, step, batch, steps, timed)
+    run["params"] = gather_to_host(state.model)
+    return run
+
+
+def hold_world_of_one(mode: str, out: dict, launches: dict, **info) -> None:
+    """Every wrapped run of ``out`` against ``out["unwrapped"]``: params within DIST_WORLD_OF_ONE_REL of
+    each tensor's largest entry and the losses equal; then the phase's line."""
+    base = out["unwrapped"]
+    for wrap, run in out.items():
+        if wrap == "unwrapped":
+            continue
+        run["max_rel_param_diff"] = max_rel_diff(run["params"], base["params"])
+        check(run["max_rel_param_diff"] <= DIST_WORLD_OF_ONE_REL,
+              f"distributed {mode} {wrap}: params {run['max_rel_param_diff']} relative from the unwrapped run's")
+        check(run["losses"] == base["losses"], f"distributed {mode} {wrap}: losses {run['losses']} != {base['losses']}")
+    emit("distributed", part="world_of_one", mode=mode, launches=launches, **info,
+         **{wrap: {k: v for k, v in run.items() if k != "params"} for wrap, run in out.items()})
+
+
+def world_of_one_policy(counters, shapes, mesh, mode: str, pt: dict, raw: dict, checkpoint_dir=None) -> dict:
+    """The flagship train step unwrapped, wrapped by DistributedDataParallel, and by FSDP2 over the (1, 1)
+    mesh, from one state, batch and generator: DIST_STEPS steps each, the wrapped runs' params and losses
+    against the unwrapped run's; ms a step and peak memory of each.  With ``checkpoint_dir`` the FSDP2
+    state is saved whole and restored into an unwrapped state: bit for bit.  Launches are counted (and
+    their shapes noted) in the wrapped runs."""
+    from arp_tpu_torch.checkpoint import CheckpointManager
+    from arp_tpu_torch.parallel.mesh import data_share, gather_to_host
+    from arp_tpu_torch.parallel.step import TrainState, fully_shard_train_state, make_train_step, shard_train_state
+    from arp_tpu_torch.train import common
+
+    flags, schedule, augment, qpack = policy_setup(mode, pt, raw)
+    batch = to_device(raw, DEVICE)
+    start = {k: v.detach().clone() for k, v in policy_model(flags, qpack, pt, raw).trained_state_dict().items()}
+    out, launches = {}, dict.fromkeys(counters, 0)
+    for wrap in ("unwrapped", "ddp", "fsdp"):
+        model = policy_model(flags, qpack, pt, raw, start)
+        state = TrainState.create(model, common.build_optimizer(flags, schedule, model))
+        # where the warmup ends (lr 5e-4): a step from 0 moves a parameter by lr(0) = 0
+        state.step = state.opt_state.count = TRAIN_FLAGS["warmup_epochs"] * TRAIN_STEPS_PER_EPOCH
+        on = None if wrap == "unwrapped" else mesh
+        # FSDP2 over the (1, 1) mesh: the fsdp path's own check, which one card can run
+        state = fully_shard_train_state(state, on) if wrap == "fsdp" else shard_train_state(state, on)
+        step = make_train_step(common.make_loss_fn(model, augment, 256, False, share=data_share(on)), mesh=on,
+                               learning_rate_fn=schedule)
+        out[wrap] = run = run_variant(counters, shapes, launches, on is not None, state, step, batch, DIST_STEPS,
+                                      DIST_TIMED)
+        if wrap == "fsdp" and checkpoint_dir is not None:
+            moments = gather_to_host(list(state.opt_state.mu) + list(state.opt_state.nu))
+            CheckpointManager(checkpoint_dir).save(state.step, state, metadata={"step": state.step})
+            fresh = policy_model(flags, qpack, pt, raw)
+            back = TrainState.create(fresh, common.build_optimizer(flags, schedule, fresh))
+            back, _ = CheckpointManager(checkpoint_dir).restore(back)
+            restored = list(back.opt_state.mu) + list(back.opt_state.nu)
+            run["checkpoint_bit_equal"] = (
+                all(torch.equal(run["params"][k], v.cpu()) for k, v in fresh.trained_state_dict().items())
+                and all(torch.equal(a, b.cpu()) for a, b in zip(moments, restored)))
+            check(run["checkpoint_bit_equal"], f"distributed {mode}: the FSDP2 checkpoint did not restore bit for bit")
+            del fresh, back
+        del model, state, step
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    hold_world_of_one(mode, out, launches, batch=POLICY_BATCH, window=POLICY_WINDOW)
+    return launches
+
+
+def world_of_one_pretrain(counters, shapes, mesh) -> dict:
+    """One M3AE pretraining step at the trainer's default model with the decoder (K1 at head_dim 32), batch
+    PRETRAIN_BATCH, unwrapped, by DistributedDataParallel and by FSDP2: params and losses held."""
+    from arp_tpu_torch.data.loader import DataLoader
+    from arp_tpu_torch.models import m3ae as m3ae_lib
+    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+    from arp_tpu_torch.parallel.step import TrainState, fully_shard_train_state, make_train_step, shard_train_state
+    from arp_tpu_torch.train import pretrain_m3ae as tpre
+    from arp_tpu_torch.train.common import warmup_cosine_decay_schedule
+
+    cfg = m3ae_lib.MaskedMultimodalAutoencoder.get_default_config(PRETRAIN_MODEL)
+    vocab, patch_dim = tpre.BERT_VOCAB_SIZE, PRETRAIN_PATCH * PRETRAIN_PATCH * 3
+    weights = flax_m3ae_to_torch(random_m3ae_variables(cfg, PRETRAIN_PATCH, vocab, SEED, decoder=True), decoder=True)
+    frames = np.random.default_rng(SEED).integers(0, 256, size=(PRETRAIN_BATCH, PRETRAIN_IMAGE, PRETRAIN_IMAGE, 3),
+                                                  dtype=np.uint8)
+    batch = tpre.batch_on(next(iter(DataLoader(tpre.FramesWithText(PretrainFrames(frames), PRETRAIN_TEXT),
+                                               PRETRAIN_BATCH, shuffle=False, num_workers=0))), DEVICE)
+    warmup = PRETRAIN_STEPS_PER_EPOCH
+    schedule = warmup_cosine_decay_schedule(0.0, PRETRAIN_LR, warmup, 10 * PRETRAIN_STEPS_PER_EPOCH)
+    out, launches = {}, dict.fromkeys(counters, 0)
+    for wrap in ("unwrapped", "ddp", "fsdp"):
+        model = m3ae_lib.MaskedMultimodalAutoencoder(cfg, text_vocab_size=vocab, image_output_dim=patch_dim,
+                                                     decoder=True)
+        model.load_state_dict(weights)
+        model.to(DEVICE)
+        state = TrainState.create(model, tpre.build_optimizer(model, schedule, PRETRAIN_WD))
+        state.step = state.opt_state.count = warmup
+        on = None if wrap == "unwrapped" else mesh
+        # FSDP2 over the (1, 1) mesh: the fsdp path's own check, which one card can run
+        state = fully_shard_train_state(state, on) if wrap == "fsdp" else shard_train_state(state, on)
+        step = make_train_step(tpre.make_loss_fn(PRETRAIN_IMAGE, PRETRAIN_PATCH), mesh=on, learning_rate_fn=schedule)
+        out[wrap] = run_variant(counters, shapes, launches, on is not None, state, step, batch, 1, 0)
+        del model, state, step
+        if DEVICE != "cpu":
+            torch.cuda.empty_cache()
+    hold_world_of_one("pretrain_m3ae", out, launches, batch=PRETRAIN_BATCH)
+    return launches
+
+
+def world_of_one_finetune(counters, shapes, mesh) -> dict:
+    """One ARP-DT+ fine-tuning step at the flagship widths (FT_BATCH quadruples of FT_FRAME px) unwrapped and
+    by DistributedDataParallel with the VIP loss's inner mean over the process group: params and loss held."""
+    from arp_tpu_torch.finetune.train import build_optimizer, make_loss_fn
+    from arp_tpu_torch.parallel.step import TrainState, make_train_step, shard_train_state
+
+    cfg, clip_state, adapter_state, tokens = ft_weights()
+    clip = ft_clip(cfg, clip_state, DEVICE)
+    batch = on_device(quadruples(FT_BATCH, FT_FRAME, tokens, SEED + 2), DEVICE)
+    out, launches = {}, dict.fromkeys(counters, 0)
+    for wrap in ("unwrapped", "ddp"):
+        adapter = ft_adapter(cfg, adapter_state, DEVICE)
+        on = None if wrap == "unwrapped" else mesh
+        if on is not None:
+            adapter.batch_group = on["dp"].get_group()
+        state = shard_train_state(TrainState.create(adapter, build_optimizer(adapter, FT_LR, FT_WD)), on)
+        step = make_train_step(make_loss_fn(clip, train=True), mesh=on)
+        out[wrap] = run_variant(counters, shapes, launches, on is not None, state, step, batch, 1, 0)
+        del adapter, state, step
+    hold_world_of_one("finetune", out, launches, quadruples=FT_BATCH)
+    del clip, batch
+    return launches
+
+
+def world_of_one_ppg() -> dict:
+    """One PPG minibatch step (PPO, 4,096 frames of 64 px) with the gradients averaged over the process
+    group, against the same step without: the updated params bit for bit, with cuDNN's deterministic
+    convolutions (its default backward adds in any order, so two runs of one step differ)."""
+    from arp_tpu_torch.collect import ppg as ppg_lib
+    from arp_tpu_torch.parallel.step import TrainState
+
+    config = ppg_lib.PPGConfig(num_envs=PPG_FLAGS["num_envs"], segment_length=PPG_FLAGS["segment_length"])
+    n = PPG_FLAGS["num_envs"] * PPG_FLAGS["segment_length"] // config.minibatches
+    rng = np.random.default_rng(SEED)
+    batch = {"obs": torch.from_numpy(rng.random((n, 64, 64, 3), dtype=np.float32)).to(DEVICE),
+             "act": torch.from_numpy(rng.integers(0, 15, size=n)).to(DEVICE),
+             "logp_old": torch.from_numpy(np.full(n, -np.log(15), np.float32)).to(DEVICE),
+             "adv": torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(DEVICE),
+             "vtarg": torch.from_numpy(rng.standard_normal(n, dtype=np.float32)).to(DEVICE)}
+    out = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for wrap, sync_fn in (("unwrapped", None), ("averaged", ppg_lib.average_over_ranks)):
+        model = ppg_lib.PhasicValueModel(num_actions=15, arch="dual", frame_shape=(64, 64, 3),
+                                         generator=torch.Generator().manual_seed(SEED)).to(DEVICE)
+        state = TrainState.create(model, ppg_lib.make_adam(config, len(list(model.parameters()))))
+        ppo_step = ppg_lib.make_ppg_steps(model, config, sync=sync_fn)[0]
+        ppo_step(state, batch)
+        sync()
+        t0 = time.perf_counter()
+        _, metrics = ppo_step(state, batch)
+        sync()
+        out[wrap] = {"ms": (time.perf_counter() - t0) * 1e3, "loss": float(metrics["loss"]),
+                     "params": {k: v.detach().cpu() for k, v in model.state_dict().items()}}
+        del model, state
+    torch.backends.cudnn.deterministic = deterministic
+    equal = all(torch.equal(out["averaged"]["params"][k], v) for k, v in out["unwrapped"]["params"].items())
+    check(equal and out["averaged"]["loss"] == out["unwrapped"]["loss"],
+          "distributed ppg: the averaged minibatch step differs from the unwrapped one")
+    emit("distributed", part="world_of_one", mode="ppg", minibatch=n, bit_equal=equal,
+         **{wrap: {k: v for k, v in run.items() if k != "params"} for wrap, run in out.items()})
+    return out
+
+
+def _two_rank_worker(rank: int, world: int, store: str, tmp: str) -> None:
+    """One of the two gloo ranks sharing the card: the flagship float32 step under DistributedDataParallel
+    on this rank's 64 of the 128 rows, DIST_STEPS clipped-SGD steps from the parent's state."""
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.parallel.distributed import initialize, shutdown
+    from arp_tpu_torch.parallel.mesh import MeshConfig, batch_share, create_mesh, data_share, gather_to_host
+    from arp_tpu_torch.parallel.step import TrainState, make_train_step, shard_train_state
+    from arp_tpu_torch.train import common
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize(init_method=f"file://{store}", num_processes=world, process_id=rank, device="cpu")
+    try:
+        given = torch.load(os.path.join(tmp, "two_rank_start.pt"), weights_only=False)
+        globals().update(given["shared"])
+        pt, raw = given["pt"], given["raw"]
+        mesh = create_mesh(MeshConfig(dp=-1), "cpu")  # gloo: the card's tensors go through the host
+        flags, _, augment, qpack = policy_setup("float32", pt, raw)
+        model = policy_model(flags, qpack, pt, raw, given["start"])
+        state = shard_train_state(TrainState.create(model, ClippedSGD(DIST_SGD_LR, DIST_SGD_CLIP)), mesh)
+        step = make_train_step(common.make_loss_fn(model, augment, 256, False, share=data_share(mesh)), mesh=mesh)
+        attn.flash_attention_fwd.launches = 0
+        run = run_policy_steps(state, step, to_device(batch_share(raw, mesh), DEVICE), DIST_STEPS, DIST_TIMED)
+        launches = attn.flash_attention_fwd.launches
+        run.update(params=gather_to_host(state.model), k1_launches=launches, rows=POLICY_BATCH // world)
+        torch.save(run, os.path.join(tmp, f"two_rank_{rank}.pt"))
+    finally:
+        shutdown()
+
+
+def one_process_policy_run(pt: dict, raw: dict, start: dict, share=(0, 1), timed: int = 0) -> dict:
+    """DIST_STEPS clipped-SGD steps of the flagship float32 step in this process from ``start`` on the rows
+    of ``raw``, as the ``share`` (index, count) of a global batch; the run and its params."""
+    from arp_tpu_torch.parallel.mesh import gather_to_host
+    from arp_tpu_torch.parallel.step import TrainState, make_train_step
+    from arp_tpu_torch.train import common
+
+    flags, _, augment, qpack = policy_setup("float32", pt, raw)
+    model = policy_model(flags, qpack, pt, raw, start)
+    state = TrainState.create(model, ClippedSGD(DIST_SGD_LR, DIST_SGD_CLIP))
+    step = make_train_step(common.make_loss_fn(model, augment, 256, False, share=share))
+    run = run_policy_steps(state, step, to_device(raw, DEVICE), DIST_STEPS, timed)
+    run["params"] = gather_to_host(state.model)
+    del model, state, step, qpack
+    if DEVICE != "cpu":
+        torch.cuda.empty_cache()
+    return run
+
+
+def two_ranks_on_one_card(pt: dict, raw: dict, tmp: str) -> dict:
+    """(b): the flagship float32 step over two gloo ranks that share the card (spawned processes, DDP,
+    64 rows each), against one process on the 128 rows from the same state and draws.  Two faults run in
+    one process show that the held figure sees a wrong average: rank 0's rows alone (a rank that skips
+    the all-reduce) and the first half of the batch as a batch of its own."""
+    flags, _, _, qpack = policy_setup("float32", pt, raw)
+    start = {k: v.detach().cpu().clone() for k, v in policy_model(flags, qpack, pt, raw).trained_state_dict().items()}
+    del qpack
+    one = one_process_policy_run(pt, raw, start, timed=DIST_TIMED)
+    half = head_batch(raw, POLICY_BATCH // 2)
+    faults = {name: rel_to_largest(one_process_policy_run(pt, half, start, share)["params"], one["params"], start)
+              for name, share in (("no_all_reduce", (0, 2)), ("half_the_batch", (0, 1)))}
+    torch.save({"pt": pt, "raw": raw, "start": start, "shared": {k: globals()[k] for k in DIST_SHARED}},
+               os.path.join(tmp, "two_rank_start.pt"))
+    t0 = time.perf_counter()
+    context = torch.multiprocessing.start_processes(_two_rank_worker, args=(2, os.path.join(tmp, "store2"), tmp),
+                                                    nprocs=2, join=False, start_method="spawn")
+    try:
+        while not context.join(timeout=5):
+            check(time.perf_counter() - t0 < DIST_TWO_RANK_TIMEOUT_S, "distributed two ranks: timed out")
+    finally:
+        for p in context.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = [torch.load(os.path.join(tmp, f"two_rank_{r}.pt"), weights_only=False) for r in range(2)]
+    diffs = [rel_to_largest(r["params"], one["params"]) for r in ranks]
+    moves = [rel_to_largest(r["params"], one["params"], start) for r in ranks]
+    tensors = per_tensor_rel_diff(ranks[0]["params"], one["params"])
+    worst = max(tensors, key=tensors.get)
+    loss_rel = [max(abs(a - b) / abs(b) for a, b in zip(r["losses"], one["losses"])) for r in ranks]
+    check(max(moves) <= DIST_TWO_RANK_MOVE_REL,
+          f"distributed two ranks: params {moves} of the largest move from one process's")
+    check(min(faults.values()) > DIST_TWO_RANK_MOVE_REL,
+          f"distributed two ranks: a wrong average reads {faults}, within the bound {DIST_TWO_RANK_MOVE_REL}")
+    check(max(loss_rel) <= DIST_TWO_RANK_LOSS_REL,
+          f"distributed two ranks: losses {loss_rel} relative from one process's")
+    k1 = [r["k1_launches"] for r in ranks]
+    check(min(k1) > 0, f"distributed two ranks: K1 launches {k1}")
+    out = {"one_process": {k: v for k, v in one.items() if k != "params"},
+           "ranks": [{k: v for k, v in r.items() if k != "params"} for r in ranks],
+           "param_diff_rel_to_largest_move": moves, "param_diff_rel_to_largest": diffs, "loss_rel_err": loss_rel,
+           "faults_rel_to_largest_move": faults,
+           "worst_tensor": {"name": worst, "rel_to_its_largest": tensors[worst],
+                            "its_largest": float(one["params"][worst].abs().max()),
+                            "its_largest_move": float((one["params"][worst] - start[worst]).abs().max())},
+           "seconds": time.perf_counter() - t0,
+           "optimizer": f"clipped SGD lr {DIST_SGD_LR} clip {DIST_SGD_CLIP}"}
+    emit("distributed", part="two_gloo_ranks_one_card", mode="float32", batch=POLICY_BATCH, **out)
+    return out
+
+
+def _nccl_probe_worker(rank: int, world: int, store: str) -> None:
+    from arp_tpu_torch.parallel.distributed import initialize, shutdown
+
+    initialize(init_method=f"file://{store}", num_processes=world, process_id=rank, device="cuda:0", timeout_s=60)
+    try:
+        t = torch.ones(1, device="cuda:0")
+        torch.distributed.all_reduce(t)
+        torch.cuda.synchronize()
+    finally:
+        shutdown()
+
+
+def nccl_two_ranks_one_card(tmp: str) -> dict:
+    """Whether NCCL takes two ranks on one device: two spawned processes on cuda:0, one all-reduce."""
+    t0 = time.perf_counter()
+    context = torch.multiprocessing.start_processes(_nccl_probe_worker, args=(2, os.path.join(tmp, "store_nccl")),
+                                                    nprocs=2, join=False, start_method="spawn")
+    outcome, error = "accepted", None
+    try:
+        while not context.join(timeout=5):
+            if time.perf_counter() - t0 > DIST_NCCL_PROBE_TIMEOUT_S:
+                outcome = "timed out"
+                break
+    except Exception as e:  # a rank raised: NCCL refused the layout
+        outcome, error = "refused", str(e)[-1500:]
+    finally:
+        for p in context.processes:
+            if p.is_alive():
+                p.kill()
+    duplicate = error is not None and "Duplicate GPU" in error
+    out = {"outcome": outcome, "duplicate_gpu_detected": duplicate, "error_tail": error,
+           "seconds": time.perf_counter() - t0}
+    emit("distributed", part="nccl_two_ranks_one_card", **out)
+    return out
+
+
+def phase_distributed(counters) -> tuple[dict, "LaunchShapes"]:
+    """(a) A real NCCL world of one started in-process: the flagship train step (float32 and frozen_int8
+    towers), a pretraining step, a fine-tuning step and a PPG minibatch step wrapped as several processes
+    wrap them, each held against its unwrapped step, and an FSDP2 checkpoint restored unwrapped; (b) two
+    gloo ranks sharing the card against one process; whether NCCL takes two ranks on one device.  Returns the
+    launches of (a)'s wrapped runs and their shapes."""
+    import tempfile
+
+    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+    from arp_tpu_torch.parallel.distributed import initialize, shutdown
+    from arp_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    pt = flax_m3ae_to_torch(random_m3ae_variables(M3AE_DIMS, 16, BERT_VOCAB, SEED))
+    raw, _ = policy_batch(POLICY_BATCH, POLICY_WINDOW, SEED)
+    shapes = LaunchShapes()
+    launches = dict.fromkeys(counters, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        t0 = time.perf_counter()
+        rank, world = initialize(coordinator_address=f"127.0.0.1:{port}", num_processes=1, process_id=0, device=DEVICE)
+        check((rank, world) == (0, 1), f"distributed: the world of one is {(rank, world)}")
+        backend = torch.distributed.get_backend()
+        check(backend == ("nccl" if DEVICE != "cpu" else "gloo"), f"distributed: backend {backend}")
+        mesh = create_mesh(MeshConfig(dp=1), DEVICE)
+        emit("distributed", part="start", backend=backend, port=port, mesh=list(mesh.shape),
+             seconds=time.perf_counter() - t0)
+        try:
+            for mode in DIST_MODES:
+                done = world_of_one_policy(counters, shapes, mesh, mode, pt, raw,
+                                           checkpoint_dir=os.path.join(tmp, "ckpt") if mode == "float32" else None)
+                for name, n in done.items():
+                    launches[name] += n
+            for done in (world_of_one_pretrain(counters, shapes, mesh), world_of_one_finetune(counters, shapes, mesh)):
+                for name, n in done.items():
+                    launches[name] += n
+            world_of_one_ppg()
+        finally:
+            shutdown()
+        two_ranks_on_one_card(pt, raw, tmp)
+        if DEVICE != "cpu":
+            nccl_two_ranks_one_card(tmp)
+    return launches, shapes
+
+
 def kernel_entry(name: str, launches: int, max_abs_err: float, timing: dict, **extra) -> dict:
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -3544,8 +4065,11 @@ def main() -> int:
                                                                     flax_to_torch, label_group)
     # M3AE pretraining: the train step at the JAX trainer's default model, and ResNet18's train-mode forward
     path_launches["pretrain_m3ae"], pretrain_shapes = phase_pretrain_m3ae(counters)
+    # several processes: the wrapped train states in a world of one over NCCL, two gloo ranks on the card
+    path_launches["distributed"], dist_shapes = phase_distributed(counters)
     for path, noted in (("rollout", shapes), ("reward_serve", serve_shapes), ("reference_checkpoint", ref_shapes),
-                        ("clip_resnet", resnet_shapes), ("pretrain_m3ae", pretrain_shapes)):
+                        ("clip_resnet", resnet_shapes), ("pretrain_m3ae", pretrain_shapes),
+                        ("distributed", dist_shapes)):
         unheld = sorted(set(noted.k1) - k1["checked"]) + sorted(set(noted.k2) - k2["checked"])
         check(not unheld, f"the {path} runs launched kernels at shapes that no check held against the plain "
               f"version: {unheld}")

@@ -815,3 +815,92 @@ def test_pretrain_m3ae_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert run["k1_plain_backward_share"] is None and run["peak_memory_bytes"] is None
     resnet = by_phase["resnet18_train_vs_cpu"]
     assert resnet["out_max_abs_err"] == 0.0 and resnet["batch_stats_max_abs_err"] == 0.0 and resnet["batch_stats_moved"]
+
+
+def test_free_port_is_free_and_a_world_of_one_starts_on_it():
+    """The distributed phase's start: a port nothing listens on, a process group of one over it (gloo on the
+    CPU, NCCL on the card), its (1, 1) mesh."""
+    import socket
+
+    from arp_tpu_torch.parallel.distributed import initialize, shutdown
+    from arp_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+
+    port = chip_smoke.free_port()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", port))  # free: binding succeeds
+    assert initialize(coordinator_address=f"127.0.0.1:{port}", num_processes=1, process_id=0, device="cpu") == (0, 1)
+    try:
+        assert torch.distributed.get_backend() == "gloo"
+        assert tuple(create_mesh(MeshConfig(dp=1), "cpu").shape) == (1, 1)
+    finally:
+        shutdown()
+    assert not torch.distributed.is_initialized()
+
+
+def test_max_rel_diff_is_each_tensor_s_relative_to_its_largest():
+    want = {"a": torch.tensor([2.0, -4.0]), "b": torch.zeros(3), "c": torch.ones(0)}
+    assert chip_smoke.max_rel_diff(want, want) == 0.0
+    assert chip_smoke.max_rel_diff({"a": torch.tensor([2.0, -3.0]), "b": torch.zeros(3), "c": torch.ones(0)},
+                                   want) == 0.25
+    assert chip_smoke.max_rel_diff({"a": want["a"], "b": torch.tensor([0.0, 1e-3, 0.0]), "c": torch.ones(0)},
+                                   want) == pytest.approx(1e-3)
+
+
+def test_distributed_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """The distributed phase end to end on the CPU at a tiny width over gloo: (a) the world of one, every
+    wrapped step against its unwrapped one (the same values: equal), the FSDP2 checkpoint restored unwrapped;
+    (b) two spawned ranks against one process within the phase's bound, which the two faults exceed.  What
+    only the card can show (K1's and K2's launches, NCCL, peak memory) is left out."""
+    import json
+
+    from arp_tpu_torch.models.clip import model as tclip_model
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import quantization, vit_infer
+
+    tiny = dict(embed_dim=16, vocab_size=600, vision_num_layers=2, vision_features=64, vision_patch_size=16,
+                text_features=16, text_num_heads=4, text_num_layers=2)
+    monkeypatch.setitem(tclip_model.CONFIGS, "tiny_smoke", tiny)
+    for name, value in dict(DEVICE="cpu", M3AE_DIMS=TINY_M3AE, M3AE_CFG=dict(model_type=None, **TINY_M3AE),
+                            CPU_FRAMES=2, POLICY_BATCH=4, POLICY_WINDOW=2, DIST_TIMED=1,
+                            PRETRAIN_MODEL=dict(model_type="custom", emb_dim=32, depth=2, num_heads=4, dec_emb_dim=16,
+                                                dec_depth=1, dec_num_heads=2, mlp_ratio=2),
+                            PRETRAIN_BATCH=2, PRETRAIN_IMAGE=32, PRETRAIN_PATCH=8, PRETRAIN_TEXT=16,
+                            FT_CLIP="tiny_smoke", FT_BATCH=2, FT_FRAME=40,
+                            PPG_FLAGS=dict(chip_smoke.PPG_FLAGS, num_envs=2, segment_length=4)).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    real_check = chip_smoke.check
+    monkeypatch.setattr(chip_smoke, "check", lambda ok, what: real_check(ok or "launch" in what, what))
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
+                "int8_matmul": quantization.int8_matmul}
+    launches, noted = chip_smoke.phase_distributed(counters)
+    # on the CPU nothing launches; attention never reaches K1's wrapper, and K2's takes its plain version at the
+    # frozen_int8 tower's sites (M = 4 x 2 frames x 257 tokens)
+    assert launches == dict.fromkeys(counters, 0) and not noted.k1 and noted.k2
+    assert not torch.distributed.is_initialized()
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    parts = [line for line in lines if line["phase"] == "distributed"]
+    assert parts[0]["part"] == "start" and parts[0]["backend"] == "gloo" and parts[0]["mesh"] == [1, 1]
+    one = {p["mode"]: p for p in parts if p.get("part") == "world_of_one"}
+    assert list(one) == ["float32", "frozen_int8", "pretrain_m3ae", "finetune", "ppg"]
+    for mode in ("float32", "frozen_int8", "pretrain_m3ae"):
+        for wrap in ("ddp", "fsdp"):
+            assert one[mode][wrap]["max_rel_param_diff"] == 0.0
+            assert one[mode][wrap]["losses"] == one[mode]["unwrapped"]["losses"]
+    assert one["float32"]["fsdp"]["checkpoint_bit_equal"] and one["float32"]["ddp"]["ms"] > 0
+    assert one["finetune"]["ddp"]["max_rel_param_diff"] == 0.0 and one["ppg"]["bit_equal"]
+    two = [p for p in parts if p.get("part") == "two_gloo_ranks_one_card"][0]
+    assert max(two["param_diff_rel_to_largest_move"]) <= chip_smoke.DIST_TWO_RANK_MOVE_REL and two["worst_tensor"]["name"]
+    # the held figure sees a wrong average: a rank that skips the all-reduce, a step on half the batch
+    assert set(two["faults_rel_to_largest_move"]) == {"no_all_reduce", "half_the_batch"}
+    assert min(two["faults_rel_to_largest_move"].values()) > chip_smoke.DIST_TWO_RANK_MOVE_REL
+    assert [r["rows"] for r in two["ranks"]] == [2, 2] and len(two["one_process"]["losses"]) == chip_smoke.DIST_STEPS
+    assert not [p for p in parts if p.get("part") == "nccl_two_ranks_one_card"]  # the card's probe only
+
+
+def test_distributed_phase_joins_the_path_launches_and_the_held_shapes():
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert 'path_launches["distributed"], dist_shapes = phase_distributed(counters)' in src
+    assert '("distributed", dist_shapes)' in src
+    assert "distributed" not in src.split("path_kernels = ")[1].split("}")[0]  # K1 and K2 both, as the train path

@@ -3,7 +3,7 @@
 As tests/test_collect.py::test_train_ppg_and_collect_clis: the CLIs run in subprocesses on the CPU
 (``--device=cpu``).  The port's ``--checkpoint_path`` pickle is read by JAX's ``eval_ppg.evaluate``
 and JAX's pickle by the port's, with the same greedy metrics; ``collect`` with one pickle writes the
-JAX CLI's HDF5 datasets; ``--mesh_dp=2`` raises and names item 12.
+JAX CLI's HDF5 datasets; ``--mesh_dp=2`` in one process fails the mesh's assertion.
 """
 
 import os
@@ -107,7 +107,8 @@ def test_collect_writes_the_jax_cli_s_datasets(trained, tmp_path):
 def test_mesh_dp_raises_and_names_item_12(tmp_path):
     from arp_tpu_torch.collect import train_ppg
 
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # item 12a ported --mesh_dp as torchrun's world: in one process it fails JAX's mesh assertion
+    with pytest.raises(AssertionError, match="mesh 2x1x1x1 != 1 devices"):
         train_ppg.main(["--device=cpu", "--mesh_dp=2", f"--logging.output_dir={tmp_path}"])
 
 

@@ -387,7 +387,8 @@ def test_finetune_cli_trains_and_writes_best_and_final(finetuned):
 
 
 def test_unported_paths_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    # several processes are ported; in one, --mesh_dp=2 fails JAX's mesh assertion
+    with pytest.raises(AssertionError, match="mesh 2x1x1x1 != 1 devices"):
         tft.main(["--device=cpu", "--mesh_dp=2"])
     orbax_like = tmp_path / "orbax"
     (orbax_like / "best").mkdir(parents=True)

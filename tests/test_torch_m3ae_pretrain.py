@@ -368,5 +368,6 @@ def test_cli_pretrains_logs_and_checkpoints_in_process(tmp_path):
 
 @pytest.mark.parametrize("flag", ["--mesh_dp=2", "--mesh_fsdp=4"])
 def test_several_devices_raise(flag):
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """In one process, as JAX's mesh on one device (several processes: tests/test_torch_parallel_trainers.py)."""
+    with pytest.raises(AssertionError, match="1 devices"):
         tpre.main([flag, "--device=cpu"])
