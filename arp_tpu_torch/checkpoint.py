@@ -73,19 +73,23 @@ def _atomic_save(obj, path: str) -> str:
 
 
 def policy_payload(step: int, model) -> dict:
-    """What every ``step_<n>.pt`` holds: the step and the policy's trained state dict."""
-    return {"step": int(step), "state": gather_to_host(model.trained_state_dict())}
+    """What every ``step_<n>.pt`` holds: the step and the policy's full trained state dict (the flat
+    model's, whatever the layout: fsdp shards, tp shares and pp stages gathered)."""
+    return {"step": int(step), "state": gather_to_host(model)}
 
 
 def state_payload(state, metadata: Optional[dict] = None) -> dict:
-    """A train state as one host dict: :func:`policy_payload`, the optimizer's count and moments
+    """A train state as one host dict: :func:`policy_payload`, the optimizer's count and full moments
     keyed by parameter name, and the metadata."""
+    from .parallel.mesh import gather_named, split_of
+
+    splits = {n: split_of(p) for n, p in state.params if split_of(p) is not None}
     names = [n for n, _ in state.params]
     opt = state.opt_state
     return dict(
         policy_payload(state.step, state.model),
-        optimizer={"count": int(opt.count), "mu": dict(zip(names, gather_to_host(list(opt.mu)))),
-                   "nu": dict(zip(names, gather_to_host(list(opt.nu))))},
+        optimizer={"count": int(opt.count), "mu": gather_named(dict(zip(names, opt.mu)), splits),
+                   "nu": gather_named(dict(zip(names, opt.nu)), splits)},
         metadata=dict(metadata or {}),
     )
 
@@ -170,15 +174,17 @@ class CheckpointManager:
 
     def restore(self, state, step: Optional[int] = None):
         """Load a saved step into ``state`` (model, optimizer, step) in place, each tensor laid out as
-        the state's (sharded or not); returns (state, metadata)."""
-        from .parallel.mesh import distribute_like, load_full_state
+        the state's (sharded, split over tp, a pp stage or whole); returns (state, metadata)."""
+        from .parallel.mesh import distribute_like, load_full_state, split_of
         from .parallel.step import unwrap
 
         saved = _load_step(self.directory, step)
         load_full_state(unwrap(state.model), saved["state"])
         opt = saved["optimizer"]
         names = [n for n, _ in state.params]
-        if sorted(names) != sorted(opt["mu"]):
+        staged = any(split_of(p) is not None and split_of(p).axis == "pp" for _, p in state.params)
+        # a pp stage holds its own blocks' moments; the file holds every stage's
+        if not set(names) <= set(opt["mu"]) or (not staged and len(names) != len(opt["mu"])):
             raise RuntimeError("the checkpoint's optimizer state does not fit the model's trained parameters")
         params = [p for _, p in state.params]
         state.opt_state = type(state.opt_state)(int(opt["count"]),
@@ -251,10 +257,12 @@ def reference_policy_state(data: dict) -> dict:
 
 
 def save_reference_checkpoint(path: str, params, *, step: int = 0, epoch: int = 0, variant: Optional[dict] = None,
-                              ensemble_mode: str = "require_tied") -> None:
+                              ensemble_mode: str = "require_tied", pp_stages: int = 1) -> None:
     """Export policy params as a reference-format pickle checkpoint.
 
-    ``params``: the policy's state dict (``trained_state_dict()``).  Writes ``{"step", "epoch", "variant", "state"}``, ``state`` a flax ``TrainState`` when
+    ``params``: the policy's state dict (``trained_state_dict()``), or the policy itself (laid out over a
+    mesh or not; every rank calls it then).  ``pp_stages`` above 1 writes the blocks stacked, as the JAX
+    package writes a pipelined policy (``policy/stacked_blocks``).  Writes ``{"step", "epoch", "variant", "state"}``, ``state`` a flax ``TrainState`` when
     unpickled with flax (the JAX package's ``load_reference_checkpoint`` and trainer, the
     reference's eval driver read ``state.params``), with ``step`` 0 and the params renamed to the
     reference's names as float32 numpy (models/policy/convert.py::export_reference_policy_params,
@@ -266,7 +274,7 @@ def save_reference_checkpoint(path: str, params, *, step: int = 0, epoch: int = 
     """
     from .models.policy.convert import export_reference_policy_params, torch_policy_to_flax
 
-    params = gather_to_host(params)  # a sharded state whole (every rank calls it then)
-    exported = export_reference_policy_params(torch_policy_to_flax(params), ensemble_mode=ensemble_mode)
+    params = gather_to_host(params)  # a laid-out state whole (every rank calls it then)
+    exported = export_reference_policy_params(torch_policy_to_flax(params, pp_stages), ensemble_mode=ensemble_mode)
     state = _pickle_compat.ReferenceTrainState(step=0, apply_fn=None, params=exported, tx=None, opt_state=None)
     save_pickle({"step": int(step), "epoch": int(epoch), "variant": dict(variant or {}), "state": state}, path)

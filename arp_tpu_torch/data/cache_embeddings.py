@@ -52,20 +52,22 @@ def main(argv=None):
                    help="w8a8 attention on the int8 fast path (needs --fast_int8). Unset = the engine's "
                         "default (True under --fast_int8, as in arp_tpu)")
     p.add_argument("--mesh_dp", type=int, default=0,
-                   help="data-parallel encoding over several devices: not ported (ROADMAP Queue 1, item 12b)")
+                   help="shard encode batches data-parallel over this many local devices of --device "
+                        "(-1 = all; 0 = one device, no mesh)")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.mesh_dp != 0:
-        raise NotImplementedError("--mesh_dp (encoding over several devices) is not ported yet (ROADMAP Queue 1, "
-                                  "item 12b)")
-
+    from ..parallel.mesh import mesh_from_count
     from ..reward.engine import ClipRewardEngine
+
+    mesh = mesh_from_count(args.mesh_dp, device_type=torch.device(args.device).type)
+    if mesh is not None:
+        print(f"[INFO] encoding data-parallel over {mesh.size} devices")
 
     # the weights: the local OpenAI checkpoint of --model_name (models/clip/model.py::load_model_vars)
     engine = ClipRewardEngine(model_name=args.model_name, batch_size=args.batch_size, resize_mode="pil",
                               device=args.device, compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
                               fast_encode=args.fast, fast_int8=args.fast_int8, fast_score_bf16=args.fast_score_bf16,
-                              fast_int8_attn=args.fast_int8_attn)
+                              fast_int8_attn=args.fast_int8_attn, mesh=mesh)
     stats = cache_clip_embeddings(args.data_path, engine, args.image_keys)
     print(f"[DONE] cached embeddings: {stats}")
 

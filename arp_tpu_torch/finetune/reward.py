@@ -15,7 +15,9 @@ batching, host stage and reward functions are its own.  As in the JAX engine:
   * features come back L2-normalized whatever ``normalize`` asks;
   * text rewards are ``exp(CLIP logit_scale) * cos`` of the adapter features.
 
-``mesh`` raises (a local-device mesh is ROADMAP Queue 1, item 12b).
+``mesh`` (parallel/mesh.py::mesh_from_count) is the base class's data parallelism
+over local devices: each device holds its replica of the CLIP module, the packed
+trunk and the adapter.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from ..checkpoint import latest_step, load_best_state, load_policy_state
 from ..models.clip.model import CLIP, CONFIGS, load_model_vars
-from ..reward.engine import ClipRewardEngine
+from ..reward.engine import ClipRewardEngine, _mesh_devices
 from .adapter_model import ClipMultiscaleAdapter
 from .convert import flax_adapter_to_torch
 
@@ -81,7 +83,7 @@ class ClipFtRewardEngine(ClipRewardEngine):
                  clip_config: Optional[dict] = None, model: Optional[CLIP] = None,
                  device: Union[str, torch.device] = "cuda", mesh=None):
         if mesh is not None:
-            raise NotImplementedError("ClipFtRewardEngine(mesh) is not ported yet (ROADMAP Queue 1, item 12b)")
+            device = _mesh_devices(mesh)[0]
         cfg = clip_config or CONFIGS[clip_model_name]
         if model is None:
             model = CLIP(**cfg, image_size=image_size)
@@ -97,6 +99,9 @@ class ClipFtRewardEngine(ClipRewardEngine):
             self._init_packed_trunk(torch.bfloat16, fast_int8, fast_score_bf16, fast_int8_attn)
         trunk = "module;float32" if self._fast is None else f"packed;{self._packed_recipe()}"
         self._recipe = f"torch;clip_ft;{trunk};resize=fast;crop={int(use_crop)}"
+        self._init_mesh(mesh)  # after the adapter and the trunk: every replica copies them
+
+    _replicated_modules = ("adapter",)
 
     @torch.inference_mode()
     def _encode_chunk(self, frames: torch.Tensor, normalize: bool) -> torch.Tensor:

@@ -19,13 +19,20 @@ models/policy/convert.py for how the leaves map.  As in the Flax layers:
     ``generator`` the caller passes down (Flax: the "dropout" and "drop_path"
     rngs); without one, torch's global generator.
 
-:class:`MLP` is the M3AE decoders' output head.  Not ported:
-``PipelinedTransformer`` and its stack/unstack helpers (several devices).
+:class:`MLP` is the M3AE decoders' output head.
+
+Several devices: an ``Attention`` or ``FeedForward`` whose ``tp`` is set holds
+its tp share of the heads or hidden units (parallel/tensor_parallel.py);
+:class:`PipelinedTransformer` runs its stage of the block stack over the
+mesh's pp axis (parallel/pipeline.py), and :func:`stack_transformer_params` /
+:func:`unstack_transformer_params` move Flax trees between the flat layout and
+JAX's ``stacked_blocks``.
 """
 
 from __future__ import annotations
 
 import math
+from collections.abc import Mapping
 from typing import Optional
 
 import torch
@@ -34,6 +41,7 @@ from torch import nn
 
 from ..ops.attention import dot_product_attention, reference_attention
 from ..ops.masks import MaskSpec, combine_padding, materialize_mask
+from ..parallel.tensor_parallel import copy_to_tp, row_parallel
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
 
@@ -63,14 +71,25 @@ def dense(x: torch.Tensor, linear: nn.Linear, dtype: Optional[torch.dtype] = Non
     return F.linear(x.to(dt), linear.weight.to(dt), bias)
 
 
-def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Flax ``nn.Dropout``: keep each entry with probability 1 - rate, scaled by 1 / (1 - rate)."""
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator] = None, tp=None,
+            dim: int = -1) -> torch.Tensor:
+    """Flax ``nn.Dropout``: keep each entry with probability 1 - rate, scaled by 1 / (1 - rate).
+
+    ``tp`` (a module's tp share, parallel/mesh.py::Split): ``x`` is share ``tp.rank`` of ``tp.size``
+    contiguous ones along ``dim`` of the unsplit model's tensor.  The mask is drawn at the full width, as
+    the unsplit model draws it, and this rank keeps its share: every tp rank drops what one process drops,
+    and the generator's later draws stay one process's."""
     if rate == 0.0:
         return x
     if rate == 1.0:
         return torch.zeros_like(x)
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, device=x.device, generator=generator) < keep_prob
+    shape = list(x.shape)
+    if tp is not None:
+        shape[dim] *= tp.size
+    keep = torch.rand(shape, device=x.device, generator=generator) < keep_prob
+    if tp is not None:
+        keep = keep.narrow(dim, tp.rank * x.shape[dim], x.shape[dim])
     return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -90,6 +109,7 @@ class FeedForward(nn.Module):
         if activation not in ("gelu", "quick_gelu"):
             raise ValueError(activation)
         self.activation, self.dropout, self.dtype = activation, dropout, dtype
+        self.tp = None  # its Split once split over tp: fc1 column- and fc2 row-parallel
         self.fc1 = nn.Linear(in_dim, dim, bias=use_bias)
         self.fc2 = nn.Linear(dim, out_dim, bias=use_bias)
         for fc in (self.fc1, self.fc2):
@@ -99,10 +119,10 @@ class FeedForward(nn.Module):
 
     def forward(self, x, deterministic: bool = True, generator: Optional[torch.Generator] = None):
         drop = 0.0 if deterministic else self.dropout
-        x = dense(x, self.fc1, self.dtype)
+        x = dense(copy_to_tp(x, self.tp), self.fc1, self.dtype)
         x = F.gelu(x, approximate="tanh") if self.activation == "gelu" else x * torch.sigmoid(1.702 * x)
-        x = dropout(x, drop, generator)
-        x = dense(x, self.fc2, self.dtype)
+        x = dropout(x, drop, generator, self.tp)
+        x = dense(x, self.fc2, self.dtype) if self.tp is None else row_parallel(x, self.fc2, self.dtype, self.tp)
         return dropout(x, drop, generator)
 
 
@@ -135,6 +155,7 @@ class Attention(nn.Module):
         self.dim, self.num_heads = dim, num_heads
         self.att_drop, self.proj_drop, self.alibi_bias = att_drop, proj_drop, alibi_bias
         self.dtype, self.score_dtype = dtype, score_dtype
+        self.tp = None  # its Split once split over tp: this rank's heads in qkv, attn_out row-parallel
         self.qkv = DenseQKV(dim, dim, use_bias=use_bias, dtype=dtype)
         self.attn_out = nn.Linear(dim, dim, bias=use_bias)
         nn.init.normal_(self.attn_out.weight, std=dim ** -0.5)
@@ -145,15 +166,20 @@ class Attention(nn.Module):
                 generator: Optional[torch.Generator] = None):
         b, n, _ = x.shape
         head_dim = self.dim // self.num_heads
-        q, k, v = (t.view(b, n, self.num_heads, head_dim) for t in self.qkv(x))
+        heads, first = self.num_heads, 0
+        if self.tp is not None:  # this rank's heads
+            heads = self.num_heads // self.tp.size
+            first = self.tp.rank * heads
+        q, k, v = (t.view(b, n, heads, head_dim) for t in self.qkv(copy_to_tp(x, self.tp)))
         score_dtype = self.score_dtype or torch.float32
 
         bias = None
         if self.alibi_bias:
             # slope_h * k_index, independent of q, added to the already-scaled scores
-            slopes = torch.tensor(get_attention_slopes(self.num_heads), dtype=torch.float32, device=x.device)
+            slopes = torch.tensor(get_attention_slopes(self.num_heads)[first:first + heads], dtype=torch.float32,
+                                  device=x.device)
             bias = (slopes[:, None, None] * torch.arange(n, dtype=torch.float32, device=x.device)[None, None, :])[None]
-            bias = bias.expand(1, self.num_heads, n, n)
+            bias = bias.expand(1, heads, n, n)
 
         if self.att_drop > 0 and not deterministic:
             # dropout on the attention probabilities: the plain attention, spelled out
@@ -162,14 +188,18 @@ class Attention(nn.Module):
                 s = s + bias
             mask = combine_padding(materialize_mask(mask_spec, n, device=x.device)[None, None], kv_padding)
             s = torch.where(mask, s, torch.tensor(torch.finfo(s.dtype).min, dtype=s.dtype, device=s.device))
-            p = dropout(torch.softmax(s, dim=-1), self.att_drop, generator)
+            p = dropout(torch.softmax(s, dim=-1), self.att_drop, generator, self.tp, dim=1)
             out = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype), v)
         elif bias is not None:
             # kernel K1 takes no dense bias, as the Pallas kernel takes none
             out = reference_attention(q, k, v, mask_spec, kv_padding, bias=bias, score_dtype=score_dtype)
         else:
             out = dot_product_attention(q, k, v, spec=mask_spec, kv_padding=kv_padding, score_dtype=score_dtype)
-        out = dense(out.reshape(b, n, self.dim), self.attn_out, self.dtype)
+        out = out.reshape(b, n, heads * head_dim)
+        if self.tp is None:
+            out = dense(out, self.attn_out, self.dtype)
+        else:
+            out = row_parallel(out, self.attn_out, self.dtype, self.tp)
         return dropout(out, 0.0 if deterministic else self.proj_drop, generator)
 
 
@@ -284,6 +314,109 @@ class Transformer(nn.Module):
                 intermediates.append(x)
         out = layer_norm(x, self.norm, self.ln_dtype)
         return (out, intermediates) if return_intermediates else out
+
+
+class PipelinedTransformer(nn.Module):
+    """:class:`Transformer`'s stack pipelined over the mesh's ``pp`` axis (JAX's ``PipelinedTransformer``).
+
+    The same math as :class:`Transformer`: stage s of ``stages`` holds blocks ``s * depth / stages`` ..
+    under their flat names (``blocks_i``), so the state of every stage together is the flat stack's;
+    microbatches (``gcd(batch, microbatches)`` of them) cross the stages by
+    parallel/pipeline.py::pipeline_apply, and every pp rank applies ``norm`` to the outputs.  Every
+    block is built, in the flat stack's order, before the other stages' are dropped: a seed gives the
+    flat stack's initial weights, and the parameters built after it are alike on every stage.  JAX's
+    Flax tree holds the blocks stacked (``stacked_blocks``, leading axes (stages, depth / stages)):
+    :func:`stack_transformer_params` and :func:`unstack_transformer_params` move between the two.
+
+    Dropout and drop-path must be 0, as JAX refuses them (no random stream crosses the pipelined
+    region); ``remat`` runs each stage again on the backward pass.
+    """
+
+    def __init__(self, emb_dim: int = 1024, depth: int = 24, num_heads: int = 16, mlp_ratio: int = 4,
+                 alibi_bias: bool = False, mlp_bias: bool = False, activation: str = "gelu", stages: int = 2,
+                 microbatches: int = 2, mesh=None, remat: bool = False, compute_dtype: Optional[torch.dtype] = None,
+                 att_drop: float = 0.0, drop: float = 0.0, drop_path: float = 0.0):
+        super().__init__()
+        if att_drop or drop or drop_path:
+            raise ValueError("a pipelined transformer needs dropout and drop_path disabled (no random stream "
+                             "crosses the pipelined region, as in JAX)")
+        if mesh is None:
+            raise ValueError("PipelinedTransformer needs the device mesh (its pp axis)")
+        pp = mesh["pp"]
+        if pp.size() != stages or depth % stages:
+            raise ValueError(f"depth {depth} in {stages} stages over a pp axis of {pp.size()}")
+        from ..parallel.mesh import Split
+
+        self.mesh, self.stages, self.microbatches, self.remat = mesh, stages, microbatches, remat
+        per = depth // stages
+        self.stage = pp.get_local_rank()
+        self.own = list(range(self.stage * per, (self.stage + 1) * per))
+        split = Split("pp", pp.get_group(), stages, self.stage)
+        for i in range(depth):
+            block = Block(emb_dim, num_heads, mlp_ratio, alibi_bias=alibi_bias, mlp_bias=mlp_bias,
+                          activation=activation, compute_dtype=compute_dtype)
+            if i in self.own:
+                for p in block.parameters():
+                    p.mesh_split = split
+                self.add_module(f"blocks_{i}", block)
+        self.norm = nn.LayerNorm(emb_dim, eps=LN_EPS)
+
+    def forward(self, x, deterministic: bool = True, mask_spec: MaskSpec = MaskSpec("causal"), kv_padding=None,
+                return_intermediates: bool = False, generator: Optional[torch.Generator] = None):
+        from ..parallel.pipeline import pipeline_apply
+
+        del deterministic, generator  # no dropout here
+        if kv_padding is not None or return_intermediates:
+            raise ValueError("the pipelined stack takes no key padding and returns no intermediates")
+        blocks = [getattr(self, f"blocks_{i}") for i in self.own]
+
+        def stage_fn(act):
+            for block in blocks:
+                act = block(act, True, mask_spec)
+            return act
+
+        params = [p for block in blocks for p in block.parameters() if p.requires_grad]
+        # the batch splits into microbatches; a small batch (the first forward's) into fewer
+        x = pipeline_apply(stage_fn, params, x, self.mesh, math.gcd(x.shape[0], self.microbatches), remat=self.remat)
+        return layer_norm(x, self.norm, None)
+
+
+def stack_transformer_params(params: dict, stages: int) -> dict:
+    """A flat :class:`Transformer` Flax tree (``blocks_i/...``, ``norm``; numpy) -> JAX's
+    ``PipelinedTransformer`` layout (``stacked_blocks`` with leading axes (stages, depth / stages), ``norm``)."""
+    import numpy as np
+
+    depth = len([k for k in params if k.startswith("blocks_")])
+    if depth % stages:
+        raise ValueError(f"depth {depth} does not split into {stages} stages")
+
+    def stack(*leaves):
+        if isinstance(leaves[0], Mapping):
+            return {k: stack(*(leaf[k] for leaf in leaves)) for k in leaves[0]}
+        arr = np.stack([np.asarray(leaf) for leaf in leaves])
+        return arr.reshape((stages, depth // stages) + arr.shape[1:])
+
+    return {"stacked_blocks": stack(*(params[f"blocks_{i}"] for i in range(depth))), "norm": params["norm"]}
+
+
+def unstack_transformer_params(params: dict) -> dict:
+    """Inverse of :func:`stack_transformer_params`."""
+    import numpy as np
+
+    def first_leaf(tree):
+        return first_leaf(next(iter(tree.values()))) if isinstance(tree, Mapping) else np.asarray(tree)
+
+    stacked = params["stacked_blocks"]
+    s, per = first_leaf(stacked).shape[:2]
+
+    def pick(tree, i):
+        if isinstance(tree, Mapping):
+            return {k: pick(v, i) for k, v in tree.items()}
+        return np.asarray(tree)[i // per, i % per]
+
+    out = {f"blocks_{i}": pick(stacked, i) for i in range(s * per)}
+    out["norm"] = params["norm"]
+    return out
 
 
 class AdapterMLP(nn.Module):

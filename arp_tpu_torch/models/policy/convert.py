@@ -86,9 +86,16 @@ def flax_policy_to_torch(params: Mapping) -> dict[str, torch.Tensor]:
 
     A tower trained inside the policy (``use_from_scratch``) sits under
     ``pt_model`` and converts by the same rules; a CLIP tower keeps its q/k/v
-    Dense kernels apart, an M3AE tower its fused ``qkv/kernel``.
+    Dense kernels apart, an M3AE tower its fused ``qkv/kernel``.  A pipelined
+    policy's ``policy/stacked_blocks`` (JAX's ``pp_stages > 1`` layout) comes
+    out under the flat names ``policy.blocks_i``, which every layout of the port loads.
     """
-    return flax_params_to_torch(params, skip=lambda path: path[0] == "pt_model" and _is_decoder_leaf(path[1:]))
+    from ..layers import unstack_transformer_params
+
+    tree = params["params"] if "params" in params else params
+    if "policy" in tree and "stacked_blocks" in tree["policy"]:
+        tree = dict(tree, policy=unstack_transformer_params(tree["policy"]))
+    return flax_params_to_torch(tree, skip=lambda path: path[0] == "pt_model" and _is_decoder_leaf(path[1:]))
 
 
 # the Embed modules: the discrete actions' (the reference's policies act in Procgen's 15) and the towers' tokens
@@ -119,10 +126,13 @@ def flax_path(name: str, ndim: int) -> tuple:
     return (*mods, leaf)
 
 
-def torch_policy_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
+def torch_policy_to_flax(state: Mapping[str, torch.Tensor], pp_stages: int = 1) -> dict:
     """A policy (or M3AE / MAE) state dict -> its ``params`` tree in the Flax layout, float32 numpy:
     the inverse of :func:`flax_policy_to_torch` and :func:`flax_m3ae_to_torch`, leaf for leaf, the
-    names by :func:`flax_path` (Dense kernels transposed, Conv kernels OIHW -> HWIO)."""
+    names by :func:`flax_path` (Dense kernels transposed, Conv kernels OIHW -> HWIO).  ``pp_stages``
+    above 1 writes the policy's blocks stacked in that many stages, JAX's pipelined layout."""
+    from ..layers import stack_transformer_params
+
     flat = {}
     for name, value in state.items():
         arr = value.detach().to("cpu", torch.float32).numpy()
@@ -130,7 +140,10 @@ def torch_policy_to_flax(state: Mapping[str, torch.Tensor]) -> dict:
         if path[-1] == "kernel" and not name.endswith("kernel"):
             arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
         flat[path] = np.array(arr, order="C")
-    return _unflatten(flat)
+    tree = _unflatten(flat)
+    if pp_stages > 1:
+        tree["policy"] = stack_transformer_params(tree["policy"], pp_stages)
+    return tree
 
 
 def convert_reference_policy_params(ref_params, num_ensembles: int = 5) -> dict:

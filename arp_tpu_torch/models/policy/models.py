@@ -24,7 +24,9 @@ before ``load_trained_state_dict``); a frozen tower is a submodule with
 ``requires_grad`` off, cast once at construction, and its weights come from
 ``pt_variables`` (a state dict) or from the loader of its family; the batch
 may hold numpy arrays or tensors and is moved to the module's device.
-``pp_stages > 1`` (pipeline parallelism over several devices) is not ported (ROADMAP Queue 1, item 12c).
+``pp_stages > 1`` pipelines the block stack over the pp axis of the ``mesh``
+given at construction (models/layers.py::PipelinedTransformer), as JAX's
+policies take their mesh.
 
 Size presets: names in the preset table ("tiny", "base", ...) set the dims;
 "vit*" names keep the explicit dims and select the DT block mask.
@@ -48,7 +50,7 @@ from ...utils import get_1d_sincos_pos_embed, get_2d_sincos_pos_embed, symexp, s
 from .. import m3ae as m3ae_lib
 from ..clip import model as clip_lib
 from ..impala import ImpalaCNN
-from ..layers import AdapterMLP, Transformer, resolve_compute_dtype
+from ..layers import AdapterMLP, PipelinedTransformer, Transformer, resolve_compute_dtype
 
 # text vocab of bert-base-uncased; constant to avoid a tokenizer download
 BERT_VOCAB_SIZE = 30522
@@ -106,7 +108,7 @@ def get_policy_default_config(updates=None) -> Config:
     config.use_intermediate = False
     config.num_ensembles = 5
 
-    # pipeline parallelism over the policy block stack: several devices, not ported (> 1 raises)
+    # pipeline parallelism over the policy block stack: stages over the mesh's pp axis (the model takes the mesh)
     config.pp_stages = 1
     config.pp_microbatches = 4
 
@@ -235,10 +237,11 @@ class BasePolicy(nn.Module):
     resize_clip_input: bool = False  # BC/GCBC resize CLIP input to 224 in the model
 
     def __init__(self, config_updates=None, num_actions: Optional[int] = None, patch_dim: Optional[int] = None,
-                 normalize_quterion: bool = False, frozen_qpack: Any = None, pt_variables: Any = None):
+                 normalize_quterion: bool = False, frozen_qpack: Any = None, pt_variables: Any = None, mesh=None):
         """``frozen_qpack``: the calibrated int8 pack of the frozen m3ae/mae tower
         (``frozen_int8``; from :func:`build_frozen_qpack`).  ``pt_variables``: the
-        frozen tower's state dict; None asks the tower family's loader."""
+        frozen tower's state dict; None asks the tower family's loader.  ``mesh``: the
+        device mesh (parallel/mesh.py), which ``pp_stages > 1`` pipelines the blocks over."""
         super().__init__()
         self.num_actions, self.patch_dim, self.normalize_quterion = num_actions, patch_dim, normalize_quterion
         self.frozen_qpack = frozen_qpack
@@ -258,13 +261,20 @@ class BasePolicy(nn.Module):
             {"score_dtype": resolve_compute_dtype(cfg.frozen_score_dtype)} if cfg.get("frozen_bf16", False) else {}
         )
         if cfg.get("pp_stages", 1) > 1:
-            raise NotImplementedError("pp_stages > 1 (pipeline parallelism over several devices) is not ported yet "
-                                      "(ROADMAP Queue 1, item 12c)")
-        self.policy = Transformer(
-            emb_dim=cfg.emb_dim, depth=cfg.depth, att_drop=cfg.att_drop, drop=cfg.drop, num_heads=cfg.num_heads,
-            mlp_ratio=cfg.mlp_ratio, alibi_bias=cfg.alibi_bias, remat=cfg.get("remat", False),
-            compute_dtype=_resolve_compute_dtype(cfg),
-        )
+            if mesh is None:
+                raise ValueError(f"pp_stages={cfg.pp_stages} pipelines the blocks over a mesh's pp axis: pass the mesh")
+            self.policy = PipelinedTransformer(
+                emb_dim=cfg.emb_dim, depth=cfg.depth, num_heads=cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
+                alibi_bias=cfg.alibi_bias, stages=cfg.pp_stages, microbatches=cfg.pp_microbatches, mesh=mesh,
+                remat=cfg.get("remat", False), compute_dtype=_resolve_compute_dtype(cfg), att_drop=cfg.att_drop,
+                drop=cfg.drop,
+            )
+        else:
+            self.policy = Transformer(
+                emb_dim=cfg.emb_dim, depth=cfg.depth, att_drop=cfg.att_drop, drop=cfg.drop, num_heads=cfg.num_heads,
+                mlp_ratio=cfg.mlp_ratio, alibi_bias=cfg.alibi_bias, remat=cfg.get("remat", False),
+                compute_dtype=_resolve_compute_dtype(cfg),
+            )
         self.action_outputs = EnsembleHeads(cfg.num_ensembles, cfg.emb_dim, cfg.emb_dim, num_actions)
         if self.use_rtg:
             self.return_outputs = EnsembleHeads(cfg.num_ensembles, cfg.emb_dim, cfg.emb_dim, 1)

@@ -1,12 +1,15 @@
-"""Train and eval steps, the data mesh over processes and the host-to-device prefetch (port of arp_tpu/parallel/).
+"""Steps, the meshes over processes and devices, and the host-to-device prefetch (port of arp_tpu/parallel/).
 
-A process a GPU (``torch.distributed``, parallel/distributed.py); the data
-axes dp, fsdp and dcn_dp (parallel/mesh.py); the train state wrapped in
-``DistributedDataParallel`` or FSDP2 (parallel/step.py).  Tensor and pipeline
-parallelism (``partition_params``' tp rules, ``pipeline.py``) are ROADMAP
-Queue 1 item 12c; the engines' single-process local-device mesh
-(``mesh_from_count``) is item 12b."""
+A process a GPU (``torch.distributed``, parallel/distributed.py); the (dp, fsdp,
+tp, pp) mesh with dcn_dp, JAX's placement rules and the reward engines'
+single-process device mesh (parallel/mesh.py); the tp split of the attention
+and MLP layers (parallel/tensor_parallel.py); GPipe over the pp axis
+(parallel/pipeline.py); the train state wrapped in ``DistributedDataParallel``
+or FSDP2 (parallel/step.py)."""
 
 from .distributed import barrier, initialize, process_count, process_index
-from .mesh import MeshConfig, batch_share, create_mesh, data_share, gather_to_host
+from .mesh import (LocalMesh, MeshConfig, batch_share, create_mesh, data_share, gather_to_host, mesh_from_count,
+                   partition_params)
+from .pipeline import create_pp_mesh, pipeline_apply, sequential_apply
 from .step import make_eval_step, make_train_step, shard_train_state
+from .tensor_parallel import apply_tensor_parallel

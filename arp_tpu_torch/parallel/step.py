@@ -12,16 +12,20 @@ contiguous chunk ``x.reshape(accum_steps, -1, ...)[i]`` of every batch leaf,
 draws from a generator of its own, and the gradients and aux values are
 summed over the microbatches, then multiplied by ``1 / accum_steps``.
 
-Over several processes (parallel/mesh.py) :func:`shard_train_state` wraps the
-model, as JAX's ``shard_train_state`` commits the state to the mesh: with fsdp 1
-in ``DistributedDataParallel`` (the gradients averaged over the ranks), with
-fsdp above 1 in FSDP2's ``fully_shard`` over the (dp, fsdp) mesh, block by
-block (the trained parameters and the AdamW moments sharded over fsdp,
-replicated over dp).  Each rank's loss is the mean over its share of the
-global batch, so the averaged gradient is the global batch's, as JAX's GSPMD
-step computes it; the step averages the aux values over the ranks too, so the
-logged ``loss`` and ``acc`` are the global batch's.  Under ``accum_steps > 1``
-the gradients are exchanged once, after the last microbatch.
+Over several processes (parallel/mesh.py) :func:`shard_train_state` lays the
+state out, as JAX's ``shard_train_state`` commits it to the mesh: first the tp
+split of the attention and MLP layers (parallel/tensor_parallel.py; a pipelined
+model holds its pp stage from construction), then over the data axes: with fsdp
+1 in ``DistributedDataParallel`` over dp (the gradients averaged over the data
+ranks), with fsdp above 1 in FSDP2's ``fully_shard`` over the (dp, fsdp) mesh,
+block by block (the trained parameters and the AdamW moments sharded over fsdp,
+replicated over dp).  Each rank's loss is the mean over its share of the global
+batch, so the averaged gradient is the global batch's, as JAX's GSPMD step
+computes it; the step averages the aux values over the data ranks too, so the
+logged ``loss`` and ``acc`` are the global batch's.  The tp and pp ranks of one
+data share compute the same loss, and their gradients are never averaged with
+each other.  Under ``accum_steps > 1`` the gradients are exchanged once, after
+the last microbatch.
 """
 
 from __future__ import annotations
@@ -55,19 +59,38 @@ def _is_dtensor(t) -> bool:
     return isinstance(t, DTensor)
 
 
-def l2_weight_penalty(params) -> torch.Tensor:
-    """sum ||W||^2 over the parameters of rank > 1 (the reference's main_procgen.py:114-117);
-    ``params``: (name, tensor) pairs.  A sharded parameter counts whole: its shards' sums are
-    added over the ranks (differentiably)."""
-    terms = [torch.sum(p.float() ** 2) for _, p in params if p.ndim > 1]
-    if not terms:
-        return torch.zeros(())
+def _whole_sum(terms: list) -> torch.Tensor:
+    """The sum of 0-dim terms, fsdp-sharded ones (``DTensor`` s) added over their ranks (differentiably)."""
     sharded = [t for t in terms if _is_dtensor(t)]
     if not sharded:
         return torch.stack(terms).sum()
     total = torch.stack(sharded).sum().full_tensor()
     plain = [t for t in terms if not _is_dtensor(t)]
     return total + torch.stack(plain).sum() if plain else total
+
+
+def l2_weight_penalty(params) -> torch.Tensor:
+    """sum ||W||^2 over the parameters of rank > 1 (the reference's main_procgen.py:114-117);
+    ``params``: (name, tensor) pairs.  A parameter counts whole in every layout, as the flat model's:
+    fsdp shards' sums are added over the data ranks, tp shares' and pp stages' over their axis
+    (forward only: each rank's share takes its own gradient)."""
+    from .mesh import split_of
+    from .tensor_parallel import ReduceFromTP
+
+    groups = {}
+    for _, p in params:
+        if p.ndim > 1:
+            split = split_of(p)
+            groups.setdefault(None if split is None else split.group, []).append(torch.sum(p.float() ** 2))
+    if not groups:
+        return torch.zeros(())
+    total = None
+    for group, terms in groups.items():
+        part = _whole_sum(terms)
+        if group is not None:
+            part = ReduceFromTP.apply(part, group)
+        total = part if total is None else total + part
+    return total
 
 
 class TrainState:
@@ -121,18 +144,23 @@ def unwrap(model):
 
 
 def shard_train_state(state: "TrainState", mesh, *, find_unused_parameters: bool = False) -> "TrainState":
-    """Put ``state`` on the data mesh (parallel/mesh.py); None leaves it as it is.
+    """Put ``state`` on the mesh (parallel/mesh.py); None leaves it as it is.
 
-    fsdp 1: :func:`replicate_train_state` (DistributedDataParallel over the world); fsdp above 1:
-    :func:`fully_shard_train_state` (FSDP2 over the (dp, fsdp) mesh).  ``find_unused_parameters``: a
-    loss that does not reach every trained parameter (the fine-tuning adapter without text) needs it
-    under the DDP wrapper.  The model must have run its first forward: its lazy layers take their
-    shapes there.
+    tp above 1: :func:`split_tensor_parallel` first.  Then fsdp 1: :func:`replicate_train_state`
+    (DistributedDataParallel over dp), or under pp :func:`average_train_state` (the pipeline's own autograd
+    function carries a stage's gradients, past DDP's hooks); fsdp above 1: :func:`fully_shard_train_state`
+    (FSDP2 over the (dp, fsdp) mesh).  ``find_unused_parameters``: a loss that does not reach every trained parameter
+    (the fine-tuning adapter without text) needs it under the DDP wrapper.  The model must have run its
+    first forward: its lazy layers take their shapes there.
     """
     if mesh is None:
         return state
+    if mesh["tp"].size() > 1:
+        state = split_tensor_parallel(state, mesh)
     if mesh["fsdp"].size() > 1:
         return fully_shard_train_state(state, mesh)
+    if mesh["pp"].size() > 1:
+        return average_train_state(state, mesh)
     return replicate_train_state(state, mesh, find_unused_parameters=find_unused_parameters)
 
 
@@ -141,6 +169,42 @@ def _trained_names(state: "TrainState", module) -> list:
     if names != [n for n, _ in state.params]:
         raise RuntimeError("the state's parameters are not the model's trained parameters")
     return names
+
+
+def split_tensor_parallel(state: "TrainState", mesh) -> "TrainState":
+    """The tp split of the state's model in place (parallel/tensor_parallel.py): every rank starts from
+    rank 0's full parameters, keeps its share of each split one, and its share of their moments."""
+    from .mesh import distribute_like
+    from .tensor_parallel import apply_tensor_parallel
+
+    module = unwrap(state.model)
+    names = _trained_names(state, module)
+    with torch.no_grad():
+        for _, p in state.params:
+            dist.broadcast(p, src=0)
+    apply_tensor_parallel(module, mesh)
+    params = trainable_parameters(module)
+    if [n for n, _ in params] != names:
+        raise RuntimeError("the tp split changed the order of the trained parameters")
+    opt = state.opt_state
+    if hasattr(opt, "mu") and opt.mu:
+        state.opt_state = type(opt)(opt.count, [distribute_like(m, p).clone() for m, (_, p) in zip(opt.mu, params)],
+                                    [distribute_like(v, p).clone() for v, (_, p) in zip(opt.nu, params)])
+    state.params = params
+    return state
+
+
+def average_train_state(state: "TrainState", mesh) -> "TrainState":
+    """The state left unwrapped, every rank of a data group starting from its first rank's parameters; the
+    step averages every gradient over the data ranks itself (``state.synced``)."""
+    from .mesh import broadcast_over_data
+
+    _trained_names(state, unwrap(state.model))
+    with torch.no_grad():
+        for _, p in state.params:
+            broadcast_over_data(p, mesh)
+    state.synced = list(range(len(state.params)))
+    return state
 
 
 def replicate_train_state(state: "TrainState", mesh, *, find_unused_parameters: bool = False) -> "TrainState":
@@ -172,22 +236,28 @@ def fully_shard_train_state(state: "TrainState", mesh) -> "TrainState":
     from torch.distributed.fsdp import fully_shard
 
     from ..models.layers import Block
-    from .mesh import distribute_like
+    from .mesh import broadcast_over_data, data_mesh, distribute_like, split_of
 
     module = unwrap(state.model)
     names = _trained_names(state, module)
+    # a pp stage's blocks stay whole over the data ranks, as JAX shards stacked_blocks over pp only
     ignored = {p for p in module.parameters()
-               if isinstance(p, UninitializedParameter) or not p.requires_grad or p.ndim == 0}
+               if isinstance(p, UninitializedParameter) or not p.requires_grad or p.ndim == 0
+               or (split_of(p) is not None and split_of(p).axis == "pp")}
     with torch.no_grad():
         for _, p in state.params:
-            dist.broadcast(p, src=0)
+            broadcast_over_data(p, mesh)
+    splits = {n: split_of(p) for n, p in state.params}
     for block in module.modules():
         if isinstance(block, Block) and any(p not in ignored for p in block.parameters()):
-            fully_shard(block, mesh=mesh, ignored_params=ignored)
-    fully_shard(module, mesh=mesh, ignored_params=ignored)
+            fully_shard(block, mesh=data_mesh(mesh), ignored_params=ignored)
+    fully_shard(module, mesh=data_mesh(mesh), ignored_params=ignored)
     params = trainable_parameters(module)
     if [n for n, _ in params] != names:
         raise RuntimeError("fully_shard changed the order of the trained parameters")
+    for n, p in params:  # FSDP2's parameters are new tensors: they carry the tp / pp layout on
+        if splits[n] is not None:
+            p.mesh_split = splits[n]
     opt = state.opt_state
     if hasattr(opt, "mu"):
         state.opt_state = type(opt)(opt.count, [distribute_like(m, p) for m, (_, p) in zip(opt.mu, params)],
@@ -199,24 +269,27 @@ def fully_shard_train_state(state: "TrainState", mesh) -> "TrainState":
 
 
 def mean_over_ranks(values: dict, mesh) -> dict:
-    """Each 0-dim tensor of ``values`` averaged over every rank of ``mesh`` (one collective)."""
+    """Each 0-dim tensor of ``values`` averaged over the data ranks of ``mesh`` (the tp and pp ranks of
+    a data share hold the same values)."""
+    from .mesh import data_size, sum_over_data
+
     if mesh is None or not values:
         return values
     keys = list(values)
     device = torch.device(mesh.device_type, torch.cuda.current_device()) if mesh.device_type == "cuda" else "cpu"
     packed = torch.stack([values[k].to(device, torch.float32) for k in keys])
-    dist.all_reduce(packed)
-    packed = packed / dist.get_world_size()
+    packed = sum_over_data(packed, mesh) / data_size(mesh)
     return dict(zip(keys, packed.unbind(0)))
 
 
-def _average_plain_gradients(grads: list, indices: list) -> None:
-    """The gradients at ``indices`` (parameters FSDP2 left whole) averaged over the world, in place."""
+def _average_plain_gradients(grads: list, indices: list, mesh) -> None:
+    """The gradients at ``indices`` (parameters FSDP2 left whole) averaged over the data ranks, in place."""
+    from .mesh import data_size, sum_over_data
+
     if not indices:
         return
     flat = torch.cat([grads[i].reshape(-1) for i in indices])
-    dist.all_reduce(flat)
-    flat = flat / dist.get_world_size()
+    flat = sum_over_data(flat, mesh) / data_size(mesh)
     for i, piece in zip(indices, flat.split([grads[i].numel() for i in indices])):
         grads[i] = piece.view_as(grads[i])
 
@@ -280,7 +353,7 @@ def make_train_step(loss_fn: Callable, *, mesh=None, weight_decay: float = 0.0,
             grads.append(g if accum_steps == 1 else g * (1.0 / accum_steps))
             p.grad = None
         if mesh is not None:
-            _average_plain_gradients(grads, state.synced)
+            _average_plain_gradients(grads, state.synced, mesh)
             aux = mean_over_ranks(aux, mesh)
         return grads, aux
 
@@ -315,14 +388,20 @@ def local_part(t):
     return t.to_local() if _is_dtensor(t) else t
 
 
+def is_laid_out(tensors) -> bool:
+    """True when some tensor is not whole on this rank: an fsdp shard, a tp share or a pp stage."""
+    from .mesh import split_of
+
+    return any(_is_dtensor(t) or split_of(t) is not None for t in tensors)
+
+
 def tree_finite(tensors) -> bool:
     """True when every floating tensor is finite (one reduction; a NaN or inf propagates into it).
-    Sharded tensors are judged whole: the shards' sums are added over the ranks, so every rank
-    answers alike."""
+    Laid-out tensors are judged whole: the sums are added over the ranks, so every rank answers alike."""
     tensors = [t for t in tensors if t.is_floating_point()]
     if not tensors:
         return True
     total = torch.stack([local_part(t).detach().float().abs().sum() for t in tensors]).sum()
-    if any(_is_dtensor(t) for t in tensors):
+    if is_laid_out(tensors):
         dist.all_reduce(total)
     return bool(np.isfinite(float(total)))

@@ -52,8 +52,16 @@ preprocessing.
 
 :meth:`ClipRewardEngine.save_npz` writes the engine's spec (config, tokenizer
 tag, image size, float32 weights in the Flax layout) for both packages'
-``from_npz``.  Not ported yet: ``mesh`` (ROADMAP Queue 1, item 12b) raises
-``NotImplementedError``.  The TPU's 64-multiple batch guard is left out.
+``from_npz``.  The TPU's 64-multiple batch guard is left out.
+
+``mesh`` (parallel/mesh.py::mesh_from_count, ``--mesh_dp``) is JAX's
+single-process data parallelism over local devices: the weights go once to each
+device (the module or the packed trunk, and the int8 pack once calibrated);
+each chunk's rows split into ``n`` contiguous shares, share i encoded on device
+i, the features gathered back in row order.  One host thread launches every
+share before anything waits, so the devices overlap.  The int8 calibration runs
+once, on the whole first chunk, as GSPMD's amax is the global batch's, and the
+calibrated pack is copied to every device.
 Without ``variables`` or ``model`` the engine reads the OpenAI checkpoint of
 ``model_name`` from a local file
 (:func:`arp_tpu_torch.models.clip.load_model_vars`), as the JAX engine does.
@@ -61,6 +69,7 @@ Without ``variables`` or ``model`` the engine reads the OpenAI checkpoint of
 
 from __future__ import annotations
 
+import copy
 import json
 import warnings
 from collections import deque
@@ -81,6 +90,23 @@ from ..ops.preprocess import (center_crop_np, clip_preprocess, clip_preprocess_p
 from ..ops.quantization import quantize_linears
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _mesh_devices(mesh) -> list:
+    """The ordered devices of a local-device mesh (parallel/mesh.py::LocalMesh)."""
+    devices = getattr(mesh, "devices", None)
+    if not isinstance(devices, (list, tuple)) or not devices:
+        raise TypeError(f"mesh must be a local-device mesh (parallel/mesh.py::mesh_from_count), got {mesh!r}")
+    return [torch.device(d) for d in devices]
+
+
+def _tree_to(tree, device):
+    """A dict / list / tuple tree of tensors on ``device`` (None stays None)."""
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
 
 
 class ClipRewardEngine:
@@ -142,7 +168,7 @@ class ClipRewardEngine:
         if resize_mode not in ("pil", "fast", "host"):
             raise ValueError(f"resize_mode must be 'pil', 'fast' or 'host', got {resize_mode!r}")
         if mesh is not None:
-            raise NotImplementedError("ClipRewardEngine(mesh) is not ported yet (ROADMAP Queue 1, item 12b)")
+            device = _mesh_devices(mesh)[0]  # the first share's device holds the engine's own modules
         if compute_dtype not in _DTYPES:
             raise ValueError(f"compute_dtype must be one of {_DTYPES}, got {compute_dtype}")
         fast = bool(fast_encode or fast_int8)
@@ -206,6 +232,55 @@ class ClipRewardEngine:
                         f";wq={int(quantize_weights)}")
         if self._fast is not None:
             self._recipe = f"torch;packed;{self._packed_recipe()};resize={resize_mode};crop={int(use_crop)}"
+        self._init_mesh(mesh)
+
+    # device-bound modules a replica copies to its device, besides the CLIP module and the packs
+    _replicated_modules: tuple = ()
+
+    def _init_mesh(self, mesh) -> None:
+        """Data parallelism over ``mesh``'s devices (JAX's ``_init_mesh``): one replica of the engine a
+        device, holding its own copy of the weights; a device named twice is one replica, used twice."""
+        self.mesh, self._replicas = mesh, None
+        if mesh is None:
+            return
+        devices = _mesh_devices(mesh)
+        n_data = int(mesh.shape.get("dp", 1)) * int(mesh.shape.get("fsdp", 1))
+        if self.batch_size % n_data:
+            raise ValueError(f"batch_size={self.batch_size} must be divisible by the mesh data parallelism "
+                             f"dp*fsdp={n_data}")
+        by_device = {}
+        for dev in devices:
+            if dev not in by_device:
+                by_device[dev] = self._replica(dev)
+        self._replicas = [by_device[dev] for dev in devices]
+
+    def _replica(self, device: torch.device) -> "ClipRewardEngine":
+        """The engine with its modules and packs on ``device``: itself on its own device, else a shallow
+        copy holding copies of them."""
+        if device == self.device:
+            return self
+        twin = copy.copy(self)
+        twin.device, twin.mesh, twin._replicas = device, None, None
+        twin.model = copy.deepcopy(self.model).to(device)
+        twin._fast = _tree_to(self._fast, device)
+        twin._fast_q = _tree_to(self._fast_q, device)
+        for name in self._replicated_modules:
+            setattr(twin, name, copy.deepcopy(getattr(self, name)).to(device))
+        return twin
+
+    def _encode_shares(self, chunk: torch.Tensor, normalize: bool) -> list:
+        """One host chunk over the mesh: its rows in contiguous shares, share i encoded on replica i, every
+        share launched before any waits; the features of each share, on its device."""
+        if self._fast is not None and self._fast_int8 and self._fast_q is None:
+            # calibrate on the whole first chunk (GSPMD's amax is the global batch's), then copy the pack
+            x = self._patches(chunk.to(self.device, non_blocking=True))
+            self._fast_q = vit_infer.quantize_packed(self._fast, vit_infer.calibrate_vit(self._fast, x, self._heads))
+            for replica in self._replicas:
+                if replica is not self:
+                    replica._fast_q = _tree_to(self._fast_q, replica.device)
+        shares = chunk.chunk(len(self._replicas))
+        return [replica._encode_chunk(share.to(replica.device, non_blocking=True), normalize)
+                for replica, share in zip(self._replicas, shares)]
 
     def _init_packed_trunk(self, dtype: torch.dtype, fast_int8: bool, fast_score_bf16: Optional[bool],
                            fast_int8_attn: Optional[bool]) -> None:
@@ -363,7 +438,12 @@ class ClipRewardEngine:
                 if k + 2 < len(starts):
                     pending.append(pool.submit(host_stage, starts[k + 2]))
                 chunk = pending.popleft().result()
-                outputs.append(self._encode_chunk(chunk.to(self.device, non_blocking=True), normalize))
+                if self._replicas is None:
+                    outputs.append(self._encode_chunk(chunk.to(self.device, non_blocking=True), normalize))
+                else:
+                    outputs.extend(self._encode_shares(chunk, normalize))
+        if self._replicas is not None:  # the shares' features, from their devices, in row order
+            return torch.cat([o.to("cpu") for o in outputs]).numpy()[:n]
         return torch.cat(outputs).cpu().numpy()[:n]
 
     def encode_image_features(self, frames, normalize: bool = True) -> np.ndarray:

@@ -35,6 +35,7 @@ import torch
 
 from ..data.instructions import get_clip_instruct, get_clip_special_instruct
 from ..ops.rewards import discount_cumsum, stack_frames
+from ..parallel.mesh import mesh_from_count
 from .engine import ClipRewardEngine
 
 
@@ -384,8 +385,8 @@ def main(argv=None):
                              "static scales; needs --fast_int8). Unset = the engine's default "
                              "(True under --fast_int8, as in arp_tpu)")
     parser.add_argument("--mesh_dp", type=int, default=0,
-                        help="data-parallel labeling over several devices: not ported (ROADMAP Queue 1, "
-                             "item 12b); only 0, one device, runs")
+                        help="shard encode batches data-parallel over this many local devices of --device "
+                             "(-1 = all; 0 = one device, no mesh)")
     parser.add_argument("--num_hosts", type=int, default=1,
                         help="hosts splitting this file (whole-trajectory contiguous shares; each host "
                              "writes a .rshard{i}.npz sidecar; assemble them with --merge)")
@@ -408,15 +409,15 @@ def main(argv=None):
         stats = merge_reward_shards(data_path, model_type=args.model_type, inst_type=args.inst_type)
         print(f"[DONE] merged {stats['num_hosts']} host shards covering {stats['rows']} rows")
         return
-    if args.mesh_dp != 0:
-        raise NotImplementedError("--mesh_dp (labeling over several devices) is not ported yet (ROADMAP Queue 1, "
-                                  "item 12b); split the file across hosts with --num_hosts / --host_index")
+    mesh = mesh_from_count(args.mesh_dp, device_type=torch.device(args.device).type)
+    if mesh is not None:
+        print(f"[INFO] labeling data-parallel over {mesh.size} devices")
 
     fast_kwargs = dict(fast_encode=args.fast, fast_int8=args.fast_int8, fast_score_bf16=args.fast_score_bf16,
                        fast_int8_attn=args.fast_int8_attn)
     engine_kwargs = dict(batch_size=args.batch_size, resize_mode=args.resize_mode, use_crop=args.use_crop,
                          device=args.device, compute_dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                         **fast_kwargs)
+                         mesh=mesh, **fast_kwargs)
     if args.model_type.startswith("clip_ft"):
         if args.model_ckpt_dir is None:
             raise ValueError("specify --model_ckpt_dir (adapter checkpoint)")
@@ -424,7 +425,7 @@ def main(argv=None):
 
         engine = ClipFtRewardEngine(adapter_params=load_adapter_params(args.model_ckpt_dir),
                                     batch_size=args.batch_size, use_crop=args.use_crop, device=args.device,
-                                    **fast_kwargs)
+                                    mesh=mesh, **fast_kwargs)
     elif args.vl_checkpoint:  # the spec's engine takes no --int8, as arp_tpu's labeler builds it
         engine = ClipRewardEngine.from_npz(args.vl_checkpoint, **engine_kwargs)
     else:

@@ -219,7 +219,8 @@ def main(argv=None):
                         help="w8a8 attention on the int8 fast path (needs --fast_int8). Unset = the "
                              "engine's default (True under --fast_int8, as in arp_tpu)")
     parser.add_argument("--mesh_dp", type=int, default=0,
-                        help="data-parallel encoding over several devices: not ported (ROADMAP Queue 1, item 12b)")
+                        help="shard encode batches data-parallel over this many local devices of --device "
+                             "(-1 = all; 0 = one device, no mesh)")
     parser.add_argument("--warmup", action="store_true",
                         help="run the image and text towers before accepting requests")
     parser.add_argument("--warmup_frames", default=None,
@@ -230,9 +231,9 @@ def main(argv=None):
     if args.warmup and args.fast_int8 and not args.warmup_frames:
         parser.error("--warmup with --fast_int8 needs --warmup_frames (real frames calibrate the int8 "
                      "activation scales; synthetic ones would mis-scale every later request)")
-    if args.mesh_dp != 0:
-        raise NotImplementedError("--mesh_dp (serving over several devices) is not ported yet (ROADMAP Queue 1, "
-                                  "item 12b)")
+    from ..parallel.mesh import mesh_from_count
+
+    mesh = mesh_from_count(args.mesh_dp, device_type=torch.device(args.device).type)
 
     fast_kwargs = dict(fast_encode=args.fast, fast_int8=args.fast_int8, fast_int8_attn=args.fast_int8_attn)
     if args.model_type.startswith("clip_ft"):
@@ -242,11 +243,11 @@ def main(argv=None):
 
         engine = ClipFtRewardEngine(adapter_params=load_adapter_params(args.model_ckpt_dir),
                                     batch_size=args.batch_size, use_crop=args.use_crop, device=args.device,
-                                    **fast_kwargs)
+                                    mesh=mesh, **fast_kwargs)
     else:
         engine = ClipRewardEngine(batch_size=args.batch_size, resize_mode=args.resize_mode, use_crop=args.use_crop,
                                   compute_dtype=torch.bfloat16 if args.bf16 else torch.float32, device=args.device,
-                                  **fast_kwargs)
+                                  mesh=mesh, **fast_kwargs)
     server = RewardServer(engine)
     if args.warmup:
         if args.warmup_frames:

@@ -42,9 +42,10 @@ from ..models.policy import ARPDT, BC, GCBC
 log = logging.getLogger(__name__)
 
 
-def build_model(flags_obj, num_actions: int, frozen_qpack=None, pt_variables=None):
+def build_model(flags_obj, num_actions: int, frozen_qpack=None, pt_variables=None, mesh=None):
     """ARPDT with VL rewards or task rewards, else GCBC or BC, from the flags' model config.
-    ``pt_variables``: the frozen tower's state dict (None: its family's loader)."""
+    ``pt_variables``: the frozen tower's state dict (None: its family's loader); ``mesh``: the device
+    mesh, which ``model.pp_stages > 1`` pipelines the policy's blocks over."""
     if flags_obj.use_vl or flags_obj.data.use_task_reward:
         cls = ARPDT
     elif "GCBC" in flags_obj.vl_type:
@@ -52,7 +53,7 @@ def build_model(flags_obj, num_actions: int, frozen_qpack=None, pt_variables=Non
     else:
         cls = BC
     return cls(config_updates=flags_obj.model, num_actions=num_actions, patch_dim=flags_obj.patch_dim,
-               normalize_quterion=False, frozen_qpack=frozen_qpack, pt_variables=pt_variables)
+               normalize_quterion=False, frozen_qpack=frozen_qpack, pt_variables=pt_variables, mesh=mesh)
 
 
 def _frozen_amax_path(checkpoint_dir: str) -> str:
@@ -214,17 +215,20 @@ class AdamW:
         """Updates ``params`` in place from ``grads``; returns the new state.
 
         Sharded parameters (``DTensor`` s of FSDP2, their gradients and moments alike) are updated
-        shard by shard: every step but the norm is elementwise, and the norm is the whole
-        gradient's, its shards' squares added over the ranks."""
+        shard by shard, and so are tp shares and pp stages: every step but the norm is elementwise,
+        and the norm is the whole model's, the squares of shards added over the ranks that hold the
+        others."""
+        from ..parallel.mesh import split_of
         from ..parallel.step import local_part
 
         b1, b2 = self.b1, self.b2
         like = list(state.mu)
+        splits = [split_of(p) for p in params]
         params, grads = [local_part(p) for p in params], [local_part(g) for g in grads]
         mu_prev, nu_prev = [local_part(m) for m in state.mu], [local_part(v) for v in state.nu]
         if self.clip is not None:
             # clip_by_global_norm: a select on the device, no host round trip
-            g_norm = torch.sqrt(global_sum_of_squares(grads, like))
+            g_norm = torch.sqrt(global_sum_of_squares(grads, like, splits))
             clipped = torch._foreach_mul(torch._foreach_div(grads, g_norm), self.clip)
             keep = g_norm < self.clip
             grads = [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
@@ -256,21 +260,34 @@ def _laid_out_as(local: list, like: list) -> list:
             if isinstance(r, DTensor) else t for t, r in zip(local, like)]
 
 
-def global_sum_of_squares(local: list, like: list) -> torch.Tensor:
+def global_sum_of_squares(local: list, like: list, splits: Optional[list] = None) -> torch.Tensor:
     """sum g^2 over whole tensors, given their local parts ``local``: where ``like[i]`` is a sharded
     ``DTensor`` the shards' sums are added over the ranks that hold its other shards (one
-    collective for all of them); the rest is summed as it is, in order."""
+    collective for all of them); where ``splits[i]`` (parallel/mesh.py::Split) is a tp share or a pp
+    stage, those sums are then added over its axis (one collective an axis); the rest is summed as it
+    is, in order."""
+    import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
     squares = [torch.sum(g * g) for g in local]
-    sharded = [sq for sq, r in zip(squares, like) if isinstance(r, DTensor)]
-    if not sharded:
-        return torch.stack(squares).sum()
-    ref = next(r for r in like if isinstance(r, DTensor))
-    part = DTensor.from_local(torch.stack(sharded).sum(), ref.device_mesh,
-                              [_partial_where_sharded(p) for p in ref.placements]).full_tensor()
-    rest = [sq for sq, r in zip(squares, like) if not isinstance(r, DTensor)]
-    return part + torch.stack(rest).sum() if rest else part
+    groups = {}
+    for i, split in enumerate(splits or [None] * len(local)):
+        groups.setdefault(None if split is None else split.group, []).append(i)
+    total = None
+    for group, idx in groups.items():
+        sharded = [squares[i] for i in idx if isinstance(like[i], DTensor)]
+        rest = [squares[i] for i in idx if not isinstance(like[i], DTensor)]
+        part = None
+        if sharded:
+            ref = next(like[i] for i in idx if isinstance(like[i], DTensor))
+            part = DTensor.from_local(torch.stack(sharded).sum(), ref.device_mesh,
+                                      [_partial_where_sharded(p) for p in ref.placements]).full_tensor()
+        if rest:
+            part = torch.stack(rest).sum() if part is None else part + torch.stack(rest).sum()
+        if group is not None:
+            dist.all_reduce(part, group=group)
+        total = part if total is None else total + part
+    return total
 
 
 def _partial_where_sharded(placement):
@@ -563,19 +580,20 @@ def eval_generator(seed: int, call: int, device) -> torch.Generator:
 def _rank_zero_test_step(build, model):
     """The rollout eval of a train state on the mesh, as JAX's ``parallel_test_step_fn`` evaluates the
     gathered parameters: rank 0 runs the rollouts of ``build()``'s step on an unsharded model (the
-    trained one under DDP; ``model``, loaded with the gathered state, when FSDP shards it) and
+    trained one under DDP; ``model``, a flat unpipelined model loaded with the gathered state, when
+    fsdp shards the state, tp splits it or pp stages it) and
     broadcasts (metric, info); the other ranks take part in the gather and wait for the score."""
     import torch.distributed as dist
 
     from ..parallel.mesh import gather_to_host
-    from ..parallel.step import local_part, unwrap
+    from ..parallel.step import is_laid_out, unwrap
 
     main_process = dist.get_rank() == 0
     inner = build() if main_process else None
 
     def test_step_fn(state, seed):
         params = [p for _, p in state.params]
-        if any(local_part(p) is not p for p in params):  # sharded: gather the whole state first
+        if is_laid_out(params):  # sharded, split or pipelined: gather the whole state first
             full = gather_to_host(state.model)
             target = model
             if main_process:

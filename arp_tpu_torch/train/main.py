@@ -36,7 +36,8 @@ Several GPUs: ``torchrun --nproc_per_node=N -m arp_tpu_torch.train.main
 --mesh_dp=N ...`` (or ``--mesh_fsdp``, ``--mesh_dcn_dp``; parallel/mesh.py), one
 process a GPU.  Rank r of N is the JAX trainer's process r of N: it loads
 ``batch_size / N`` rows a step from the dataset offset by ``r / N``, seeds its
-host draws with ``seed * (r + 1)``, and logs (heartbeat and profiler too) only
+host draws with ``seed * (r + 1)`` (under tp or pp, r and N are the data share's
+index and count: the ranks of one share load the same rows), and logs (heartbeat and profiler too) only
 on rank 0 unless ``--log_all_worker``.  The model is built alike on every rank
 (torch's seed is ``seed``), the step is wrapped by parallel/step.py's
 ``shard_train_state``, and the step's draws come from the (seed, step)
@@ -44,12 +45,16 @@ generator, the same on every rank: the augmentation is drawn for the global
 batch and each rank applies its rows (train/common.py::make_loss_fn).  Rank 0
 writes the checkpoints (the full state, whatever the world size) and runs the
 rollout eval on the gathered parameters; the score is broadcast.
-``--mesh_tp`` and ``--mesh_pp`` above 1 raise ``NotImplementedError`` (ROADMAP
-Queue 1, item 12c).
+``--mesh_tp=T`` splits the policy's attention heads and MLP units over T ranks
+(parallel/tensor_parallel.py); ``--mesh_pp=S`` pipelines its blocks in S stages
+with ``--mesh_pp_microbatches`` microbatches (``model.pp_stages`` /
+``model.pp_microbatches``, as the JAX trainer sets them; parallel/pipeline.py).
+The rollout eval on rank 0 runs a flat model loaded with the gathered state.
 """
 
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import random
@@ -123,14 +128,6 @@ def parse_flags(argv=None) -> Config:
     return parse_flag_tree(flag_defaults(), argv, "Train an ARP-DT / BC / GCBC policy (PyTorch, GPUs).")
 
 
-def check_ported(flags) -> None:
-    """Every flag whose path is not ported raises, naming its ROADMAP item."""
-    for name in ("mesh_tp", "mesh_pp"):
-        if flags[name] > 1:
-            raise NotImplementedError(f"--{name}={flags[name]}: tensor and pipeline parallelism are not ported yet "
-                                      "(ROADMAP Queue 1, item 12c)")
-
-
 def start_from_reference_checkpoint(state, path: str) -> int:
     """``--load_checkpoint``: ``state`` (its model's first forward run, its optimizer fresh) takes the
     params of the reference pickle at ``path`` and its ``state.step``, as the JAX trainer's
@@ -160,14 +157,19 @@ def _poison(tree):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     flags = parse_flags(argv)
-    check_ported(flags)
     process_index, process_count = initialize(device=flags.device)
     device = resolve_device(flags.device)
     mesh = create_mesh(MeshConfig(dp=flags.mesh_dp, fsdp=flags.mesh_fsdp, tp=flags.mesh_tp, pp=flags.mesh_pp,
                                   dcn_dp=flags.mesh_dcn_dp), device)
-    if flags.batch_size % process_count:
-        raise ValueError(f"--batch_size={flags.batch_size} does not split over {process_count} processes")
-    process_batch_size = flags.batch_size // process_count
+    if flags.mesh_pp > 1:
+        # the policy's blocks pipelined over the pp axis; the model takes the mesh at construction
+        flags.model.pp_stages = flags.mesh_pp
+        flags.model.pp_microbatches = flags.mesh_pp_microbatches
+    # the batch splits over the data axes: the tp and pp ranks of one data share load the same rows
+    share_index, share_count = data_share(mesh) if mesh is not None else (process_index, process_count)
+    if flags.batch_size % share_count:
+        raise ValueError(f"--batch_size={flags.batch_size} does not split over {share_count} data shares")
+    process_batch_size = flags.batch_size // share_count
     variant = dict(flag_leaves(flags))
     variant.update(process_index=process_index, process_count=process_count, process_batch_size=process_batch_size)
     lr_scale = flags.batch_size / 256 if flags.auto_scale_lr else 1.0
@@ -179,8 +181,8 @@ def main(argv=None):
         use_text = True  # InstructRL baseline
 
     logger = MetricsLogger(config=flags.logging, variant=variant, enable=flags.log_all_worker or main_process)
-    np.random.seed(flags.seed * (process_index + 1))
-    random.seed(flags.seed * (process_index + 1))
+    np.random.seed(flags.seed * (share_index + 1))
+    random.seed(flags.seed * (share_index + 1))
     torch.manual_seed(flags.seed)  # the model's initialization, the same on every rank
 
     dataset_name = dataset_dirname(flags.game_name, flags.env_distribution_mode, flags.env_start_level,
@@ -200,15 +202,15 @@ def main(argv=None):
                 raise ValueError(f"invalid demo file {path}: " + "; ".join(rep.errors)
                                  + " (rerun with --validate_data=False to override)")
 
-    offset = process_index / process_count
+    offset = share_index / share_count
     train_dataset = ProcgenDataset(update=flags.data, dataset_name=dataset_name, start_offset_ratio=offset,
                                    split="train")
     val_dataset = ProcgenDataset(update=flags.data, dataset_name=dataset_name, start_offset_ratio=offset, split="val")
     train_loader = DataLoader(train_dataset, batch_size=process_batch_size, shuffle=flags.dataloader_shuffle,
                               num_workers=flags.dataloader_n_workers, seed=flags.seed)
-    val_batch_size = max(1, min(process_batch_size, len(val_dataset) // process_count))
-    # as JAX's: a multiple of the device count (here one device a process)
-    val_batch_size = max(process_count, (val_batch_size // process_count) * process_count)
+    val_batch_size = max(1, min(process_batch_size, len(val_dataset) // share_count))
+    # as JAX's: a multiple of the device count (here one device a data share)
+    val_batch_size = max(share_count, (val_batch_size // share_count) * share_count)
     val_loader = DataLoader(val_dataset, batch_size=val_batch_size, shuffle=flags.dataloader_shuffle,
                             num_workers=flags.dataloader_n_workers, seed=flags.seed + 1)
 
@@ -229,8 +231,14 @@ def main(argv=None):
         ids, pad = train_dataset.tokenizer(get_m3ae_instruct(flags.game_name) or "")
         dummy_input["instruct"], dummy_input["text_padding_mask"] = ids[None], pad[None]
 
-    def new_model():
-        built = build_model(flags, train_dataset.num_actions, frozen_qpack=frozen_qpack).to(device)
+    def new_model(flat: bool = False):
+        """The policy on this rank's layout, or ``flat``: unpipelined, whole (the rollout eval's on rank 0)."""
+        built_flags = flags
+        if flat and flags.model.pp_stages > 1:
+            built_flags = copy.deepcopy(flags)
+            built_flags.model.pp_stages = 1
+        built = build_model(built_flags, train_dataset.num_actions, frozen_qpack=frozen_qpack,
+                            mesh=None if flat else mesh).to(device)
         with torch.no_grad():
             built(dummy_input, deterministic=True)  # the lazy layers take their shapes, as at Flax's init
         return built
@@ -251,9 +259,10 @@ def main(argv=None):
     num_params = sum(p.numel() for _, p in state.params)
     logger.log({"cost/num_params": num_params})
     log.info("num_params: %d", num_params)
-    # the rollout eval's model on rank 0: the trained one itself unless fsdp shards it in place
-    sharded = mesh is not None and mesh["fsdp"].size() > 1
-    eval_model = new_model() if sharded and main_process and flags.eval_env != "none" else model
+    # the rollout eval's model on rank 0: the trained one itself unless fsdp shards it, tp splits it or pp
+    # stages it in place
+    laid_out = mesh is not None and any(mesh[axis].size() > 1 for axis in ("fsdp", "tp", "pp"))
+    eval_model = new_model(flat=True) if laid_out and main_process and flags.eval_env != "none" else model
     state = shard_train_state(state, mesh)
 
     # the augmentation runs on the device inside the step

@@ -148,6 +148,20 @@ Phases, each printing one JSON line:
                one process's largest move, losses within 1e-5 relative, K1's launches in each rank; two
                faults run in one process (rank 0's rows alone, as a rank that skips the all-reduce, and
                half the batch) held above that bound; whether NCCL takes two ranks on one device.
+ 22. mesh_tp_pp — the rest of the parallel layer.  (a) The reward engines' local-device mesh
+               (parallel/mesh.py::mesh_from_count, --mesh_dp) at full CLIP ViT-B/16 width, batch 256, on
+               1,024 frames: the standard float32 engine with no mesh, mesh_from_count(-1) (the one card),
+               two shares of 128 on cuda:0, and a replica that copies the weights (cuda:0 and "cuda");
+               fast_int8 with no mesh, one card and two shares; quantize_weights float32 with no mesh and two
+               shares.  float32 rewards against the unmeshed engine within 1e-5 relative / 1e-6 (and whether
+               bit-equal); fast_int8's calibrated pack bit-equal, rewards within 0.05 x exp(logit_scale);
+               frames/s of each; K1, K2 and K3 launches and shapes.  (b) The float32 flagship over two gloo
+               ranks sharing the card, three clipped-SGD steps on the 128 rows, at tp 2 (4 heads a rank) and
+               at pp 2 (one block a stage, 4 microbatches), each against one process: params within 1e-4 of
+               one process's largest move, losses within 1e-5; a tp rank that skips the row-parallel
+               all-reduce and a pipeline that sums the outputs' cotangent over pp read above that bound;
+               every K1 shape the ranks launch held by k1_check; whether gloo takes CUDA tensors in send /
+               recv.
 Each timed shape of k1, k2 and k3 also carries ``bound_ms``: the least time the
 card could take, the larger of the bytes the function must move over the memory
 rate and its operations over the peak rate of their type (PEAK below).
@@ -513,6 +527,12 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
     dec_pad[:, dec_n - PRETRAIN_TEXT:] = pad_from_lengths(PRETRAIN_TEXT, [i % (PRETRAIN_TEXT + 1) for i in range(b)])
     cases["pretrain_encoder"] = (b, enc_n, 12, 64, MaskSpec("none"), enc_pad)
     cases["pretrain_decoder_d32"] = (b, dec_n, 16, 32, MaskSpec("none"), dec_pad)
+    # mesh_tp_pp: an engine share of 128 frames; the policy blocks at tp 2 (4 heads a rank) and at pp 2 (a
+    # microbatch of 32)
+    cases["mesh_share_vit"] = (BATCH // 2, TOKENS, 12, 64, MaskSpec("none"), None)
+    cases["tp_policy_d16_dt_n12"] = (POLICY_BATCH, 3 * POLICY_WINDOW, 8 // 2, 16, MaskSpec("dt", 1, 3), None)
+    cases["pp_policy_d16_dt_n12"] = (POLICY_BATCH // TP_PP_MICROBATCHES, 3 * POLICY_WINDOW, 8, 16,
+                                     MaskSpec("dt", 1, 3), None)
 
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -675,6 +695,8 @@ def phase_k2(vi, quant) -> dict:
     cases["m1003_k768_n3072_gelu_tanh_clamped_f32"] = (1003, 768, 3072, torch.float32, "gelu_tanh", "dense", 0.4, True)
     for label, (m, k, n, dtype, act) in K2_SITES.items():  # every site of the reward server's fast_int8 engine
         cases[f"reward_serve_{label}"] = (m // BATCH * SERVE_BATCH, k, n, dtype, act, "dense", 1.05, True)
+    for label, (m, k, n, dtype, act) in K2_SITES.items():  # mesh_tp_pp: two engine shares of 128 frames
+        cases[f"mesh_share_{label}"] = (m // 2, k, n, dtype, act, "dense", 1.05, True)
     for w in range(1, POLICY_WINDOW + 1):  # the frozen_int8 tower in a rollout wave while the window fills
         for label, (_, k, n, dtype, act) in K2_M3AE_SITES.items():
             m = ROLLOUT_ENVS * w * (M3AE_TOKENS - 1 if label == "m3ae_img" else M3AE_TOKENS)
@@ -3510,9 +3532,24 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def spawn_ranks(worker, tmp: str, store: str, timeout_s: float, what: str) -> None:
+    """``worker(rank, 2, <tmp>/<store>, tmp)`` in two spawned processes; fails after ``timeout_s``, killing them."""
+    t0 = time.perf_counter()
+    context = torch.multiprocessing.start_processes(worker, args=(2, os.path.join(tmp, store), tmp), nprocs=2,
+                                                    join=False, start_method="spawn")
+    try:
+        while not context.join(timeout=5):
+            check(time.perf_counter() - t0 < timeout_s, f"{what}: timed out")
+    finally:
+        for p in context.processes:
+            if p.is_alive():
+                p.kill()
+
+
 class ClippedSGD:
     """``optax.chain(clip_by_global_norm(clip), sgd(lr))`` on the port's train state (the two-rank
-    comparison's optimizer): the norm over whole tensors, the step shard by shard."""
+    comparison's optimizer): the norm over whole tensors (tp shares and pp stages too), the step shard by
+    shard."""
 
     def __init__(self, lr: float, clip: float):
         self.lr, self.clip = lr, clip
@@ -3524,11 +3561,12 @@ class ClippedSGD:
 
     @torch.no_grad()
     def update(self, params, grads, state):
+        from arp_tpu_torch.parallel.mesh import split_of
         from arp_tpu_torch.parallel.step import local_part
         from arp_tpu_torch.train.common import AdamWState, global_sum_of_squares
 
         local = [local_part(g) for g in grads]
-        norm = torch.sqrt(global_sum_of_squares(local, list(grads)))
+        norm = torch.sqrt(global_sum_of_squares(local, list(grads), [split_of(p) for p in params]))
         clipped = torch._foreach_mul(torch._foreach_div(local, norm), self.clip)
         keep = norm < self.clip
         steps = [torch.where(keep, g, c) for g, c in zip(local, clipped)]
@@ -3867,15 +3905,7 @@ def two_ranks_on_one_card(pt: dict, raw: dict, tmp: str) -> dict:
     torch.save({"pt": pt, "raw": raw, "start": start, "shared": {k: globals()[k] for k in DIST_SHARED}},
                os.path.join(tmp, "two_rank_start.pt"))
     t0 = time.perf_counter()
-    context = torch.multiprocessing.start_processes(_two_rank_worker, args=(2, os.path.join(tmp, "store2"), tmp),
-                                                    nprocs=2, join=False, start_method="spawn")
-    try:
-        while not context.join(timeout=5):
-            check(time.perf_counter() - t0 < DIST_TWO_RANK_TIMEOUT_S, "distributed two ranks: timed out")
-    finally:
-        for p in context.processes:
-            if p.is_alive():
-                p.kill()
+    spawn_ranks(_two_rank_worker, tmp, "store2", DIST_TWO_RANK_TIMEOUT_S, "distributed two ranks")
     ranks = [torch.load(os.path.join(tmp, f"two_rank_{r}.pt"), weights_only=False) for r in range(2)]
     diffs = [rel_to_largest(r["params"], one["params"]) for r in ranks]
     moves = [rel_to_largest(r["params"], one["params"], start) for r in ranks]
@@ -3983,6 +4013,300 @@ def phase_distributed(counters) -> tuple[dict, "LaunchShapes"]:
     return launches, shapes
 
 
+# -- mesh_tp_pp: the engines' local-device mesh, tensor and pipeline parallelism ---------------------------
+
+MESH_CLIP = "vit_b16"  # the labeling cell's tower
+MESH_FRAMES = 1024  # frames a timed labeling run: four batches of 256, after a warm-up batch
+MESH_F32_RTOL, MESH_F32_ATOL = 1e-5, 1e-6  # JAX's sharded-engine bound (tests/test_finetune.py:364-372)
+TP_PP_MICROBATCHES = 4  # the trainer's --mesh_pp_microbatches default
+TP_PP_TIMED = 2  # steps timed after the held ones
+GLOO_P2P_PROBE_TIMEOUT_S = 60.0
+# what the spawned ranks take from this module as the parent holds it
+TP_PP_SHARED = DIST_SHARED + ("TP_PP_MICROBATCHES", "TP_PP_TIMED")
+
+
+def mesh_setups(devices_two, devices_copy):
+    """label -> the engine's mesh: none, every card of the machine, two shares on one card, a copying replica."""
+    from arp_tpu_torch.parallel.mesh import LocalMesh, mesh_from_count
+
+    one = mesh_from_count(-1, devices=None if DEVICE != "cpu" else ["cpu"])
+    return {"none": None, "mesh_of_one": one, "two_shares": LocalMesh(devices_two),
+            "replica_copy": LocalMesh(devices_copy)}
+
+
+MESH_MODES = {"float32": ({}, ("none", "mesh_of_one", "two_shares", "replica_copy")),
+              "fast_int8": (dict(fast_int8=True), ("none", "mesh_of_one", "two_shares")),
+              "int8_weights": (dict(quantize_weights=True), ("none", "two_shares"))}
+
+
+def _pack_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _pack_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _pack_leaves(v)]
+    return [tree.detach().cpu()] if isinstance(tree, torch.Tensor) else []
+
+
+def mesh_engines(counters, shapes, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch) -> dict:
+    """(a): labeling through the engines' local-device mesh against the unmeshed engine of the same mode; returns
+    the kernels' launches over the meshed runs (noted in ``shapes``)."""
+    cfg = CONFIGS[MESH_CLIP]
+    state = flax_to_torch(random_clip_variables(cfg, 224, SEED))
+    frames = np.random.default_rng(SEED).integers(0, 256, (MESH_FRAMES, 64, 64, 3), dtype=np.uint8)
+    text = "the goal is to collect the coin."
+    dev = torch.device(DEVICE, 0) if DEVICE != "cpu" else torch.device("cpu")
+    copy_dev = torch.device("cuda") if DEVICE != "cpu" else torch.device("cpu", 0)
+    setups = mesh_setups([dev, dev], [dev, copy_dev])
+    launches = dict.fromkeys(counters, 0)
+    for mode, (knobs, labels) in MESH_MODES.items():
+        runs = {}
+        for label in labels:
+            model = CLIP(**cfg, image_size=224)
+            model.load_state_dict(state)
+            eng = ClipRewardEngine(model=model, batch_size=BATCH, device=DEVICE, mesh=setups[label], **knobs)
+            eng.text_rewards(frames[:BATCH], text)  # a warm-up batch; the int8 engines calibrate on it
+            sync()
+            for fn in counters.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            if setups[label] is not None:
+                with shapes:
+                    rewards = eng.text_rewards(frames, text)
+            else:
+                rewards = eng.text_rewards(frames, text)
+            sync()
+            seconds = time.perf_counter() - t0
+            run = {"rewards": rewards, "fps": MESH_FRAMES / seconds, "seconds": seconds,
+                   "launches": launch_counts(counters), "replicas": 0 if eng._replicas is None else len(eng._replicas),
+                   "devices": [] if setups[label] is None else [str(d) for d in setups[label].devices]}
+            if eng._fast_q is not None:
+                run["pack"] = _pack_leaves(eng._fast_q)
+            if setups[label] is not None:
+                for name, n in run["launches"].items():
+                    launches[name] += n
+            runs[label] = run
+            del eng, model
+            if DEVICE != "cpu":
+                torch.cuda.empty_cache()
+        base = runs["none"]
+        bound = INT8_COS_MAE * LOGIT_SCALE if mode == "fast_int8" else None  # int8 weights: K3 is row by row
+        for label, run in runs.items():
+            if label == "none":
+                continue
+            diff = np.abs(run["rewards"] - base["rewards"])
+            run.update(bit_equal=bool(np.array_equal(run["rewards"], base["rewards"])), max_abs_diff=float(diff.max()),
+                       fps_vs_none=run["fps"] / base["fps"])
+            check(np.isfinite(run["rewards"]).all() and run["rewards"].shape == (MESH_FRAMES,),
+                  f"mesh_tp_pp {mode} {label}: rewards {run['rewards'].shape}")
+            if mode == "fast_int8":
+                run["pack_bit_equal"] = len(run["pack"]) == len(base["pack"]) and all(
+                    torch.equal(a, b) for a, b in zip(run["pack"], base["pack"]))
+                check(run["pack_bit_equal"], f"mesh_tp_pp {mode} {label}: the calibrated pack differs from the unmeshed one")
+            if bound is None:
+                check(np.allclose(run["rewards"], base["rewards"], rtol=MESH_F32_RTOL, atol=MESH_F32_ATOL),
+                      f"mesh_tp_pp {mode} {label}: rewards {run['max_abs_diff']} from the unmeshed engine's")
+            else:
+                check(run["max_abs_diff"] <= bound, f"mesh_tp_pp {mode} {label}: rewards {run['max_abs_diff']} > {bound}")
+            kernels = {"float32": ("flash_attn_fwd",), "fast_int8": ("int8_gemm",), "int8_weights": ("int8_matmul",)}
+            for name in kernels[mode]:
+                check(run["launches"][name] > 0, f"mesh_tp_pp {mode} {label}: never launched {name}")
+        emit("mesh_tp_pp", part="engine", mode=mode, frames=MESH_FRAMES, batch_size=BATCH,
+             bound=bound or {"rtol": MESH_F32_RTOL, "atol": MESH_F32_ATOL},
+             **{label: {k: v for k, v in run.items() if k not in ("rewards", "pack")} for label, run in runs.items()})
+    return launches
+
+
+def tp_pp_model(layout: str, mesh, pt: dict, raw: dict, start: dict):
+    """(flags, augment, model) of the float32 flagship on ``mesh`` at ``layout`` ("tp": built whole, split by
+    shard_train_state; "pp": its blocks in two stages), its first forward run, ``start`` loaded."""
+    from arp_tpu_torch.parallel.mesh import load_full_state
+    from arp_tpu_torch.train import common
+
+    flags, _, augment, qpack = policy_setup("float32", pt, raw)
+    if layout == "pp":
+        flags.model.pp_stages, flags.model.pp_microbatches = 2, TP_PP_MICROBATCHES
+    torch.manual_seed(SEED)
+    model = common.build_model(flags, 15, frozen_qpack=qpack, pt_variables=pt, mesh=mesh).to(DEVICE)
+    with torch.no_grad():
+        model(to_device(head_batch(raw, 1), DEVICE), deterministic=True)
+        load_full_state(model, start)
+    return flags, augment, model
+
+
+def _tp_pp_worker(rank: int, world: int, store: str, tmp: str) -> None:
+    """One of the two gloo ranks sharing the card: the float32 flagship at tp 2 and at pp 2, and each with its
+    fault, DIST_STEPS clipped-SGD steps on the 128 rows from the parent's state."""
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.parallel import pipeline, tensor_parallel
+    from arp_tpu_torch.parallel.distributed import initialize, shutdown
+    from arp_tpu_torch.parallel.mesh import MeshConfig, create_mesh, data_share, gather_to_host
+    from arp_tpu_torch.parallel.step import TrainState, make_train_step, shard_train_state
+    from arp_tpu_torch.train import common
+
+    torch.set_num_threads(2)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize(init_method=f"file://{store}", num_processes=world, process_id=rank, device="cpu")
+    faults = {"tp_no_row_reduce": (tensor_parallel, "reduce_from_tp", lambda x, tp: x),
+              "pp_summed_cotangent": (pipeline, "_output_cotangent", tensor_parallel.all_reduce_sum)}
+    try:
+        given = torch.load(os.path.join(tmp, "tp_pp_start.pt"), weights_only=False)
+        globals().update(given["shared"])
+        pt, raw, start = given["pt"], given["raw"], given["start"]
+        out = {}
+        for case in ("tp", "tp_no_row_reduce", "pp", "pp_summed_cotangent"):
+            layout = case[:2]
+            mesh = create_mesh(MeshConfig(dp=1, tp=2) if layout == "tp" else MeshConfig(dp=1, pp=2), "cpu")
+            module, name, fault = faults.get(case, (None, None, None))
+            real = getattr(module, name) if module is not None else None
+            if module is not None:
+                setattr(module, name, fault)
+            try:
+                _, augment, model = tp_pp_model(layout, mesh, pt, raw, start)
+                state = shard_train_state(TrainState.create(model, ClippedSGD(DIST_SGD_LR, DIST_SGD_CLIP)), mesh)
+                step = make_train_step(common.make_loss_fn(model, augment, 256, False, share=data_share(mesh)),
+                                       mesh=mesh)
+                shapes = LaunchShapes()
+                attn.flash_attention_fwd.launches = 0
+                with shapes:
+                    run = run_policy_steps(state, step, to_device(raw, DEVICE), DIST_STEPS,
+                                           TP_PP_TIMED if case == layout else 0)
+                run.update(params=gather_to_host(state.model), k1_launches=attn.flash_attention_fwd.launches,
+                           k1_shapes=dict(shapes.k1), k2_shapes=dict(shapes.k2))
+                if case == "tp":
+                    split = model.policy.blocks_0.attn
+                    run.update(local_heads=split.num_heads // split.tp.size,
+                               qkv_share=list(split.qkv.kernel.shape), fc1_share=list(model.policy.blocks_0.mlp.fc1.weight.shape))
+                if case == "pp":
+                    run["own_blocks"] = sorted({n.split(".")[1] for n, _ in model.named_parameters()
+                                                if n.startswith("policy.blocks_")})
+                out[case] = run
+            finally:
+                if module is not None:
+                    setattr(module, name, real)
+            del model, state, step
+            if DEVICE != "cpu":
+                torch.cuda.empty_cache()
+        torch.save(out, os.path.join(tmp, f"tp_pp_{rank}.pt"))
+    finally:
+        shutdown()
+
+
+def tp_pp_two_ranks(pt: dict, raw: dict, tmp: str) -> dict:
+    """(b): the float32 flagship at tp 2 and pp 2 over two gloo ranks sharing the card, each against one process
+    on the same 128 rows from the same state and draws; the two faults held above the bound.  Returns the K1
+    launches and the shapes of the tp and pp runs; the faults' runs are not the path's."""
+    flags, _, _, qpack = policy_setup("float32", pt, raw)
+    start = {k: v.detach().cpu().clone() for k, v in policy_model(flags, qpack, pt, raw).trained_state_dict().items()}
+    del qpack
+    one = one_process_policy_run(pt, raw, start, timed=TP_PP_TIMED)
+    torch.save({"pt": pt, "raw": raw, "start": start, "shared": {k: globals()[k] for k in TP_PP_SHARED}},
+               os.path.join(tmp, "tp_pp_start.pt"))
+    t0 = time.perf_counter()
+    spawn_ranks(_tp_pp_worker, tmp, "store_tp_pp", DIST_TWO_RANK_TIMEOUT_S, "mesh_tp_pp two ranks")
+    seconds = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(tmp, f"tp_pp_{r}.pt"), weights_only=False) for r in range(2)]
+    out = {}
+    for case in ranks[0]:
+        runs = [r[case] for r in ranks]
+        moves = [rel_to_largest(r["params"], one["params"], start) for r in runs]
+        loss_rel = [max(abs(a - b) / abs(b) for a, b in zip(r["losses"], one["losses"])) for r in runs]
+        same = all(torch.equal(runs[0]["params"][k], runs[1]["params"][k]) for k in runs[0]["params"])
+        out[case] = {"param_diff_rel_to_largest_move": moves, "loss_rel_err": loss_rel, "ranks_equal": same,
+                     "ranks": [{k: v for k, v in r.items() if k not in ("params", "k1_shapes", "k2_shapes")}
+                               for r in runs]}
+        if case in ("tp", "pp"):
+            check(max(moves) <= DIST_TWO_RANK_MOVE_REL,
+                  f"mesh_tp_pp {case}: params {moves} of the largest move from one process's")
+            check(max(loss_rel) <= DIST_TWO_RANK_LOSS_REL, f"mesh_tp_pp {case}: losses {loss_rel} relative")
+            check(same, f"mesh_tp_pp {case}: the two ranks end with different full parameters")
+            check(min(r["k1_launches"] for r in runs) > 0, f"mesh_tp_pp {case}: a rank never launched K1")
+        else:
+            check(min(moves) > DIST_TWO_RANK_MOVE_REL,
+                  f"mesh_tp_pp {case}: the fault reads {moves}, within the bound {DIST_TWO_RANK_MOVE_REL}")
+    path = tp_pp_path_launches(ranks)
+    emit("mesh_tp_pp", part="two_gloo_ranks_tp_pp", batch=POLICY_BATCH, microbatches=TP_PP_MICROBATCHES,
+         bound=DIST_TWO_RANK_MOVE_REL, loss_bound=DIST_TWO_RANK_LOSS_REL, seconds=seconds,
+         one_process={k: v for k, v in one.items() if k != "params"}, k1_shapes=dict(path["k1"]), **out,
+         optimizer=f"clipped SGD lr {DIST_SGD_LR} clip {DIST_SGD_CLIP}")
+    return path
+
+
+def tp_pp_path_launches(ranks: list) -> dict:
+    """The K1 launches and the K1 / K2 shapes of the ranks' tp and pp runs.  The faults' runs are broken
+    programs, not the path: their launches stay in the phase's own line."""
+    k1_shapes, k2_shapes = Counter(), Counter()
+    for run in (r[case] for r in ranks for case in ("tp", "pp")):
+        k1_shapes.update(run["k1_shapes"])
+        k2_shapes.update(run["k2_shapes"])
+    return {"k1": k1_shapes, "k2": k2_shapes,
+            "k1_launches": sum(r[case]["k1_launches"] for r in ranks for case in ("tp", "pp"))}
+
+
+def _gloo_p2p_probe_worker(rank: int, world: int, store: str, tmp: str) -> None:
+    from arp_tpu_torch.parallel.distributed import initialize, shutdown
+
+    initialize(init_method=f"file://{store}", num_processes=world, process_id=rank, device="cpu", timeout_s=30)
+    try:
+        if rank == 0:
+            torch.distributed.send(torch.arange(4, dtype=torch.float32, device="cuda:0") + 1, 1)
+        else:
+            buf = torch.zeros(4, device="cuda:0")
+            torch.distributed.recv(buf, 0)
+            torch.cuda.synchronize()
+            if not torch.equal(buf.cpu(), torch.arange(4, dtype=torch.float32) + 1):
+                raise RuntimeError(f"gloo received {buf.cpu().tolist()}")
+    finally:
+        shutdown()
+
+
+def gloo_p2p_on_cuda(tmp: str) -> dict:
+    """Whether gloo takes CUDA tensors in send / recv: two spawned ranks, one send of four floats on cuda:0."""
+    t0 = time.perf_counter()
+    context = torch.multiprocessing.start_processes(_gloo_p2p_probe_worker, args=(2, os.path.join(tmp, "store_p2p"), tmp),
+                                                    nprocs=2, join=False, start_method="spawn")
+    outcome, error = "accepted", None
+    try:
+        while not context.join(timeout=5):
+            if time.perf_counter() - t0 > GLOO_P2P_PROBE_TIMEOUT_S:
+                outcome = "timed out"
+                break
+    except Exception as e:  # a rank raised or died: gloo refused the CUDA tensor
+        outcome, error = "refused", str(e)[-1500:]
+    finally:
+        for p in context.processes:
+            if p.is_alive():
+                p.kill()
+    out = {"outcome": outcome, "error_tail": error, "seconds": time.perf_counter() - t0,
+           "transport": "host copies under gloo (parallel/pipeline.py)"}
+    emit("mesh_tp_pp", part="gloo_p2p_cuda", **out)
+    return out
+
+
+def phase_mesh_tp_pp(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch) -> tuple[dict, "LaunchShapes"]:
+    """(a) the engines' local-device mesh; (b) tp and pp over two gloo ranks on the card; whether gloo takes
+    CUDA tensors point to point.  Returns the launches of (a)'s meshed runs and (b)'s ranks, and the shapes
+    both launched."""
+    import tempfile
+
+    from arp_tpu_torch.models.policy import flax_m3ae_to_torch
+
+    t0 = time.perf_counter()
+    shapes = LaunchShapes()
+    launches = mesh_engines(counters, shapes, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch)
+    pt = flax_m3ae_to_torch(random_m3ae_variables(M3AE_DIMS, 16, BERT_VOCAB, SEED))
+    raw, _ = policy_batch(POLICY_BATCH, POLICY_WINDOW, SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        ranks = tp_pp_two_ranks(pt, raw, tmp)
+        if DEVICE != "cpu":
+            gloo_p2p_on_cuda(tmp)
+    shapes.k1.update(ranks["k1"])
+    shapes.k2.update(ranks["k2"])
+    launches["flash_attn_fwd"] += ranks["k1_launches"]
+    emit("mesh_tp_pp", part="end", launches=launches, seconds=time.perf_counter() - t0)
+    return launches, shapes
+
+
 def kernel_entry(name: str, launches: int, max_abs_err: float, timing: dict, **extra) -> dict:
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -4067,20 +4391,23 @@ def main() -> int:
     path_launches["pretrain_m3ae"], pretrain_shapes = phase_pretrain_m3ae(counters)
     # several processes: the wrapped train states in a world of one over NCCL, two gloo ranks on the card
     path_launches["distributed"], dist_shapes = phase_distributed(counters)
+    # the rest of the parallel layer: the engines' local-device mesh, tp and pp over two gloo ranks on the card
+    path_launches["mesh_tp_pp"], mesh_shapes = phase_mesh_tp_pp(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch)
     for path, noted in (("rollout", shapes), ("reward_serve", serve_shapes), ("reference_checkpoint", ref_shapes),
                         ("clip_resnet", resnet_shapes), ("pretrain_m3ae", pretrain_shapes),
-                        ("distributed", dist_shapes)):
+                        ("distributed", dist_shapes), ("mesh_tp_pp", mesh_shapes)):
         unheld = sorted(set(noted.k1) - k1["checked"]) + sorted(set(noted.k2) - k2["checked"])
         check(not unheld, f"the {path} runs launched kernels at shapes that no check held against the plain "
               f"version: {unheld}")
     # the PPG path runs no kernel of the port (convolutions); the ResNet engine runs K1 in its text tower
     path_kernels = {"finetune": ("flash_attn_fwd",), "ppg": (), "clip_resnet": ("flash_attn_fwd",),
-                    "pretrain_m3ae": ("flash_attn_fwd",)}  # others: K1, K2
+                    "pretrain_m3ae": ("flash_attn_fwd",),
+                    "mesh_tp_pp": ("flash_attn_fwd", "int8_gemm", "int8_matmul")}  # others: K1, K2
     for path, counts in path_launches.items():
         for name in path_kernels.get(path, ("flash_attn_fwd", "int8_gemm")):
             check(counts[name] > 0, f"the {path} runs never launched {name}")
-        for name in ("flash_attn_fwd", "int8_gemm"):
-            launches[name] += counts[name]
+        for name in ("flash_attn_fwd", "int8_gemm", "int8_matmul"):
+            launches[name] += counts.get(name, 0)
 
     def shapes(timings, labels):
         keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4106,7 +4433,9 @@ def main() -> int:
                      policy_path=shapes(k2["timings"], tuple(K2_M3AE_SITES)),
                      serve_path=shapes(k2["timings"], tuple(K2_SERVE_SITES))),
         kernel_entry("int8_matmul", launches["int8_matmul"], k3["max_abs_err"],
-                     k3["timings"]["fc_768x3072_float32"], dtype="float32"),
+                     k3["timings"]["fc_768x3072_float32"], dtype="float32",
+                     launches_by_path={"labeling": launches["int8_matmul"] - sum(c.get("int8_matmul", 0) for c in path_launches.values()),
+                                       **{path: c.get("int8_matmul", 0) for path, c in path_launches.items()}}),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -9,6 +9,7 @@ import h5py
 import jax
 import numpy as np
 import pytest
+import torch
 
 from arp_tpu.data import procgen_dataset as jds
 from arp_tpu.data.cache_embeddings import cache_clip_embeddings as j_cache
@@ -17,6 +18,7 @@ from arp_tpu_torch.data import cache_embeddings as tcache
 from arp_tpu_torch.data import procgen_dataset as tds
 from arp_tpu_torch.models.clip import CLIP
 from arp_tpu_torch.models.clip.tokenizer import Char97Tokenizer
+from arp_tpu_torch.parallel import mesh as tmesh
 from arp_tpu_torch.reward import engine as tengine
 from test_dataset import NAME, make_file
 from test_torch_train_data import assert_tree_equal
@@ -59,7 +61,8 @@ def test_cache_matches_jax_and_the_datasets_read_it(files, jax_engine):
 
 def test_cli_builds_the_engine_from_its_flags(files, jax_engine, monkeypatch, capsys):
     """--model_name reads that model's local checkpoint (stood in for here by the tiny tower's variables);
-    --fast_int8 reaches the engine; --mesh_dp raises."""
+    --fast_int8 reaches the engine; --mesh_dp 2 shards it over two CPU shares (the CPU is one device: the
+    test lists it twice) and caches the same embeddings, and more devices than there are raise."""
     variables = jax.tree_util.tree_map(np.asarray, jax_engine.variables)
     built = []
 
@@ -80,5 +83,13 @@ def test_cli_builds_the_engine_from_its_flags(files, jax_engine, monkeypatch, ca
     assert built[0]["fast_int8"] is True and built[0]["resize_mode"] == "pil" and built[0]["batch_size"] == 8
     with h5py.File(path, "r") as g:
         assert g["ob_clip_emb"].shape == (24, 32) and np.isfinite(g["ob_clip_emb"][:]).all()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tcache.main(["--data_path", path, "--mesh_dp", "2", "--device", "cpu"])
+        one = g["ob_clip_emb"][:]
+    monkeypatch.setattr(tmesh, "local_devices", lambda device_type: [torch.device("cpu")] * 2)
+    tcache.main(["--data_path", path, "--model_name", "tiny", "--batch_size", "8", "--device", "cpu",
+                 "--fast_int8", "--mesh_dp", "2"])
+    assert "[INFO] encoding data-parallel over 2 devices" in capsys.readouterr().out
+    assert built[1]["mesh"].shape["dp"] == 2
+    with h5py.File(path, "r") as g:
+        np.testing.assert_allclose(g["ob_clip_emb"][:], one, rtol=0, atol=1e-6)
+    with pytest.raises(ValueError, match="requested 100000 devices"):
+        tcache.main(["--data_path", path, "--mesh_dp", "100000", "--device", "cpu"])

@@ -819,7 +819,7 @@ def test_pretrain_m3ae_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
 
 def test_free_port_is_free_and_a_world_of_one_starts_on_it():
     """The distributed phase's start: a port nothing listens on, a process group of one over it (gloo on the
-    CPU, NCCL on the card), its (1, 1) mesh."""
+    CPU, NCCL on the card), its (1, 1, 1, 1) mesh over JAX's four axes."""
     import socket
 
     from arp_tpu_torch.parallel.distributed import initialize, shutdown
@@ -831,7 +831,8 @@ def test_free_port_is_free_and_a_world_of_one_starts_on_it():
     assert initialize(coordinator_address=f"127.0.0.1:{port}", num_processes=1, process_id=0, device="cpu") == (0, 1)
     try:
         assert torch.distributed.get_backend() == "gloo"
-        assert tuple(create_mesh(MeshConfig(dp=1), "cpu").shape) == (1, 1)
+        mesh = create_mesh(MeshConfig(dp=1), "cpu")
+        assert tuple(mesh.shape) == (1, 1, 1, 1) and mesh.mesh_dim_names == ("dp", "fsdp", "tp", "pp")
     finally:
         shutdown()
     assert not torch.distributed.is_initialized()
@@ -879,7 +880,7 @@ def test_distributed_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert not torch.distributed.is_initialized()
     lines = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
     parts = [line for line in lines if line["phase"] == "distributed"]
-    assert parts[0]["part"] == "start" and parts[0]["backend"] == "gloo" and parts[0]["mesh"] == [1, 1]
+    assert parts[0]["part"] == "start" and parts[0]["backend"] == "gloo" and parts[0]["mesh"] == [1, 1, 1, 1]
     one = {p["mode"]: p for p in parts if p.get("part") == "world_of_one"}
     assert list(one) == ["float32", "frozen_int8", "pretrain_m3ae", "finetune", "ppg"]
     for mode in ("float32", "frozen_int8", "pretrain_m3ae"):
@@ -904,3 +905,77 @@ def test_distributed_phase_joins_the_path_launches_and_the_held_shapes():
     assert 'path_launches["distributed"], dist_shapes = phase_distributed(counters)' in src
     assert '("distributed", dist_shapes)' in src
     assert "distributed" not in src.split("path_kernels = ")[1].split("}")[0]  # K1 and K2 both, as the train path
+
+
+def test_mesh_tp_pp_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """The mesh_tp_pp phase end to end on the CPU at a tiny width: (a) the engines over one share, two shares
+    and a copying replica against the unmeshed engine (float32 within the bound, the int8 pack bit-equal);
+    (b) tp 2 and pp 2 over two spawned gloo ranks against one process within the bound, which both faults
+    exceed.  What only the card can show (launches, gloo's CUDA point to point) is left out."""
+    import json
+
+    from arp_tpu_torch.models.clip import CLIP, CONFIGS, flax_to_torch
+    from arp_tpu_torch.models.clip import model as tclip_model
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import quantization, vit_infer
+    from arp_tpu_torch.reward.engine import ClipRewardEngine
+
+    tiny = dict(embed_dim=16, vocab_size=600, vision_num_layers=2, vision_features=64, vision_patch_size=16,
+                text_features=16, text_num_heads=4, text_num_layers=2)
+    monkeypatch.setitem(tclip_model.CONFIGS, "tiny_smoke", tiny)
+    for name, value in dict(DEVICE="cpu", M3AE_DIMS=TINY_M3AE, M3AE_CFG=dict(model_type=None, **TINY_M3AE),
+                            CPU_FRAMES=2, POLICY_BATCH=4, POLICY_WINDOW=2, MESH_CLIP="tiny_smoke", MESH_FRAMES=16,
+                            BATCH=8, TP_PP_MICROBATCHES=2, TP_PP_TIMED=1).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    real_check = chip_smoke.check
+    monkeypatch.setattr(chip_smoke, "check", lambda ok, what: real_check(ok or "launch" in what, what))
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
+                "int8_matmul": quantization.int8_matmul}
+    launches, noted = chip_smoke.phase_mesh_tp_pp(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch)
+    # on the CPU nothing launches; K2's wrapper takes its plain version at the int8 engine's shares
+    assert launches == dict.fromkeys(counters, 0) and not noted.k1 and noted.k2
+    assert not torch.distributed.is_initialized()
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    parts = [line for line in lines if line["phase"] == "mesh_tp_pp"]
+    engines = {p["mode"]: p for p in parts if p["part"] == "engine"}
+    assert list(engines) == ["float32", "fast_int8", "int8_weights"]
+    assert engines["float32"]["two_shares"]["replicas"] == 2 and engines["float32"]["mesh_of_one"]["replicas"] == 1
+    assert engines["float32"]["replica_copy"]["devices"] == ["cpu", "cpu:0"]
+    assert engines["fast_int8"]["two_shares"]["pack_bit_equal"] and engines["fast_int8"]["mesh_of_one"]["bit_equal"]
+    two = [p for p in parts if p["part"] == "two_gloo_ranks_tp_pp"][0]
+    for case in ("tp", "pp"):
+        assert max(two[case]["param_diff_rel_to_largest_move"]) <= chip_smoke.DIST_TWO_RANK_MOVE_REL
+        assert max(two[case]["loss_rel_err"]) <= chip_smoke.DIST_TWO_RANK_LOSS_REL and two[case]["ranks_equal"]
+    for fault in ("tp_no_row_reduce", "pp_summed_cotangent"):
+        assert min(two[fault]["param_diff_rel_to_largest_move"]) > chip_smoke.DIST_TWO_RANK_MOVE_REL
+    assert [r["local_heads"] for r in two["tp"]["ranks"]] == [4, 4]
+    assert [r["own_blocks"] for r in two["pp"]["ranks"]] == [["blocks_0"], ["blocks_1"]]
+    assert not [p for p in parts if p["part"] == "gloo_p2p_cuda"]  # the card's probe only
+
+
+def test_mesh_tp_pp_phase_joins_the_path_launches_and_the_held_shapes():
+    """The phase's launches count on its path (K1, K2 and K3 all required), its shapes are held by k1_check /
+    k2_check, and the tp / pp policy shapes and the engine share are k1_check cases."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke.main)
+    assert 'path_launches["mesh_tp_pp"], mesh_shapes = phase_mesh_tp_pp(' in src
+    assert '("mesh_tp_pp", mesh_shapes)' in src
+    assert '"mesh_tp_pp": ("flash_attn_fwd", "int8_gemm", "int8_matmul")' in src
+    k1 = inspect.getsource(chip_smoke.phase_k1)
+    for case in ("mesh_share_vit", "tp_policy_d16_dt_n12", "pp_policy_d16_dt_n12"):
+        assert f'cases["{case}"]' in k1
+    assert 'cases[f"mesh_share_{label}"]' in inspect.getsource(chip_smoke.phase_k2)
+
+
+def test_mesh_tp_pp_path_launches_leave_the_faults_out():
+    """The kernels line counts the tp and pp runs' K1 launches and holds their shapes; the fault runs are
+    broken programs, not the path, and count nowhere."""
+    def run(launches, shape):
+        return {"k1_launches": launches, "k1_shapes": {shape: launches}, "k2_shapes": {}}
+
+    ranks = [{"tp": run(3, "tp"), "tp_no_row_reduce": run(100, "tp_fault"), "pp": run(5, "pp"),
+              "pp_summed_cotangent": run(1000, "pp_fault")} for _ in range(2)]
+    got = chip_smoke.tp_pp_path_launches(ranks)
+    assert got["k1_launches"] == 16
+    assert dict(got["k1"]) == {"tp": 6, "pp": 10} and not got["k2"]

@@ -146,10 +146,17 @@ def test_clip_ft_engine_packed_recipes_match_jax(ft_setup, label):
 
 
 def test_clip_ft_engine_refuses_a_mesh(ft_setup):
+    """A mesh is ported (tests/test_torch_mesh_engine.py): what is not a local-device mesh, and a mesh that
+    does not divide the batch, raise."""
+    from arp_tpu_torch.parallel.mesh import LocalMesh
+
     _, clip_vars, params = ft_setup
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ClipFtRewardEngine(flax_adapter_to_torch(jax.tree_util.tree_map(np.asarray, params)), clip_config=TINY_CFG,
-                           clip_variables=jax.tree_util.tree_map(np.asarray, clip_vars), device="cpu", mesh=object())
+    kw = dict(clip_config=TINY_CFG, clip_variables=jax.tree_util.tree_map(np.asarray, clip_vars), device="cpu")
+    adapter = flax_adapter_to_torch(jax.tree_util.tree_map(np.asarray, params))
+    with pytest.raises(TypeError, match="local-device mesh"):
+        ClipFtRewardEngine(adapter, mesh=object(), **kw)
+    with pytest.raises(ValueError, match="divisible"):
+        ClipFtRewardEngine(adapter, batch_size=6, mesh=LocalMesh(["cpu"] * 4), **kw)
 
 
 # --- the OpenAI checkpoint loader ----------------------------------------------------------------

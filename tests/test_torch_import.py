@@ -46,7 +46,7 @@ def test_port_imports_without_jax_or_flax():
     )
     assert out.returncode == 0, out.stderr + out.stdout
     n, *names = out.stdout.split("IMPORTED")[1].split()
-    assert int(n) >= 79, out.stdout  # every module of the package, not an empty walk
+    assert int(n) >= 81, out.stdout  # every module of the package, not an empty walk
     for module in ("serve", "config", "utils", "models.layers", "models.m3ae", "models.impala", "models.policy.models",
                    "models.policy.convert", "ops.m3ae_infer", "ops.augment", "train.main", "train.common",
                    "parallel.step", "parallel.prefetch", "data.procgen_dataset", "data.loader", "data.validate",
@@ -58,7 +58,7 @@ def test_port_imports_without_jax_or_flax():
                    "collect", "collect.recorder", "collect.fuse", "collect.downsize", "collect.reward_normalizer",
                    "testing", "collect.ppg", "collect.convert_ppg", "collect.train_ppg", "collect.eval_ppg",
                    "collect.collect", "models.resnet", "train.pretrain_m3ae", "parallel", "parallel.distributed",
-                   "parallel.mesh"):
+                   "parallel.mesh", "parallel.pipeline", "parallel.tensor_parallel"):
         assert f"arp_tpu_torch.{module}" in names, module
 
 

@@ -195,7 +195,8 @@ def test_default_data_path_matches_jax(over):
 
 def test_cli_shards_merges_and_takes_the_collect_flags(tmp_path, jax_engine, capsys):
     """--base_path and the collect flags find the file; --num_hosts / --host_index then --merge equal one
-    host; --resize_mode host reaches the engine; --mesh_dp raises."""
+    host; --resize_mode host reaches the engine; --mesh_dp beyond the devices raises (tests/test_torch_mesh_engine.py
+    labels with --mesh_dp 2)."""
     spec = str(tmp_path / "tower.npz")
     jax_engine.save_npz(spec)
     args = _args(base_path=str(tmp_path), env_name="coinrun", split="train")
@@ -220,8 +221,8 @@ def test_cli_shards_merges_and_takes_the_collect_flags(tmp_path, jax_engine, cap
     for k in KEYS:
         np.testing.assert_array_equal(got[k][0], want[k][0])  # host and pil: the same bytes reach the tower
         assert got[k][1]["encode_recipe"] == want[k][1]["encode_recipe"].replace("resize=pil", "resize=host")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tlabeler.main(flags + ["--mesh_dp", "2"])
+    with pytest.raises(ValueError, match="requested 100000 devices"):
+        tlabeler.main(flags + ["--mesh_dp", "100000"])
 
 
 def test_torch_to_flax_inverts_flax_to_torch(jax_engine):

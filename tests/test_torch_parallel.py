@@ -67,23 +67,30 @@ def test_a_cuda_process_group_without_a_card_raises_and_does_not_fall_back(tmp_p
 
 @pytest.mark.parametrize("cfg", [dict(tp=2), dict(pp=2)])
 def test_tensor_and_pipeline_axes_raise_citing_12c(cfg, monkeypatch):
+    """Item 12c is ported (tests/test_torch_tp_pp.py): the tp and pp axes resolve as JAX's do, outside a
+    process group there is no mesh, and a world they do not fit raises JAX's assertion."""
     monkeypatch.setattr(tmesh, "process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 12c"):
-        tmesh.create_mesh(tmesh.MeshConfig(dp=1, **cfg), "cpu")
+    assert tmesh.create_mesh(tmesh.MeshConfig(dp=1, **cfg), "cpu") is None
+    monkeypatch.setattr(tmesh, "process_count", lambda: 3)
+    with pytest.raises(AssertionError, match="not divisible"):
+        tmesh.create_mesh(tmesh.MeshConfig(**cfg), "cpu")
 
 
 @pytest.mark.parametrize("flag", ["--mesh_tp=2", "--mesh_pp=2"])
 def test_the_trainer_refuses_tp_and_pp_citing_12c(flag):
+    """In one process --mesh_tp=2 / --mesh_pp=2 fail JAX's mesh assertion, as --mesh_dp=2 does (item 12c
+    runs them under torchrun: tests/test_torch_parallel_trainers.py)."""
     from arp_tpu_torch.train import main as tmain
 
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    with pytest.raises(AssertionError, match="not divisible"):
         tmain.main([flag, "--device=cpu"])
 
 
 def test_a_pipelined_policy_raises_citing_12c():
+    """A pipelined policy needs the mesh whose pp axis it runs over (item 12c: models/layers.py)."""
     from arp_tpu_torch.models.policy import ARPDT
 
-    with pytest.raises(NotImplementedError, match="item 12c"):
+    with pytest.raises(ValueError, match="pass the mesh"):
         ARPDT(dict(W.ARPDT_CFG, pp_stages=2), num_actions=15, patch_dim=16)
 
 

@@ -4,6 +4,8 @@ starts them (``--device=cpu``), spawned once for the module (tests/torch_paralle
   * the trainer at --mesh_dp=2 and --mesh_fsdp=2: each rank's batches are the JAX per-process
     loader's for its process index; the ranks end with the same parameters; only rank 0 logs and
     writes checkpoints; the first step is the one-process step on both ranks' rows within 1e-5;
+    at --mesh_tp=2 and --mesh_pp=2 both ranks read the one data share's batches (JAX's process 0 of
+    1), and the first step is the one-process step on them;
   * M3AE pretraining: one step at dp=2 and fsdp=2 on given masking draws equal to one process's
     and to JAX's (the bounds of tests/test_torch_m3ae_pretrain.py); the CLI at both layouts ends
     where the one-process CLI ends, within 1e-5, with one masking permutation on every rank;
@@ -152,7 +154,26 @@ def test_trainer_ranks_read_the_jax_per_process_batches(ranks, data, layout):
             np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("layout", ["mesh_dp", "mesh_fsdp"])
+@pytest.mark.parametrize("layout", ["mesh_tp", "mesh_pp"])
+def test_trainer_tp_and_pp_ranks_read_one_data_share(ranks, data, layout):
+    """Under tp and pp the two ranks are one data share: each loads the whole batch of 8 rows from offset
+    0, as JAX's process 0 of 1."""
+    _, results = ranks
+    loader = jloader.DataLoader(
+        jds.ProcgenDataset(dict(TRAINER_DATA, path=data["demos"]), dataset_name=DATASET, start_offset_ratio=0.0,
+                           split="train"),
+        batch_size=8, shuffle=True, num_workers=0, seed=SEED)
+    next(iter(loader))  # the cost/flops batch, as the trainer draws it
+    want = [b["action"] for _, b in zip(range(48 // 8), loader.epochs(skip_batches=0))]
+    for result in results:
+        got = result["case_trainer_cli"][layout]
+        assert got["share"] == (0, 1)
+        assert len(got["actions"]) == 48 // 8
+        for a, b in zip(got["actions"], want):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("layout", ["mesh_dp", "mesh_fsdp", "mesh_tp", "mesh_pp"])
 def test_trainer_ranks_agree_and_only_rank_0_writes(ranks, layout):
     tmp, (r0, r1) = ranks
     a, b = r0["case_trainer_cli"][layout], r1["case_trainer_cli"][layout]
@@ -173,7 +194,8 @@ def test_trainer_ranks_agree_and_only_rank_0_writes(ranks, layout):
     best = torch.load(tmp / f"trainer_{name}" / "best.pt", weights_only=True)
     assert _max_abs({k: v.numpy() for k, v in best["state"].items()}, a["final"]) == 0.0
     variant = json.load(open(tmp / f"trainer_log_{name}" / runs[0] / "variant.json"))
-    assert (variant["process_index"], variant["process_count"], variant["process_batch_size"]) == (0, 2, 4)
+    rows = 8 if layout in ("mesh_tp", "mesh_pp") else 4  # a data share's rows
+    assert (variant["process_index"], variant["process_count"], variant["process_batch_size"]) == (0, 2, rows)
 
 
 def test_trainer_first_step_is_the_one_process_step_on_both_ranks_rows(ranks):
@@ -184,6 +206,23 @@ def test_trainer_first_step_is_the_one_process_step_on_both_ranks_rows(ranks):
     _, results = ranks
     for result in results:
         got = result["case_trainer_cli"]["mesh_dp"]
+        assert abs(got["losses"][0] - got["one_process_loss"]) <= PORT * abs(got["one_process_loss"])
+        grads = got["one_process_grads"]
+        gmax = max(float(np.abs(g).max()) for g in grads.values())
+        assert _max_abs(got["first_grads"], grads) < PORT * gmax
+        for name, g in grads.items():
+            settled = np.abs(g) > 1e-6 * gmax
+            assert float(np.abs((got["after_first"][name] - got["one_process_first"][name]) * settled).max()) < PORT
+
+
+@pytest.mark.parametrize("layout", ["mesh_tp", "mesh_pp"])
+def test_trainer_tp_and_pp_first_step_is_the_one_process_step(ranks, layout):
+    """The first step at --mesh_tp=2 / --mesh_pp=2 is the one-process step on the same 8 rows from the same
+    state and generator (on a flat model): the loss and the gradients within 1e-5, the parameters too
+    where the gradient is above 1e-6 of its largest, as for dp."""
+    _, results = ranks
+    for result in results:
+        got = result["case_trainer_cli"][layout]
         assert abs(got["losses"][0] - got["one_process_loss"]) <= PORT * abs(got["one_process_loss"])
         grads = got["one_process_grads"]
         gmax = max(float(np.abs(g).max()) for g in grads.values())

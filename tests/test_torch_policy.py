@@ -334,7 +334,8 @@ def test_config_rejections():
         tpol.get_policy_default_config(dict(frozen_bf16=True, use_from_scratch=True))
     with pytest.raises(AssertionError):
         tpol.get_policy_default_config(dict(frozen_int8_attn="maybe"))
-    with pytest.raises(NotImplementedError, match="pp_stages"):
+    # a pipelined policy needs the mesh it pipelines over, as JAX's asserts it
+    with pytest.raises(ValueError, match="pp_stages"):
         tpol.ARPDT(base_config(pp_stages=2), num_actions=15, patch_dim=PATCH)
     with pytest.raises(ValueError, match="Unsupported transfer type"):
         tpol.ARPDT(base_config(transfer_type="resnet"), num_actions=15, patch_dim=PATCH)

@@ -101,8 +101,9 @@ def test_provenance(jax_engine, port_engine):
 @pytest.mark.parametrize("option", [dict(mesh=object())], ids=lambda o: next(iter(o)))
 def test_unported_options_raise(jax_engine, option):
     # resize_mode "fast" and use_crop: tests/test_torch_finetune_engine.py holds them to JAX; "host":
-    # tests/test_torch_arps.py
-    with pytest.raises(NotImplementedError):
+    # tests/test_torch_arps.py.  A mesh is ported (tests/test_torch_mesh_engine.py): what is not a
+    # local-device mesh raises
+    with pytest.raises(TypeError, match="local-device mesh"):
         _port_engine(jax_engine, **option)
 
 

@@ -221,5 +221,5 @@ def test_cli_flags_reach_the_engine_and_warmup_frames_read_lazily(monkeypatch, t
     np.testing.assert_array_equal(tserve.warmup_frames(path + ":pix", 7), windows[:3].reshape(-1, 16, 16, 3)[:7])
     with pytest.raises(SystemExit):
         tserve.main(["--fast_int8", "--warmup", "--device", "cpu"])  # int8 needs real frames to calibrate on
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tserve.main(["--mesh_dp", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="requested 100000 devices"):  # --mesh_dp: at most the local devices
+        tserve.main(["--mesh_dp", "100000", "--device", "cpu"])

@@ -123,8 +123,10 @@ def test_profile_dir_writes_a_trace(demos, tmp_path):
 
 
 @pytest.mark.parametrize("flag,error,match", [
-    # several processes are ported: in one process --mesh_dp=2 fails JAX's mesh assertion (one device)
-    ("--mesh_dp=2", AssertionError, "mesh 2x1x1x1 != 1 devices"), ("--mesh_tp=2", NotImplementedError, "item 12c"),
+    # several processes are ported (tp and pp too): in one process --mesh_dp=2 / --mesh_tp=2 fail JAX's mesh
+    # assertion (one device)
+    ("--mesh_dp=2", AssertionError, "mesh 2x1x1x1 != 1 devices"),
+    ("--mesh_tp=2", AssertionError, r"1 devices not divisible by dcn_dp\*fsdp\*tp\*pp=2"),
     # item 10 is ported: the flag reads a reference pickle, and a missing one raises
     pytest.param("--load_checkpoint=x.pkl", FileNotFoundError, "x.pkl", id="--load_checkpoint=x.pkl-item 10")],
     ids=["--mesh_dp=2-item 12", "--mesh_tp=2-item 12", None])

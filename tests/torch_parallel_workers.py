@@ -4,7 +4,8 @@ Imports torch, numpy and arp_tpu_torch only: never jax (the tests compute the
 JAX package's side in their own process and pass numpy in).  ``spawn(cases,
 payload, tmp)`` starts ``world`` processes over gloo on the CPU, joined through a
 file store under ``tmp`` (so that test workers running side by side never race
-for a port), runs every named case in each rank, and returns each rank's results.
+for a port), runs every named case in each rank, and returns each rank's results;
+ranks still running after its timeout are killed and the spawn fails.
 A case is ``fn(rank, payload, tmp) -> dict``; an exception in any rank fails the
 spawn.
 """
@@ -20,18 +21,31 @@ import torch
 # the vit_debug ARPDT of tests/test_mesh_equivalence.py
 ARPDT_CFG = dict(model_type="vit_debug", transfer_type="none", emb_dim=64, depth=2, num_heads=4, mlp_ratio=2,
                  use_discrete_action=True, num_ensembles=2)
+TP_DROPOUT = 0.1  # the dropout and attention dropout rate of the tp run with dropout
 # a 2-layer, 64-wide M3AE tower for the frozen_int8 calibration
 TOWER = dict(model_type=None, emb_dim=64, dec_emb_dim=16, depth=2, dec_depth=1, num_heads=4, dec_num_heads=4,
              mlp_ratio=2)
 
 
-def spawn(cases, payload, tmp, world: int = 2) -> list:
-    """Run ``cases`` (names of this module's case functions) in ``world`` spawned gloo ranks."""
+def spawn(cases, payload, tmp, world: int = 2, timeout_s: float = 600.0) -> list:
+    """Run ``cases`` (names of this module's case functions) in ``world`` spawned gloo ranks; ranks that have
+    not finished after ``timeout_s`` (a collective that one rank never joins) are killed and the spawn fails."""
+    import time
+
     tmp = str(tmp)
     with open(os.path.join(tmp, "payload.pkl"), "wb") as f:
         pickle.dump(payload, f)
-    torch.multiprocessing.start_processes(_entry, args=(world, tmp, list(cases)), nprocs=world, join=True,
-                                          start_method="spawn")
+    context = torch.multiprocessing.start_processes(_entry, args=(world, tmp, list(cases)), nprocs=world, join=False,
+                                                    start_method="spawn")
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not context.join(timeout=1):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"the spawned ranks did not finish {list(cases)} in {timeout_s} s")
+    finally:
+        for p in context.processes:
+            if p.is_alive():
+                p.kill()
     out = []
     for rank in range(world):
         with open(os.path.join(tmp, f"result_{rank}.pkl"), "rb") as f:
@@ -71,7 +85,8 @@ def _numpy(tree):
 
 class ClippedSGD:
     """``optax.chain(clip_by_global_norm(clip), sgd(lr))`` of the JAX mesh test, on the port's state:
-    the norm over whole tensors (``global_sum_of_squares``), the step shard by shard."""
+    the norm over whole tensors (``global_sum_of_squares``, tp shares and pp stages included), the step
+    shard by shard."""
 
     def __init__(self, lr: float, clip: float):
         self.lr, self.clip = lr, clip
@@ -83,11 +98,12 @@ class ClippedSGD:
 
     @torch.no_grad()
     def update(self, params, grads, state):
+        from arp_tpu_torch.parallel.mesh import split_of
         from arp_tpu_torch.parallel.step import local_part
         from arp_tpu_torch.train.common import AdamWState, global_sum_of_squares
 
         local = [local_part(g) for g in grads]
-        norm = torch.sqrt(global_sum_of_squares(local, list(grads)))
+        norm = torch.sqrt(global_sum_of_squares(local, list(grads), [split_of(p) for p in params]))
         clipped = torch._foreach_mul(torch._foreach_div(local, norm), self.clip)
         keep = norm < self.clip
         steps = [torch.where(keep, g, c) for g, c in zip(local, clipped)]
@@ -95,15 +111,20 @@ class ClippedSGD:
         return AdamWState(state.count + 1, [], [])
 
 
-def arpdt(init: dict, batch: dict):
-    """The port's vit_debug ARPDT with the weights ``init`` (its first forward run)."""
+def arpdt(init: dict, batch: dict, mesh=None, pp: int = 1, **overrides):
+    """The port's vit_debug ARPDT with the weights ``init`` (its first forward run); ``pp`` above 1: its
+    blocks pipelined in that many stages over ``mesh``'s pp axis (two microbatches, as JAX's test);
+    ``overrides`` of its config (dropout rates)."""
     from arp_tpu_torch.models.policy import ARPDT
+    from arp_tpu_torch.parallel.mesh import load_full_state
 
-    model = ARPDT(ARPDT_CFG, num_actions=15, patch_dim=16)
+    cfg = dict(ARPDT_CFG, pp_stages=pp, pp_microbatches=2) if pp > 1 else ARPDT_CFG
+    cfg = dict(cfg, **overrides)
+    model = ARPDT(cfg, num_actions=15, patch_dim=16, mesh=mesh)
     with torch.no_grad():
         model({k: (v if v is None else {kk: vv[:1] for kk, vv in v.items()} if isinstance(v, dict) else v[:1])
                for k, v in batch.items()}, deterministic=True)
-        model.load_trained_state_dict({k: torch.as_tensor(v) for k, v in init.items()})
+        load_full_state(model, {k: torch.as_tensor(v) for k, v in init.items()})
     return model
 
 
@@ -112,16 +133,50 @@ def deterministic_loss(model, batch, generator):
     return out["loss"], {"acc": out["acc"]}
 
 
-def train_arpdt(payload, mesh_config=None, steps=3, accum_steps=1):
+def _rows(batch, index: int, shares: int):
+    """Data share ``index`` of ``shares`` of a batch tree: contiguous rows, as parallel/mesh.py::batch_share."""
+    if isinstance(batch, dict):
+        return {k: _rows(v, index, shares) for k, v in batch.items()}
+    if batch is None or np.ndim(batch) == 0:
+        return batch
+    n = batch.shape[0] // shares
+    return batch[index * n:(index + 1) * n]
+
+
+def dropout_loss(shares: int):
+    """The trainer's loss (train/common.py::make_loss_fn: each data share's dropout masks from its own
+    stream) spelled out in one process over ``shares`` data shares of the batch, each share's loss and
+    masks as that share's rank draws them, averaged as the data ranks average their gradients."""
+    from arp_tpu_torch.train.common import rank_generator
+
+    def loss_fn(model, batch, generator):
+        state, losses = generator.get_state(), []
+        for i in range(shares):
+            stream = rank_generator(torch.Generator().set_state(state), i)
+            losses.append(model(_rows(batch, i, shares), deterministic=False, generator=stream)["loss"])
+        return torch.stack(losses).mean(), {}
+
+    return loss_fn
+
+
+def train_arpdt(payload, mesh_config=None, steps=3, accum_steps=1, drop=0.0, shares=1):
     """``steps`` steps of the JAX mesh test's step (explicit 1e-4 l2 penalty), on ``mesh_config``'s mesh
-    (None: one process, the whole batch).  Returns (full params, last loss, state)."""
-    from arp_tpu_torch.parallel.mesh import batch_share, create_mesh, gather_to_host
+    (None: one process, the whole batch).  ``drop`` above 0: that dropout and attention dropout, the
+    trainer's loss (one process: over ``shares`` data shares, :func:`dropout_loss`).  Returns (full
+    params, last loss, state)."""
+    from arp_tpu_torch.parallel.mesh import batch_share, create_mesh, data_share, gather_to_host
     from arp_tpu_torch.parallel.step import TrainState, make_train_step, shard_train_state
+    from arp_tpu_torch.train.common import make_loss_fn
 
     mesh = create_mesh(mesh_config, "cpu") if mesh_config is not None else None
-    state = TrainState.create(arpdt(payload["init"], payload["batch"]), ClippedSGD(0.1, 10.0))
+    pp = mesh_config.pp if mesh_config is not None else 1
+    rates = dict(drop=drop, att_drop=drop) if drop else {}
+    state = TrainState.create(arpdt(payload["init"], payload["batch"], mesh, pp, **rates), ClippedSGD(0.1, 10.0))
     state = shard_train_state(state, mesh)
-    step = make_train_step(deterministic_loss, mesh=mesh, weight_decay=1e-4, accum_steps=accum_steps)
+    loss_fn = deterministic_loss
+    if drop:
+        loss_fn = dropout_loss(shares) if mesh is None else make_loss_fn(None, None, 0, False, share=data_share(mesh))
+    step = make_train_step(loss_fn, mesh=mesh, weight_decay=1e-4, accum_steps=accum_steps)
     batch = batch_share(payload["batch"], mesh, accum_steps)
     aux = None
     for i in range(steps):
@@ -171,7 +226,7 @@ def case_adamw_sharded(rank, payload, tmp):
     grads = [[torch.from_numpy(rng.standard_normal(s).astype(np.float32)) for s in shapes] for _ in range(3)]
 
     def shard(t):
-        return t.clone() if t.ndim == 0 else distribute_tensor(t.clone(), mesh, [Replicate(), Shard(0)])
+        return t.clone() if t.ndim == 0 else distribute_tensor(t.clone(), mesh["dp", "fsdp"], [Replicate(), Shard(0)])
 
     tx = AdamW(lambda count: 1e-2 * (count + 1), 1e-3, [True, False, True, True], clip=0.5)
     whole, sharded = [t.clone() for t in full], [shard(t) for t in full]
@@ -187,21 +242,23 @@ def case_adamw_sharded(rank, payload, tmp):
             "sharded_mu_is_dtensor": type(s_sharded.mu[0]).__name__}
 
 
-def _state_with_adamw(payload, mesh):
+def _state_with_adamw(payload, mesh, pp: int = 1):
     from arp_tpu_torch.parallel.step import TrainState, shard_train_state, trainable_parameters
     from arp_tpu_torch.train.common import AdamW
 
-    model = arpdt(payload["init"], payload["batch"])
+    model = arpdt(payload["init"], payload["batch"], mesh, pp)
     tx = AdamW(lambda count: 1e-3, 1e-4, [True] * len(trainable_parameters(model)), clip=1.0)
     return shard_train_state(TrainState.create(model, tx), mesh)
 
 
 def _full_state(state) -> dict:
-    from arp_tpu_torch.parallel.mesh import gather_to_host
+    from arp_tpu_torch.parallel.mesh import gather_named, gather_to_host, split_of
 
-    return {"params": _numpy(gather_to_host(state.model)), "mu": _numpy(gather_to_host(list(state.opt_state.mu))),
-            "nu": _numpy(gather_to_host(list(state.opt_state.nu))), "count": state.opt_state.count,
-            "step": state.step}
+    names, splits = [n for n, _ in state.params], {n: split_of(p) for n, p in state.params if split_of(p)}
+    return {"params": _numpy(gather_to_host(state.model)),
+            "mu": _numpy([v for _, v in sorted(gather_named(dict(zip(names, state.opt_state.mu)), splits).items())]),
+            "nu": _numpy([v for _, v in sorted(gather_named(dict(zip(names, state.opt_state.nu)), splits).items())]),
+            "count": state.opt_state.count, "step": state.step}
 
 
 def case_checkpoint(rank, payload, tmp):
@@ -291,21 +348,27 @@ def _host_batch(tree):
 
 
 def case_trainer_cli(rank, payload, tmp):
-    """The trainer CLI in each rank at --mesh_dp=2 and --mesh_fsdp=2: each rank's batches, its writes,
-    the first step against the one-process step on the global batch (both ranks' rows)."""
+    """The trainer CLI in each rank at --mesh_dp=2, --mesh_fsdp=2, --mesh_tp=2 and --mesh_pp=2: each rank's
+    batches, its writes, the first step against the one-process step on the global batch (both ranks'
+    rows under dp and fsdp; the one data share's under tp and pp) on a flat model built as the trainer
+    builds it."""
     import copy
 
     import arp_tpu_torch.checkpoint as ckpt_lib
-    from arp_tpu_torch.parallel.mesh import gather_to_host
-    from arp_tpu_torch.parallel.step import TrainState, make_train_step, unwrap
+    from arp_tpu_torch.parallel.mesh import gather_named, gather_to_host, split_of
+    from arp_tpu_torch.parallel.step import TrainState, make_train_step
     from arp_tpu_torch.train import main as tmain
-    from arp_tpu_torch.train.common import AdamW
+    from arp_tpu_torch.train.common import AdamW, build_optimizer
 
     out = {}
     orig_step, orig_loss, orig_save = tmain.make_train_step, tmain.make_loss_fn, ckpt_lib._atomic_save
-    orig_update = AdamW.update
-    for flag in ("--mesh_dp=2", "--mesh_fsdp=2"):
+    orig_update, orig_build = AdamW.update, tmain.build_model
+    for flag in ("--mesh_dp=2", "--mesh_fsdp=2", "--mesh_tp=2", "--mesh_pp=2"):
         rec = {"actions": [], "losses": [], "writes": []}
+
+        def build_model(flags_obj, num_actions, rec=rec, **kw):
+            rec.setdefault("build", (copy.deepcopy(flags_obj), num_actions, kw.get("frozen_qpack")))
+            return orig_build(flags_obj, num_actions, **kw)
 
         def make_loss_fn(model, augment_fn, image_size, use_goal, share=(0, 1), rec=rec):
             rec["loss_args"] = (augment_fn, image_size, use_goal, share)
@@ -317,7 +380,6 @@ def case_trainer_cli(rank, payload, tmp):
             def wrapped(state, batch, generator):
                 if not rec["actions"]:
                     rec["init"] = gather_to_host(state.model)
-                    rec["module"] = copy.deepcopy(unwrap(state.model)) if flag == "--mesh_dp=2" else None
                     rec["tx"], rec["first"] = state.tx, _host_batch(batch)
                     rec["names"] = [n for n, _ in state.params]
                 rec["actions"].append(batch["action"].cpu().numpy().copy())
@@ -341,38 +403,44 @@ def case_trainer_cli(rank, payload, tmp):
             return orig_update(self, params, grads, state)
 
         tmain.make_train_step, tmain.make_loss_fn, ckpt_lib._atomic_save = make_train_step, make_loss_fn, atomic_save
-        AdamW.update = update
+        tmain.build_model, AdamW.update = build_model, update
         key, name = flag.split("=")[0][2:], flag.split("=")[0].split("_")[1]
         try:
             tmain.main(payload["trainer_argv"] + [flag, f"--checkpoint_dir={tmp}/trainer_{name}",
                                                   f"--logging.output_dir={tmp}/trainer_log_{name}"])
         finally:
             tmain.make_train_step, tmain.make_loss_fn, ckpt_lib._atomic_save = orig_step, orig_loss, orig_save
-            AdamW.update = orig_update
+            tmain.build_model, AdamW.update = orig_build, orig_update
         final = _numpy(gather_to_host(rec["state"].model))
+        splits = {n: split_of(p) for n, p in rec["state"].params if split_of(p) is not None}
         result = {"actions": rec["actions"], "losses": rec["losses"], "writes": rec["writes"], "final": final,
                   "after_first": _numpy(rec["after_first"]), "share": rec["loss_args"][3],
-                  "first_grads": dict(zip(rec["names"], _numpy(gather_to_host(rec["grads"]))))}
-        # the one-process step on the global batch of the first step, from the same state and draws
-        global_batch = _concat(_gather_objects(rec["first"]))
-        if rec["module"] is not None:
-            model = rec["module"]
-            with torch.no_grad():
-                model.load_trained_state_dict(rec["init"])
-            augment_fn, image_size, use_goal, _ = rec["loss_args"]
-            state = TrainState.create(model, rec["tx"])
-            step = orig_step(orig_loss(model, augment_fn, image_size, use_goal))
-            global_batch = {k: (v if v is None else {kk: torch.from_numpy(vv) for kk, vv in v.items()}
-                                if isinstance(v, dict) else torch.from_numpy(v)) for k, v in global_batch.items()}
-            del rec["grads"]
-            AdamW.update = update
-            try:
-                state, aux = step(state, global_batch, tmain.step_generator(payload["trainer_seed"], 0, "cpu"))
-            finally:
-                AdamW.update = orig_update
-            result["one_process_first"] = _numpy(gather_to_host(state.model))
-            result["one_process_loss"] = float(aux["loss"])
-            result["one_process_grads"] = dict(zip(rec["names"], _numpy(rec["grads"])))
+                  "first_grads": _numpy(gather_named(dict(zip(rec["names"], rec["grads"])), splits))}
+        # the one-process step on the global batch of the first step, from the same state and draws, on a
+        # flat model built as the trainer builds it
+        shares = _gather_objects(rec["first"])
+        global_batch = _concat(shares) if result["share"][1] > 1 else rec["first"]
+        flags_obj, num_actions, qpack = rec["build"]
+        flags_obj.model.pp_stages = 1
+        model = orig_build(flags_obj, num_actions, frozen_qpack=qpack)
+        global_batch = {k: (v if v is None else {kk: torch.from_numpy(vv) for kk, vv in v.items()}
+                            if isinstance(v, dict) else torch.from_numpy(v)) for k, v in global_batch.items()}
+        with torch.no_grad():
+            model({k: (v if v is None else {kk: vv[:1] for kk, vv in v.items()} if isinstance(v, dict) else v[:1])
+                   for k, v in global_batch.items()}, deterministic=True)
+            model.load_trained_state_dict({k: torch.as_tensor(v) for k, v in rec["init"].items()})
+        augment_fn, image_size, use_goal, _ = rec["loss_args"]
+        state = TrainState.create(model, build_optimizer(flags_obj, rec["tx"].learning_rate, model))
+        step = orig_step(orig_loss(model, augment_fn, image_size, use_goal))
+        del rec["grads"]
+        AdamW.update = update
+        try:
+            state, aux = step(state, global_batch, tmain.step_generator(payload["trainer_seed"], 0, "cpu"))
+        finally:
+            AdamW.update = orig_update
+        result["one_process_first"] = _numpy(gather_to_host(state.model))
+        result["one_process_loss"] = float(aux["loss"])
+        result["one_process_grads"] = dict(zip([n for n, _ in state.params], _numpy(rec["grads"])))
         out[key] = result
     return out
 
@@ -538,3 +606,150 @@ def case_ppg(rank, payload, tmp):
 
 def _concat_lists(trees: list) -> dict:
     return {k: [t[k] for t in trees] for k in trees[0]}
+
+
+# -- tensor and pipeline parallelism (tests/test_torch_tp_pp.py, 4 ranks) ----------------------------------
+
+
+def case_tp_pp_train(rank, payload, tmp):
+    """Three clipped-SGD steps of the vit_debug ARPDT at (dp 2, tp 2), (fsdp 2, tp 2) and (dp 2, pp 2), and in
+    one process; each rank's qkv share at the start of the tp run; the (dp 2, tp 2) run's head count a rank;
+    the trained model's action_pred on its data share against a flat model loaded with the gathered params
+    (what the rollout eval on rank 0 runs)."""
+    from arp_tpu_torch.parallel.mesh import MeshConfig, batch_share, create_mesh
+    from arp_tpu_torch.parallel.step import unwrap
+
+    out = {}
+    for name, cfg in (("dp_tp", MeshConfig(dp=2, tp=2)), ("fsdp_tp", MeshConfig(dp=1, fsdp=2, tp=2)),
+                      ("dp_pp", MeshConfig(dp=2, pp=2)), ("fsdp_pp", MeshConfig(dp=1, fsdp=2, pp=2)), ("one", None)):
+        params, loss, state = train_arpdt(payload, cfg)
+        out[name] = {"params": params, "loss": loss}
+        module = unwrap(state.model)
+        if cfg is not None:
+            rows = batch_share(payload["batch"], create_mesh(cfg, "cpu"))
+            with torch.no_grad():
+                laid = state.model(rows, deterministic=True)["action_pred"]
+                flat = arpdt(params, payload["batch"])(rows, deterministic=True)["action_pred"]
+            out[name]["action_pred"] = (_numpy(laid), _numpy(flat))
+        if name == "dp_tp":
+            attn = module.policy.blocks_0.attn
+            out[name].update(tp_rank=attn.tp.rank, local_heads=attn.num_heads // attn.tp.size,
+                             qkv_rows=tuple(attn.qkv.kernel.shape), attn_out=tuple(attn.attn_out.weight.shape),
+                             fc1=tuple(module.policy.blocks_0.mlp.fc1.weight.shape))
+        if name == "dp_pp":
+            out[name]["own_blocks"] = sorted(n.split(".")[1] for n, _ in module.named_parameters()
+                                             if n.startswith("policy.blocks_"))
+    # dropout and attention dropout at (dp 2, tp 2): each tp rank drops its share of the mask one process draws
+    for name, cfg in (("dp_tp_dropout", MeshConfig(dp=2, tp=2)), ("one_dropout", None)):
+        params, loss, _ = train_arpdt(payload, cfg, drop=TP_DROPOUT, shares=2)
+        out[name] = {"params": params, "loss": loss}
+    return out
+
+
+def case_tp_qkv_share(rank, payload, tmp):
+    """The qkv kernel and bias each tp rank holds after the split (dp 2 x tp 2), untrained."""
+    from arp_tpu_torch.parallel.mesh import MeshConfig, create_mesh
+    from arp_tpu_torch.parallel.step import TrainState, shard_train_state, unwrap
+
+    mesh = create_mesh(MeshConfig(dp=2, tp=2), "cpu")
+    state = shard_train_state(TrainState.create(arpdt(payload["init"], payload["batch"]), ClippedSGD(0.1, 10.0)), mesh)
+    attn = unwrap(state.model).policy.blocks_1.attn
+    return {"tp_rank": mesh["tp"].get_local_rank(), "kernel": _numpy(attn.qkv.kernel), "bias": _numpy(attn.qkv.bias),
+            "attn_out": _numpy(attn.attn_out.weight)}
+
+
+def case_tp_pp_checkpoint(rank, payload, tmp):
+    """AdamW states saved at (dp 2, tp 2) and at (dp 2, pp 2), each restored in one process (no mesh) and at
+    the other layout: bit for bit the saved state; the next step of each the uninterrupted run's."""
+    from arp_tpu_torch.checkpoint import CheckpointManager
+    from arp_tpu_torch.parallel.mesh import MeshConfig, batch_share, create_mesh
+    from arp_tpu_torch.parallel.step import make_train_step
+
+    meshes = {"tp": (create_mesh(MeshConfig(dp=2, tp=2), "cpu"), 1), "pp": (create_mesh(MeshConfig(dp=2, pp=2), "cpu"), 2)}
+    out = {}
+    for name, (mesh, pp) in meshes.items():
+        directory = os.path.join(tmp, f"ckpt_{name}")
+        state = _state_with_adamw(payload, mesh, pp)
+        step = make_train_step(deterministic_loss, mesh=mesh, weight_decay=1e-4)
+        batch = batch_share(payload["batch"], mesh)
+        for i in range(2):
+            state, _ = step(state, batch, torch.Generator().manual_seed(i))
+        CheckpointManager(directory).save(2, state, metadata={"step": 2})
+        saved = _full_state(state)
+        state, _ = step(state, batch, torch.Generator().manual_seed(2))
+        uninterrupted = _full_state(state)
+        result = {"saved": saved, "uninterrupted": uninterrupted}
+        other = "pp" if name == "tp" else "tp"
+        for where, (on, on_pp) in (("one", (None, 1)), (other, meshes[other])):
+            resumed, meta = CheckpointManager(directory).restore(_state_with_adamw(payload, on, on_pp))
+            restored = _full_state(resumed)
+            step = make_train_step(deterministic_loss, mesh=on, weight_decay=1e-4)
+            resumed, _ = step(resumed, batch_share(payload["batch"], on), torch.Generator().manual_seed(2))
+            result[where] = {"restored": restored, "resumed": _full_state(resumed), "meta_step": meta["step"]}
+        out[name] = result
+    return out
+
+
+def _gelu_stage(params, x):
+    return torch.nn.functional.gelu(x @ params[0] + params[1], approximate="tanh")
+
+
+def case_pipeline(rank, payload, tmp):
+    """pipeline_apply of a dense + gelu stage at (S, M) in (2, 4), (4, 4), (4, 8), each data share of the
+    4 ranks pipelining its rows; with its gradients against sequential_apply's."""
+    from arp_tpu_torch.parallel.mesh import MeshConfig, batch_share, create_mesh
+    from arp_tpu_torch.parallel.pipeline import pipeline_apply, sequential_apply
+
+    out = {}
+    for S, M in ((2, 4), (4, 4), (4, 8)):
+        p = payload["pipeline"][S]
+        mesh = create_mesh(MeshConfig(dp=4 // S, pp=S), "cpu")
+        s = mesh["pp"].get_local_rank()
+        x = torch.from_numpy(batch_share(payload["pipeline"]["x"], mesh))
+        stages = [[torch.tensor(p["w"][i], requires_grad=True), torch.tensor(p["b"][i], requires_grad=True)]
+                  for i in range(S)]
+        own = stages[s]
+        xg = x.clone().requires_grad_(True)
+        got = pipeline_apply(lambda act: _gelu_stage(own, act), own, xg, mesh, M)
+        (got ** 2).sum().backward()
+        xw = x.clone().requires_grad_(True)
+        seq = [[t.detach().clone().requires_grad_(True) for t in stage] for stage in stages]
+        want = sequential_apply(_gelu_stage, seq, xw)
+        (want ** 2).sum().backward()
+        out[(S, M)] = {"got": _numpy(got), "want": _numpy(want), "index": mesh["dp"].get_local_rank(),
+                       "grad_w": (_numpy(own[0].grad), _numpy(seq[s][0].grad)),
+                       "grad_b": (_numpy(own[1].grad), _numpy(seq[s][1].grad)),
+                       "grad_x": (_numpy(xg.grad), _numpy(xw.grad))}
+    return out
+
+
+def case_pipelined_blocks(rank, payload, tmp):
+    """A depth-4 stack of real transformer blocks pipelined in 4 stages (4 microbatches), from the flat
+    weights: its output, and its gradients against the flat Transformer's; with remat too."""
+    from arp_tpu_torch.models.layers import PipelinedTransformer, Transformer
+    from arp_tpu_torch.ops.masks import MaskSpec
+    from arp_tpu_torch.parallel.mesh import MeshConfig, create_mesh, gather_named, load_full_state, split_of
+
+    b = payload["blocks"]
+    mesh = create_mesh(MeshConfig(dp=1, pp=4), "cpu")
+    state = {k: torch.from_numpy(v) for k, v in b["state"].items()}
+    x = torch.from_numpy(b["x"])
+    flat = Transformer(emb_dim=32, depth=4, num_heads=4, mlp_ratio=2)
+    flat.load_state_dict(state)
+    xf = x.clone().requires_grad_(True)
+    want = flat(xf, mask_spec=MaskSpec("causal"))
+    (want ** 2).sum().backward()
+    out = {"want": _numpy(want)}
+    for remat in (False, True):
+        pipe = PipelinedTransformer(emb_dim=32, depth=4, num_heads=4, mlp_ratio=2, stages=4, microbatches=4,
+                                    mesh=mesh, remat=remat)
+        load_full_state(pipe, state)
+        xp = x.clone().requires_grad_(True)
+        got = pipe(xp, mask_spec=MaskSpec("causal"))
+        (got ** 2).sum().backward()
+        grads = gather_named({n: p.grad for n, p in pipe.named_parameters()},
+                             {n: split_of(p) for n, p in pipe.named_parameters() if split_of(p)})
+        out[remat] = {"got": _numpy(got), "grads": _numpy(grads), "grad_x": _numpy(xp.grad)}
+    out["flat_grads"] = {n: p.grad.numpy() for n, p in flat.named_parameters()}
+    out["flat_grad_x"] = _numpy(xf.grad)
+    return out
