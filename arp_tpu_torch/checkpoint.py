@@ -30,6 +30,16 @@ The reference's own format, a pickle of ``{"step", "epoch", "variant",
 :func:`load_reference_checkpoint` and written by :func:`save_pickle` /
 :func:`save_reference_checkpoint`, all without flax, optax, jax or
 cloudpickle (arp_tpu_torch/_pickle_compat.py).
+
+The JAX package's own checkpoints are orbax directories (``arp_tpu/checkpoint.py``): a step
+is ``<directory>/<n>/state`` (the train state) beside ``<directory>/<n>/metadata/metadata``
+(JSON), the best model ``<directory>/best/CURRENT`` -> ``best/v<n>/state`` (or the older flat
+``best/state``).  :func:`load_orbax_item` reads one such item with ``tensorstore`` alone (no
+jax, flax or orbax; tensorstore must be installed where the directory is read), and
+:func:`restore_orbax_params` / :func:`orbax_policy_state` give a step's params as the JAX
+package's ``CheckpointManager.restore_params`` does.  The port reads these directories and
+never writes them; resuming a JAX run's optimizer state is not supported
+(:func:`refuse_jax_run`).
 """
 
 from __future__ import annotations
@@ -125,9 +135,13 @@ def load_best_state(directory: str) -> tuple[dict, dict]:
 
 
 class CheckpointManager:
-    """Save, restore and keep the best of train states in ``directory``."""
+    """Save, restore and keep the best of train states in ``directory``.
+
+    A directory that holds the JAX package's orbax checkpoints and none of the port's raises
+    (:func:`refuse_jax_run`): a resuming CLI must not start over beside a JAX run."""
 
     def __init__(self, directory: str, max_to_keep: int = 5):
+        refuse_jax_run(directory)
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
         self.max_to_keep = max_to_keep
@@ -278,3 +292,161 @@ def save_reference_checkpoint(path: str, params, *, step: int = 0, epoch: int = 
     exported = export_reference_policy_params(torch_policy_to_flax(params, pp_stages), ensemble_mode=ensemble_mode)
     state = _pickle_compat.ReferenceTrainState(step=0, apply_fn=None, params=exported, tx=None, opt_state=None)
     save_pickle({"step": int(step), "epoch": int(epoch), "variant": dict(variant or {}), "state": state}, path)
+
+
+# -- the JAX package's orbax directories, read through tensorstore alone -----------------------------
+
+_SEQUENCE_KEY = 1  # orbax's key_type of a sequence index in ``key_metadata`` (2: a dict key)
+_ARRAY_TYPES = ("jax.Array", "np.ndarray", "scalar")  # value types stored as tensorstore arrays
+
+
+def _tensorstore(where: str):
+    try:
+        import tensorstore
+    except ImportError as e:
+        raise ImportError(f"reading the JAX package's orbax checkpoint {where} needs the tensorstore package, "
+                          "which is not installed") from e
+    return tensorstore
+
+
+def _as_sequences(node):
+    """The nested dicts whose keys are sequence indices (marked by ``_SEQUENCE_KEY``) as lists."""
+    if not isinstance(node, dict):
+        return node
+    items = {k: _as_sequences(v) for k, v in node.items() if k != _SEQUENCE_KEY}
+    if node.get(_SEQUENCE_KEY):
+        return [items[str(i)] for i in range(len(items))]
+    return items
+
+
+def load_orbax_item(item_dir: str) -> tuple[dict, dict]:
+    """(tree, metadata) of one item the JAX package's ``CheckpointManager`` wrote with orbax's
+    ``StandardCheckpointHandler`` (``<directory>/<n>/state``, ``best/v<n>/state``), read with
+    tensorstore alone.
+
+    ``_METADATA``'s ``tree_metadata`` names every leaf by its keys (dict keys, and sequence
+    indices, which come back as lists); each array opens from the OCDBT (or plain) store under
+    the keys joined by ".".  Leaves of numpy arrays keep their dtype (bfloat16 as numpy's
+    ``ml_dtypes.bfloat16``), a scalar comes back as a Python number, and a leaf orbax does not
+    store as an array (``skip_deserialize``, a None) comes back as None, as orbax restores it
+    without a template.  ``metadata`` is the JSON item beside the state
+    (``<directory>/<n>/metadata/metadata``), {} when there is none.
+    """
+    item_dir = os.path.abspath(item_dir)
+    meta_file = os.path.join(item_dir, "_METADATA")
+    if not os.path.exists(meta_file):
+        raise FileNotFoundError(f"{item_dir} is not an orbax checkpoint item (no _METADATA)")
+    ts = _tensorstore(item_dir)
+    with open(meta_file) as f:
+        layout = json.load(f)
+    driver = "zarr3" if layout.get("use_zarr3") else "zarr"
+    context = ts.Context()
+    opened = {}
+    for entry in layout["tree_metadata"].values():
+        keys = [(k["key"], k["key_type"]) for k in entry["key_metadata"]]
+        value = entry["value_metadata"]
+        if value.get("skip_deserialize") or value.get("value_type") not in _ARRAY_TYPES:
+            opened[tuple(keys)] = (value.get("value_type"), None)
+            continue
+        name = ".".join(str(k) for k, _ in keys)
+        store = ({"driver": "ocdbt", "base": f"file://{item_dir}", "path": name}
+                 if layout.get("use_ocdbt", True) else f"file://{os.path.join(item_dir, name)}")
+        opened[tuple(keys)] = (value["value_type"], ts.open({"driver": driver, "kvstore": store}, open=True,
+                                                             read=True, context=context))
+    reads = {keys: (kind, fut.result().read()) for keys, (kind, fut) in opened.items() if fut is not None}
+    tree: dict = {}
+    for keys in opened:
+        leaf = None
+        if keys in reads:
+            kind, read = reads[keys]
+            leaf = np.asarray(read.result())
+            leaf = leaf.item() if kind == "scalar" else leaf
+        node = tree
+        for depth, (key, key_type) in enumerate(keys):
+            if key_type == _SEQUENCE_KEY:
+                node[_SEQUENCE_KEY] = True  # the parent is a sequence
+            if depth == len(keys) - 1:
+                node[str(key)] = leaf
+            else:
+                node = node.setdefault(str(key), {})
+    metadata = {}
+    meta_item = os.path.join(os.path.dirname(item_dir), "metadata", "metadata")
+    if os.path.exists(meta_item):
+        with open(meta_item) as f:
+            metadata = json.load(f)
+    return _as_sequences(tree), metadata
+
+
+def array_to_torch(a: np.ndarray) -> torch.Tensor:
+    """A leaf :func:`load_orbax_item` read, as a CPU tensor of its own dtype: a bfloat16 leaf through its
+    bits (numpy has no bfloat16 that torch takes), never widened."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def orbax_steps(directory: str) -> list:
+    """The numeric step directories of an orbax ``CheckpointManager`` in ``directory`` that hold a
+    complete state item (``<n>/state/_METADATA``), ascending."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(name) for name in os.listdir(directory)
+                  if name.isdigit() and os.path.exists(os.path.join(directory, name, "state", "_METADATA")))
+
+
+def latest_orbax_step(directory: str) -> Optional[int]:
+    """The largest of :func:`orbax_steps`, or None, as ``CheckpointManager.latest_step`` gives it."""
+    steps = orbax_steps(directory)
+    return steps[-1] if steps else None
+
+
+def orbax_best_state_dir(directory: str) -> Optional[str]:
+    """The best model's state item: ``best/CURRENT`` -> ``best/v<n>/state``, else the older flat
+    ``best/state`` (arp_tpu/checkpoint.py's ``best_state_dir``); None when neither is there."""
+    best = os.path.join(directory, "best")
+    pointer = os.path.join(best, "CURRENT")
+    if os.path.exists(pointer):
+        with open(pointer) as f:
+            state = os.path.join(best, f.read().strip(), "state")
+        return state if os.path.isdir(state) else None
+    legacy = os.path.join(best, "state")
+    return legacy if os.path.isdir(legacy) else None
+
+
+def params_of(state):
+    """``state["params"]`` when the restored state is a dict holding them, else the state itself."""
+    return state["params"] if isinstance(state, dict) and "params" in state else state
+
+
+def restore_orbax_params(directory: str, step: Optional[int] = None) -> tuple[dict, dict]:
+    """(params as numpy, metadata) of orbax step ``step`` (the newest by default) in ``directory``, as
+    the JAX package's ``CheckpointManager.restore_params`` gives them; none there raises."""
+    step = step if step is not None else latest_orbax_step(directory)
+    if step is None:
+        raise FileNotFoundError(f"no orbax checkpoint step in {directory}")
+    state, metadata = load_orbax_item(os.path.join(directory, str(step), "state"))
+    return params_of(state), metadata
+
+
+def orbax_policy_state(directory: str, step: Optional[int] = None) -> tuple[dict, dict]:
+    """(trained state dict, metadata with ``step``) of a JAX policy's orbax step, the newest by default:
+    :func:`restore_orbax_params` through ``flax_policy_to_torch``."""
+    from .models.policy.convert import flax_policy_to_torch
+
+    step = step if step is not None else latest_orbax_step(directory)
+    params, metadata = restore_orbax_params(directory, step)
+    return flax_policy_to_torch(params), dict(metadata, step=step)
+
+
+def refuse_jax_run(directory: str) -> None:
+    """Raise where ``directory`` holds the JAX package's orbax checkpoints and none of the port's.
+
+    The port resumes its own ``step_<n>.pt``; a JAX run's optimizer state does not carry over, and
+    starting afresh beside it would pass a new run off as a resumed one."""
+    if not os.path.isdir(directory) or saved_steps(directory) or os.path.exists(os.path.join(directory, "best.pt")):
+        return
+    steps, best = orbax_steps(directory), orbax_best_state_dir(directory)
+    if steps or best:
+        found = [f"step {n}" for n in steps] + ([f"best ({best})"] if best else [])
+        raise RuntimeError(f"{directory} holds the JAX package's orbax checkpoints ({', '.join(found)}) and none of "
+                           "the port's step_<n>.pt: resuming a JAX run is not supported; pass another --checkpoint_dir")

@@ -16,7 +16,7 @@ port's do.  ``--checkpoint_dir`` / ``--save_every``: ``collect/ppg.py::learn``'s
 
 from __future__ import annotations
 
-from ..checkpoint import save_pickle
+from ..checkpoint import refuse_jax_run, save_pickle
 from ..config import Config, flag_leaves, parse_flag_tree
 from ..device import resolve_device
 from ..logging_utils import MetricsLogger
@@ -82,6 +82,7 @@ def env_fns(flags):
 
 def main(argv=None):
     flags = parse_flags(argv)
+    refuse_jax_run(flags.checkpoint_dir)  # before any work: a JAX run's directory does not resume here
     process_index = 0
     mesh = None
     if flags.mesh_dp > 1:

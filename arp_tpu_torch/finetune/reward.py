@@ -23,13 +23,19 @@ trunk and the adapter.
 from __future__ import annotations
 
 import os
-import pickle
 from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from ..checkpoint import latest_step, load_best_state, load_policy_state
+from ..checkpoint import (
+    latest_step,
+    load_best_state,
+    load_orbax_item,
+    load_pickle,
+    load_policy_state,
+    params_of,
+)
 from ..models.clip.model import CLIP, CONFIGS, load_model_vars
 from ..reward.engine import ClipRewardEngine, _mesh_devices
 from .adapter_model import ClipMultiscaleAdapter
@@ -37,19 +43,28 @@ from .convert import flax_adapter_to_torch
 
 
 def load_adapter_params(path: str) -> dict:
-    """The adapter's state dict from ``path``: a directory the port's fine-tuning CLI wrote
-    (``best.pt``, else its latest ``step_<n>.pt``), or a pickle in the JAX package's layout
-    (``{"params": ...}`` or ``{"state": ...}`` of Flax params as numpy), through the bridge."""
+    """The adapter's state dict from ``path``, through the bridge where the file is the JAX package's.
+
+    A directory: the port's fine-tuning CLI's ``best.pt``, else its latest ``step_<n>.pt``; else the
+    JAX package's orbax layouts in its order (arp_tpu/finetune/reward.py): ``best/CURRENT`` ->
+    ``best/v<n>/state``, the older ``best/state``, the directory itself as a state item (read by
+    ``checkpoint.load_orbax_item``, which needs tensorstore).  A file: a pickle the JAX package
+    wrote (``{"state": TrainState}`` or ``{"params": <jax arrays>}``), read by
+    ``checkpoint.load_pickle`` without jax, flax or cloudpickle."""
     if os.path.isdir(path):
         if os.path.exists(os.path.join(path, "best.pt")):
             return load_best_state(path)[0]
         if latest_step(path) is not None:
             return load_policy_state(path)[0]
-        raise NotImplementedError(
-            f"{path} holds no best.pt or step_<n>.pt: reading the JAX package's orbax checkpoints is not "
-            "ported yet (ROADMAP Queue 1, item 10)")
-    with open(path, "rb") as f:
-        data = pickle.load(f)  # the JAX package's own checkpoint pickle
+        best = os.path.join(path, "best")
+        candidates = []
+        if os.path.exists(os.path.join(best, "CURRENT")):
+            with open(os.path.join(best, "CURRENT")) as f:
+                candidates.append(os.path.join(best, f.read().strip(), "state"))
+        candidates += [os.path.join(best, "state"), path]
+        state, _ = load_orbax_item(next(c for c in candidates if os.path.isdir(c)))
+        return flax_adapter_to_torch(params_of(state))
+    data = load_pickle(path)
     if isinstance(data, dict) and "state" in data:
         data = data["state"]
     params = data.params if hasattr(data, "params") else data["params"]

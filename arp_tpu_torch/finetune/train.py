@@ -35,7 +35,7 @@ import random
 import numpy as np
 import torch
 
-from ..checkpoint import CheckpointManager
+from ..checkpoint import CheckpointManager, refuse_jax_run
 from ..config import flag_leaves, parse_flag_tree
 from ..data.loader import DataLoader
 from ..device import resolve_device
@@ -95,6 +95,7 @@ def build_clip(name: str, checkpoint: str, device) -> CLIP:
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     flags = parse_flag_tree(flag_defaults(), argv, "Fine-tune the CLIP multiscale adapter (PyTorch, GPUs).")
+    refuse_jax_run(flags.checkpoint_dir)  # before any work: a JAX run's directory does not resume here
     process_index, _ = initialize(device=flags.device)
     device = resolve_device(flags.device)
     mesh = create_mesh(MeshConfig(dp=flags.mesh_dp), device)

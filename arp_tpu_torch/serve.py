@@ -15,9 +15,10 @@ API (JSON over HTTP):
   POST /v1/reload             {} -> {"status": "reloaded", "step": n}
   GET  /v1/health             -> {"status": "ok", "sessions": N}
 
-Checkpoints are the port's own: ``step_<n>.pt`` files in ``--checkpoint_dir``,
-each the policy's trained state dict and its step (``checkpoint.py`` owns the format;
-:func:`save_policy_state` and :func:`load_policy_state` are its).
+Checkpoints in ``--checkpoint_dir``: the port's ``step_<n>.pt`` files, each the policy's
+trained state dict and its step (``checkpoint.py`` owns the format; :func:`save_policy_state`
+and :func:`load_policy_state` are its), else the JAX trainer's orbax steps, read through
+tensorstore (``checkpoint.orbax_policy_state``) as the JAX server restores them.
 """
 
 from __future__ import annotations
@@ -32,7 +33,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .checkpoint import latest_step, load_policy_state, save_policy_state  # noqa: F401 (the server's API)
+from .checkpoint import (  # noqa: F401 (the server's API)
+    latest_orbax_step,
+    latest_step,
+    load_policy_state,
+    orbax_policy_state,
+    save_policy_state,
+)
 
 
 class UnknownSession(Exception):
@@ -386,13 +393,29 @@ def make_json_http_server(
     return ThreadingHTTPServer((host, port), Handler)
 
 
-# -- checkpoints: checkpoint.py owns the step_<n>.pt format ---------------------------------
+# -- checkpoints: checkpoint.py owns the step_<n>.pt format and reads the JAX package's ------------
+
+
+def has_checkpoint(checkpoint_dir: str) -> bool:
+    """Whether ``checkpoint_dir`` holds a ``step_<n>.pt`` or a JAX orbax step (an empty directory does not)."""
+    return latest_step(checkpoint_dir) is not None or latest_orbax_step(checkpoint_dir) is not None
+
+
+def latest_policy_state(checkpoint_dir: str) -> tuple[dict, dict]:
+    """(trained state dict, metadata with ``step``) of the newest ``step_<n>.pt``, else of the newest JAX
+    orbax step; none raises."""
+    if latest_step(checkpoint_dir) is not None:
+        return load_policy_state(checkpoint_dir)
+    if latest_orbax_step(checkpoint_dir) is not None:
+        return orbax_policy_state(checkpoint_dir)
+    raise FileNotFoundError(f"no step_<n>.pt or orbax checkpoint step in {checkpoint_dir}")
 
 
 def reloadable_policy(model, checkpoint_dir: str) -> tuple[Callable, Callable]:
     """(policy_fn, load_latest) over ``model``: ``policy_fn(inputs)`` gives the greedy
     actions under ``torch.inference_mode()``; ``load_latest()`` swaps in the weights of the
-    newest ``step_<n>.pt`` of ``checkpoint_dir`` and returns ``{"step": n}``.
+    newest ``step_<n>.pt`` of ``checkpoint_dir`` (else of its newest JAX orbax step) and
+    returns ``{"step": n}``.
 
     The swap is one reference assignment of a new module that shares the frozen tower
     (``clone_sharing_frozen``): in-flight forwards see old or new weights, both valid.
@@ -407,7 +430,7 @@ def reloadable_policy(model, checkpoint_dir: str) -> tuple[Callable, Callable]:
             return holder["model"].greedy_action(inputs)
 
     def load_latest() -> dict:
-        state, meta = load_policy_state(checkpoint_dir)
+        state, meta = latest_policy_state(checkpoint_dir)
         new = holder["model"].clone_sharing_frozen()
         new.load_trained_state_dict(state)
         holder["model"] = new
@@ -473,7 +496,7 @@ def main():
     del model  # after a restore, only the policy_fn's holder names the served weights
 
     initial_meta = {}
-    if args.allow_random_init and latest_step(args.checkpoint_dir) is None:
+    if args.allow_random_init and not has_checkpoint(args.checkpoint_dir):
         print("[WARN] no checkpoint found; serving random-init policy (--allow_random_init)")
     else:
         initial_meta = load_latest()

@@ -2,9 +2,10 @@
 ``train/eval.py``; the reference's ``python -m arp_dt.local_run_procgen``).
 
 Restores a policy from a reference-format pickle (``--load_checkpoint``, read
-as the JAX CLI reads it: ``state.params``) or from the trainer's
-``--checkpoint_dir`` (its newest ``step_<n>.pt``; ``best.pt`` when it holds no
-step file), rebuilds the dataset
+as the JAX CLI reads it: ``state.params``) or from a trainer's
+``--checkpoint_dir``: the port's newest ``step_<n>.pt``, its ``best.pt`` when it
+holds no step file, else the JAX trainer's newest orbax step (read with
+tensorstore, as the JAX CLI restores the latest step), rebuilds the dataset
 to recover return_to_go / scale, runs the rollout eval with on-the-fly CLIP
 rewards (train/common.py::build_test_step) and logs the returns and videos.
 
@@ -31,6 +32,8 @@ from ..checkpoint import (
     load_best_state,
     load_policy_state,
     load_reference_checkpoint,
+    latest_orbax_step,
+    orbax_policy_state,
     reference_policy_state,
 )
 from ..config import Config, flag_leaves, parse_flag_tree
@@ -79,12 +82,15 @@ def parse_flags(argv=None) -> Config:
 
 def restore_policy_state(checkpoint_dir: str) -> tuple[dict, dict]:
     """(trained state dict, metadata) of the newest ``step_<n>.pt`` in ``checkpoint_dir``, else of
-    its ``best.pt``; neither raises FileNotFoundError."""
+    its ``best.pt``, else of the newest orbax step the JAX trainer wrote there; none raises
+    FileNotFoundError."""
     if latest_step(checkpoint_dir) is not None:
         return load_policy_state(checkpoint_dir)
     if os.path.exists(os.path.join(checkpoint_dir, "best.pt")):
         return load_best_state(checkpoint_dir)
-    raise FileNotFoundError(f"no step_<n>.pt or best.pt checkpoint in {checkpoint_dir}")
+    if latest_orbax_step(checkpoint_dir) is not None:
+        return orbax_policy_state(checkpoint_dir)
+    raise FileNotFoundError(f"no step_<n>.pt, best.pt or orbax checkpoint step in {checkpoint_dir}")
 
 
 def main(argv=None):

@@ -63,7 +63,7 @@ import sys
 import numpy as np
 import torch
 
-from ..checkpoint import CheckpointManager, load_reference_checkpoint, reference_policy_state
+from ..checkpoint import CheckpointManager, load_reference_checkpoint, reference_policy_state, refuse_jax_run
 from ..config import Config, flag_leaves, parse_flag_tree
 from ..data.instructions import get_m3ae_instruct
 from ..data.loader import DataLoader
@@ -157,6 +157,7 @@ def _poison(tree):
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     flags = parse_flags(argv)
+    refuse_jax_run(flags.checkpoint_dir)  # before any work: a JAX run's directory does not resume here
     process_index, process_count = initialize(device=flags.device)
     device = resolve_device(flags.device)
     mesh = create_mesh(MeshConfig(dp=flags.mesh_dp, fsdp=flags.mesh_fsdp, tp=flags.mesh_tp, pp=flags.mesh_pp,

@@ -23,9 +23,10 @@ port's.  As in the JAX trainer:
   * with ``--checkpoint_dir`` the state is saved at the end of every epoch.
 
 What differs, on purpose: checkpoints are the port's ``step_<n>.pt`` files
-(checkpoint.py::CheckpointManager; JAX writes orbax directories, which need
-tensorstore and jax, ROADMAP item 10), and a step's masking draws come from a
-generator seeded by (seed, step), not JAX's key chain.
+(checkpoint.py::CheckpointManager; JAX writes orbax directories, which the port
+reads with tensorstore but does not write, and a directory that holds only JAX's
+raises), and a step's masking draws come from a generator seeded by (seed, step),
+not JAX's key chain.
 
 Several GPUs: ``torchrun --nproc_per_node=N -m arp_tpu_torch.train.pretrain_m3ae
 --mesh_dp=N`` (or ``--mesh_fsdp``).  JAX loads the global batch in one process and
@@ -47,7 +48,7 @@ import sys
 import numpy as np
 import torch
 
-from ..checkpoint import CheckpointManager
+from ..checkpoint import CheckpointManager, refuse_jax_run
 from ..config import Config, flag_leaves, parse_flag_tree
 from ..data.instructions import get_m3ae_instruct
 from ..data.loader import DataLoader
@@ -157,6 +158,7 @@ def batch_on(batch: dict, device) -> dict:
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(name)s: %(message)s")
     flags = parse_flags(argv)
+    refuse_jax_run(flags.checkpoint_dir)  # before any work: a JAX run's directory does not resume here
     process_index, _ = initialize(device=flags.device)
     device = resolve_device(flags.device)
     mesh = create_mesh(MeshConfig(dp=flags.mesh_dp, fsdp=flags.mesh_fsdp), device)

@@ -162,6 +162,14 @@ Phases, each printing one JSON line:
                all-reduce and a pipeline that sums the outputs' cotangent over pp read above that bound;
                every K1 shape the ranks launch held by k1_check; whether gloo takes CUDA tensors in send /
                recv.
+ 23. drivers — the device half of arp_tpu_torch/drivers (stub_benchmark's tiny reward CLIP; the drivers
+               themselves read HDF5 and run only where h5py is): whether tensorstore imports (the reader of the
+               JAX package's orbax directories); one training step of REWARD_CLIP_CFG at 32 px on the smoke batch
+               of 32 with four texts on the card and on the CPU from one init and batch (loss 1e-5 relative,
+               gradients 1e-4 of the largest, params after Adam 2e-5 outside the entries whose gradient is under
+               1e-4 of the largest); ms a step (median of 5 after 2) with K1's launches and shapes (forward, the
+               plain backward: vision and text causal + padding at head_dim 16, held by k1_check); the trained
+               tower's save_npz -> from_npz and its rewards on 64 frames on the card against a CPU engine (1e-4).
 Each timed shape of k1, k2 and k3 also carries ``bound_ms``: the least time the
 card could take, the larger of the bytes the function must move over the memory
 rate and its operations over the peak rate of their type (PEAK below).
@@ -533,6 +541,14 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
     cases["tp_policy_d16_dt_n12"] = (POLICY_BATCH, 3 * POLICY_WINDOW, 8 // 2, 16, MaskSpec("dt", 1, 3), None)
     cases["pp_policy_d16_dt_n12"] = (POLICY_BATCH // TP_PP_MICROBATCHES, 3 * POLICY_WINDOW, 8, 16,
                                      MaskSpec("dt", 1, 3), None)
+    # the drivers: stub_benchmark's tiny reward CLIP, its training step (vision, and text causal + padding at
+    # head_dim 16, under a gradient) and its engine at the driver's batch (one instruction)
+    (vit_n, vit_h, vit_d), (_, text_h, text_d) = drivers_attention_dims()
+    drivers_pad = torch.from_numpy(drivers_tokens() == 0).to("cuda")
+    cases["drivers_clip_vit"] = (DRIVERS_CLIP_BATCH, vit_n, vit_h, vit_d, MaskSpec("none"), None)
+    cases["drivers_clip_text"] = (len(drivers_pad), 77, text_h, text_d, MaskSpec("causal"), drivers_pad)
+    cases["drivers_engine_vit"] = (DRIVERS_ENGINE_BATCH, vit_n, vit_h, vit_d, MaskSpec("none"), None)
+    cases["drivers_engine_text"] = (1, 77, text_h, text_d, MaskSpec("causal"), drivers_pad[:1])
 
     errors = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -559,7 +575,9 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
              "finetune_vit": (cases["finetune_vit"], (torch.float32,)),
              "finetune_text": (cases["finetune_text"], (torch.float32,)),
              "pretrain_encoder": (cases["pretrain_encoder"], (torch.float32,)),
-             "pretrain_decoder_d32": (cases["pretrain_decoder_d32"], (torch.float32,))}
+             "pretrain_decoder_d32": (cases["pretrain_decoder_d32"], (torch.float32,)),
+             "drivers_clip_vit": (cases["drivers_clip_vit"], (torch.float32,)),
+             "drivers_clip_text": (cases["drivers_clip_text"], (torch.float32,))}
     for label, ((b, n, h, d, spec, pad), dtypes) in timed.items():
         # what this mask lets through: the products and exponentials that must be made
         allowed = materialize_mask(spec, n, device="cuda")[None].expand(b, n, n)
@@ -4307,6 +4325,148 @@ def phase_mesh_tp_pp(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch) -
     return launches, shapes
 
 
+# -- phase drivers: the device half of the drivers (stub_benchmark's tiny reward CLIP) -----------------------
+
+DRIVERS_CLIP_BATCH = 32  # stub_benchmark's smoke clip_batch
+DRIVERS_CLIP_STEPS = 80  # its smoke clip_steps: the length of the step's cosine schedule
+DRIVERS_WARMUP, DRIVERS_TIMED = 2, 5
+DRIVERS_ENGINE_BATCH = 256  # the driver's engines' batch (train_tiny_clip, stage_label)
+DRIVERS_REWARD_FRAMES = 64
+# The card's step against the CPU's from one init and batch: the train phase's bounds (loss 1e-5 relative;
+# gradients 1e-4 of the largest entry; params after Adam 2e-5, outside the entries whose CPU gradient is within
+# the gradient bound of 0, where Adam's first step moves by +-lr on the sign alone).  The spec's rewards: the
+# float32 labeling bound.
+DRIVERS_LOSS_REL, DRIVERS_GRAD_REL, DRIVERS_PARAM_ATOL = 1e-5, 1e-4, 2e-5
+
+
+def drivers_tokens() -> np.ndarray:
+    """The tiny reward CLIP's four texts (the instruction and three distractors) as Char97 ids, (4, 77)."""
+    from arp_tpu_torch.drivers import stub_benchmark as sb
+    from arp_tpu_torch.models.clip.tokenizer import Char97Tokenizer
+
+    return Char97Tokenizer()(sb.clip_texts(sb.SPLITS["reward"]["game"])).astype(np.int64)
+
+
+def drivers_attention_dims() -> tuple:
+    """((tokens, heads, head_dim) of the vision tower, (77, heads, head_dim) of the text tower) of the tiny reward CLIP."""
+    from arp_tpu_torch.drivers import stub_benchmark as sb
+
+    cfg = sb.REWARD_CLIP_CFG
+    vision = ((sb.IMG // cfg["vision_patch_size"]) ** 2 + 1, cfg["vision_features"] // 64, 64)
+    return vision, (77, cfg["text_num_heads"], cfg["text_features"] // cfg["text_num_heads"])
+
+
+def tensorstore_probe() -> dict:
+    """Whether tensorstore (the JAX package's orbax directories' reader) imports here, and its version."""
+    import importlib.metadata
+
+    try:
+        import tensorstore  # noqa: F401
+    except Exception as e:  # missing, or broken
+        return {"tensorstore": False, "version": None, "error": repr(e)}
+    return {"tensorstore": True, "version": importlib.metadata.version("tensorstore")}
+
+
+def phase_drivers(counters) -> tuple[dict, "LaunchShapes"]:
+    """The drivers' device half, from arrays (the card's machine has no h5py): stub_benchmark's tiny reward CLIP
+    (REWARD_CLIP_CFG at 32 px, the smoke batch of 32, four texts).  Whether tensorstore imports; one training step
+    on the card and on the CPU from one init and batch (loss, gradients, params after Adam); then ms a step (median
+    of DRIVERS_TIMED after DRIVERS_WARMUP) with K1's launches and shapes (forward on the card, plain backward);
+    the trained tower's save_npz -> from_npz round trip and its rewards on DRIVERS_REWARD_FRAMES frames on the
+    card against a CPU engine of the same spec."""
+    import tempfile
+
+    from arp_tpu_torch.drivers import stub_benchmark as sb
+    from arp_tpu_torch.models.clip.tokenizer import Char97Tokenizer
+    from arp_tpu_torch.reward.engine import ClipRewardEngine
+
+    t0 = time.perf_counter()
+    emit("drivers", part="tensorstore", **tensorstore_probe())
+    variables = sb.init_reward_clip_variables(SEED)
+    ids = drivers_tokens()
+    rng = np.random.default_rng(SEED)
+    frames = rng.integers(0, 256, size=(DRIVERS_CLIP_BATCH, sb.IMG, sb.IMG, 3), dtype=np.uint8)
+    prog = rng.uniform(0, 1, DRIVERS_CLIP_BATCH).astype(np.float32)
+
+    def inputs(device):
+        return tuple(torch.from_numpy(a).to(device) for a in (frames, prog, ids))
+
+    def one_step(device):
+        model = sb.reward_clip_model(variables).to(device)
+        opt, state = sb.clip_optimizer(model, DRIVERS_CLIP_STEPS)
+        loss, grads = sb.clip_gradients(model, *inputs(device))
+        opt.update([p.detach() for p in model.parameters()], grads, state)
+        sync()
+        return dict(loss=float(loss), grads=[g.cpu() for g in grads],
+                    params=[p.detach().cpu() for p in model.parameters()], names=[n for n, _ in model.named_parameters()])
+
+    cpu, card = one_step("cpu"), one_step(DEVICE)
+    gmax = max(float(g.abs().max()) for g in cpu["grads"])
+    errs = [float((a - b).abs().max()) / gmax for a, b in zip(cpu["grads"], card["grads"])]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    settled = [g.abs() > DRIVERS_GRAD_REL * gmax for g in cpu["grads"]]
+    param_err = max(float(((a - b).abs() * m).max()) for a, b, m in zip(cpu["params"], card["params"], settled))
+    compared = dict(batch=DRIVERS_CLIP_BATCH, loss_cpu=cpu["loss"],
+                    loss_rel_err=abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"]), grad_max_abs=gmax,
+                    grad_err_rel_to_max=errs[worst], worst_grad=cpu["names"][worst], param_max_abs_err=param_err,
+                    param_entries=sum(p.numel() for p in cpu["params"]),
+                    param_entries_left_out=sum(int((~m).sum()) for m in settled))
+    emit("drivers", part="tiny_clip_vs_cpu", **compared)
+    check(compared["loss_rel_err"] <= DRIVERS_LOSS_REL,
+          f"drivers: tiny CLIP step loss, card vs CPU {compared['loss_rel_err']} relative")
+    check(compared["grad_err_rel_to_max"] <= DRIVERS_GRAD_REL,
+          f"drivers: tiny CLIP step gradients, card vs CPU {errs[worst]} of the largest ({compared['worst_grad']})")
+    check(param_err <= DRIVERS_PARAM_ATOL, f"drivers: tiny CLIP params after Adam, card vs CPU max abs {param_err}")
+
+    model = sb.reward_clip_model(variables).to(DEVICE)
+    opt, state = sb.clip_optimizer(model, DRIVERS_CLIP_STEPS)
+    on_card = inputs(DEVICE)
+    for _ in range(DRIVERS_WARMUP):
+        state, _ = sb.clip_step(model, opt, state, *on_card)
+    sync()
+    reward_frames = rng.integers(0, 256, size=(DRIVERS_REWARD_FRAMES, sb.IMG, sb.IMG, 3), dtype=np.uint8)
+    text = sb.clip_texts(sb.SPLITS["reward"]["game"])[0]
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    with tempfile.TemporaryDirectory() as tmp, LaunchShapes() as noted, K1Recorder() as rec:
+        for _ in range(DRIVERS_TIMED):
+            t1 = time.perf_counter()
+            state, loss = sb.clip_step(model, opt, state, *on_card)
+            sync()
+            times.append((time.perf_counter() - t1) * 1e3)
+        step_shapes = rec.counts()
+        # the spec, as train_tiny_clip writes it and stage_label reads it
+        with torch.no_grad():
+            model.logit_scale.fill_(float(np.float32(np.log(100.0))))
+        spec = os.path.join(tmp, "reward_clip.npz")
+        ClipRewardEngine(model=model, batch_size=DRIVERS_ENGINE_BATCH, image_size=sb.IMG, tokenizer=Char97Tokenizer(),
+                         device=DEVICE).save_npz(spec)
+        t1 = time.perf_counter()
+        card_engine = ClipRewardEngine.from_npz(spec, batch_size=DRIVERS_ENGINE_BATCH, device=DEVICE)
+        got = card_engine.text_rewards(reward_frames, text)
+        reward_ms = (time.perf_counter() - t1) * 1e3
+        launches = launch_counts(counters)
+        want = ClipRewardEngine.from_npz(spec, batch_size=DRIVERS_REWARD_FRAMES, device="cpu").text_rewards(
+            reward_frames, text)
+    mae = float(np.abs(got - want).mean())
+    vision_layers, text_layers = sb.REWARD_CLIP_CFG["vision_num_layers"], sb.REWARD_CLIP_CFG["text_num_layers"]
+    per_step = vision_layers + text_layers  # every block's attention: K1 forward, the plain backward
+    ms = float(np.median(times))
+    emit("drivers", part="tiny_clip", batch=DRIVERS_CLIP_BATCH, ms=ms, step_ms=times,
+         fps=DRIVERS_CLIP_BATCH / ms * 1e3, loss=float(loss), launches=launches, k1_step_shapes=step_shapes, k1_keys=dict(noted.k1),
+         spec_reward_frames=DRIVERS_REWARD_FRAMES, spec_reward_ms=reward_ms, spec_reward_mae_vs_cpu=mae,
+         seconds=time.perf_counter() - t0)
+    check(np.isfinite(float(loss)), f"drivers: tiny CLIP loss {float(loss)}")
+    check(mae <= F32_REWARD_MAE, f"drivers: the spec's rewards on the card vs the CPU engine, MAE {mae}")
+    check(launches["flash_attn_fwd"] == per_step * (DRIVERS_TIMED + 1) and launches["int8_gemm"] == 0
+          and launches["int8_matmul"] == 0,
+          f"drivers: launches {launches}, expected K1 {per_step} a step and {per_step} for the spec's rewards")
+    check(sum(step_shapes.values()) == per_step * DRIVERS_TIMED and all(k.endswith(" grad") for k in step_shapes),
+          f"drivers: a K1 launch of the step without a gradient: {step_shapes}")
+    return launches, noted
+
+
 def kernel_entry(name: str, launches: int, max_abs_err: float, timing: dict, **extra) -> dict:
     source, replaces = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -4393,15 +4553,17 @@ def main() -> int:
     path_launches["distributed"], dist_shapes = phase_distributed(counters)
     # the rest of the parallel layer: the engines' local-device mesh, tp and pp over two gloo ranks on the card
     path_launches["mesh_tp_pp"], mesh_shapes = phase_mesh_tp_pp(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch)
+    # the drivers' device half: stub_benchmark's tiny reward CLIP trained through K1, and its engine spec
+    path_launches["drivers"], drivers_shapes = phase_drivers(counters)
     for path, noted in (("rollout", shapes), ("reward_serve", serve_shapes), ("reference_checkpoint", ref_shapes),
                         ("clip_resnet", resnet_shapes), ("pretrain_m3ae", pretrain_shapes),
-                        ("distributed", dist_shapes), ("mesh_tp_pp", mesh_shapes)):
+                        ("distributed", dist_shapes), ("mesh_tp_pp", mesh_shapes), ("drivers", drivers_shapes)):
         unheld = sorted(set(noted.k1) - k1["checked"]) + sorted(set(noted.k2) - k2["checked"])
         check(not unheld, f"the {path} runs launched kernels at shapes that no check held against the plain "
               f"version: {unheld}")
     # the PPG path runs no kernel of the port (convolutions); the ResNet engine runs K1 in its text tower
     path_kernels = {"finetune": ("flash_attn_fwd",), "ppg": (), "clip_resnet": ("flash_attn_fwd",),
-                    "pretrain_m3ae": ("flash_attn_fwd",),
+                    "pretrain_m3ae": ("flash_attn_fwd",), "drivers": ("flash_attn_fwd",),
                     "mesh_tp_pp": ("flash_attn_fwd", "int8_gemm", "int8_matmul")}  # others: K1, K2
     for path, counts in path_launches.items():
         for name in path_kernels.get(path, ("flash_attn_fwd", "int8_gemm")):
@@ -4425,7 +4587,8 @@ def main() -> int:
                      policy_path=shapes(k1["timings"], ("m3ae_n257_bfloat16", "m3ae_n257_float32", "m3ae_goal_n513_bfloat16",
                                                         "policy_d16_dt_n12_float32", "policy_d16_dt_n12_bfloat16")),
                      finetune_path=shapes(k1["timings"], ("finetune_vit_float32", "finetune_text_float32")),
-                     pretrain_path=shapes(k1["timings"], ("pretrain_encoder_float32", "pretrain_decoder_d32_float32"))),
+                     pretrain_path=shapes(k1["timings"], ("pretrain_encoder_float32", "pretrain_decoder_d32_float32")),
+                     drivers_path=shapes(k1["timings"], ("drivers_clip_vit_float32", "drivers_clip_text_float32"))),
         kernel_entry("int8_gemm", launches["int8_gemm"], k2["max_abs_err"], fc,
                      bf16_matmul_ms=fc["bf16_matmul_ms"], max_bf16_ulps=k2["max_bf16_ulps"],
                      launches_by_path={"labeling": launches["int8_gemm"] - sum(c["int8_gemm"] for c in path_launches.values()),

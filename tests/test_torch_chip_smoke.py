@@ -979,3 +979,61 @@ def test_mesh_tp_pp_path_launches_leave_the_faults_out():
     got = chip_smoke.tp_pp_path_launches(ranks)
     assert got["k1_launches"] == 16
     assert dict(got["k1"]) == {"tp": 6, "pp": 10} and not got["k2"]
+
+
+def test_drivers_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
+    """The drivers phase end to end on the CPU: the tensorstore line, the tiny reward CLIP's step against the CPU
+    (the same device twice: equal), the timed steps, the spec's round trip and its rewards (equal).  What only the
+    card can show (K1's launches and shapes) is left out."""
+    import json
+
+    from arp_tpu_torch.ops import attention as attn
+    from arp_tpu_torch.ops import quantization, vit_infer
+
+    for name, value in dict(DEVICE="cpu", DRIVERS_CLIP_BATCH=4, DRIVERS_WARMUP=1, DRIVERS_TIMED=2,
+                            DRIVERS_REWARD_FRAMES=8, DRIVERS_ENGINE_BATCH=8).items():
+        monkeypatch.setattr(chip_smoke, name, value)
+    real_check = chip_smoke.check
+    monkeypatch.setattr(chip_smoke, "check", lambda ok, what: real_check(ok or "launch" in what, what))
+    counters = {"flash_attn_fwd": attn.flash_attention_fwd, "int8_gemm": vit_infer.fused_int8_matmul,
+                "int8_matmul": quantization.int8_matmul}
+    launches, noted = chip_smoke.phase_drivers(counters)
+    assert launches == dict.fromkeys(counters, 0) and not noted.k1  # on the CPU attention never reaches K1's wrapper
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines() if line.startswith("{")]
+    parts = {line["part"]: line for line in lines if line["phase"] == "drivers"}
+    assert list(parts) == ["tensorstore", "tiny_clip_vs_cpu", "tiny_clip"]
+    assert parts["tensorstore"]["tensorstore"] is True and parts["tensorstore"]["version"]  # this box has it
+    compared = parts["tiny_clip_vs_cpu"]
+    assert compared["loss_rel_err"] == 0.0 and compared["grad_err_rel_to_max"] == 0.0
+    assert compared["param_max_abs_err"] == 0.0 and compared["param_entries"] > compared["param_entries_left_out"]
+    run = parts["tiny_clip"]
+    assert run["batch"] == 4 and len(run["step_ms"]) == 2 and np.isfinite(run["loss"])
+    assert run["spec_reward_mae_vs_cpu"] == 0.0 and run["spec_reward_frames"] == 8
+
+
+def test_drivers_phase_joins_the_path_launches_and_its_shapes_are_k1_cases():
+    """main counts the phase's launches on its own path (K1 required), holds its shapes with k1_check, and the
+    kernels line carries a drivers column; the K1 cases are the tiny CLIP's shapes: 17 tokens of 2 heads of 64
+    (32 px at patch 8, 128 wide) and 77 text tokens of 4 heads of 16, the four texts' padding."""
+    import inspect
+
+    from arp_tpu_torch.drivers import stub_benchmark as sb
+    from arp_tpu_torch.models.clip.tokenizer import Char97Tokenizer
+
+    src = inspect.getsource(chip_smoke.main)
+    assert 'path_launches["drivers"], drivers_shapes = phase_drivers(counters)' in src
+    assert '("drivers", drivers_shapes)' in src and '"drivers": ("flash_attn_fwd",)' in src
+    assert "launches_by_path" in src and "for path, c in path_launches.items()" in src  # the column: every path
+    assert chip_smoke.drivers_attention_dims() == ((17, 2, 64), (77, 4, 16))
+    tokens = chip_smoke.drivers_tokens()
+    np.testing.assert_array_equal(tokens, Char97Tokenizer()(sb.clip_texts("coinrun")))
+    assert tokens.shape == (4, 77) and (tokens == 0).any(axis=1).all()  # every text padded
+    k1 = inspect.getsource(chip_smoke.phase_k1)
+    for case in ("drivers_clip_vit", "drivers_clip_text", "drivers_engine_vit", "drivers_engine_text"):
+        assert f'cases["{case}"]' in k1
+    for timed in ("drivers_clip_vit", "drivers_clip_text"):  # timed beside their bound, on the kernels line
+        assert f'"{timed}": (cases["{timed}"], (torch.float32,))' in k1 and f'"{timed}_float32"' in src
+    assert (chip_smoke.DRIVERS_CLIP_BATCH, chip_smoke.DRIVERS_CLIP_STEPS) == (sb.SMOKE["clip_batch"],
+                                                                            sb.SMOKE["clip_steps"])
+    assert (chip_smoke.DRIVERS_LOSS_REL, chip_smoke.DRIVERS_GRAD_REL, chip_smoke.DRIVERS_PARAM_ATOL) == (
+        chip_smoke.PRETRAIN_LOSS_REL, chip_smoke.PRETRAIN_GRAD_REL, chip_smoke.PRETRAIN_PARAM_ATOL)

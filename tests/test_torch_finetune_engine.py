@@ -397,7 +397,8 @@ def test_unported_paths_raise(tmp_path):
     # several processes are ported; in one, --mesh_dp=2 fails JAX's mesh assertion
     with pytest.raises(AssertionError, match="mesh 2x1x1x1 != 1 devices"):
         tft.main(["--device=cpu", "--mesh_dp=2"])
+    # a directory with neither the port's files nor an orbax item (JAX's last candidate is the directory itself)
     orbax_like = tmp_path / "orbax"
     (orbax_like / "best").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(FileNotFoundError, match="not an orbax checkpoint item"):
         load_adapter_params(str(orbax_like))

@@ -58,7 +58,8 @@ def test_port_imports_without_jax_or_flax():
                    "collect", "collect.recorder", "collect.fuse", "collect.downsize", "collect.reward_normalizer",
                    "testing", "collect.ppg", "collect.convert_ppg", "collect.train_ppg", "collect.eval_ppg",
                    "collect.collect", "models.resnet", "train.pretrain_m3ae", "parallel", "parallel.distributed",
-                   "parallel.mesh", "parallel.pipeline", "parallel.tensor_parallel"):
+                   "parallel.mesh", "parallel.pipeline", "parallel.tensor_parallel", "drivers",
+                   "drivers.reproduce_paper", "drivers.stub_benchmark"):
         assert f"arp_tpu_torch.{module}" in names, module
 
 
@@ -475,6 +476,52 @@ def test_pretrain_and_resnet_paths_read_nothing_of_the_jax_package(tmp_path):
                             "--logging.output_dir=" + os.path.join(tmp, "log")])
         assert os.listdir(os.path.join(tmp, "ckpt")) == ["step_1.pt"]
         assert ResNet18(num_outputs=3, num_filters=4)(torch.zeros(2, 32, 32, 3), train=True).shape == (2, 3)
+        assert not touched, touched
+        bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+        assert not bad, bad
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env, capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr + out.stdout
+
+
+def test_drivers_and_the_orbax_reader_read_nothing_of_the_jax_package(tmp_path):
+    """The drivers' orchestration (a dry run of the paper matrix, the stub benchmark's collect stage, its report)
+    and the orbax reader (on a directory that holds none) with the JAX stack blocked: nothing of JAX loads, and no
+    file of the JAX package is opened."""
+    script = _SCRIPT + textwrap.dedent(
+        f"""
+        import json, os
+        JAX_DIR = os.path.realpath(os.path.join({REPO!r}, "arp_tpu")) + os.sep
+        touched = []
+
+        def audit(event, args):
+            if event in ("open", "os.listdir", "os.scandir"):
+                for x in args[:1]:
+                    if isinstance(x, (str, bytes, os.PathLike)):
+                        p = os.path.realpath(os.fsdecode(x))
+                        if p.startswith(JAX_DIR):
+                            touched.append((event, p))
+
+        sys.addaudithook(audit)
+        from arp_tpu_torch import checkpoint
+        from arp_tpu_torch.drivers import reproduce_paper, stub_benchmark
+        tmp = {str(tmp_path)!r}
+        reproduce_paper.main(["--dry_run", "--device", "cpu", "--output", os.path.join(tmp, "paper")])
+        stub_benchmark.stage_collect(os.path.join(tmp, "stub"), dict(stub_benchmark.SMOKE, train_eps=3, val_eps=1,
+                                                                     eval_eps=1))
+        with open(os.path.join(tmp, "stub", "eval_raw.json"), "w") as f:
+            json.dump({{}}, f)
+        stub_benchmark.stage_report(os.path.join(tmp, "stub"), [0])
+        assert checkpoint.orbax_steps(tmp) == [] and checkpoint.latest_orbax_step(tmp) is None
+        try:
+            checkpoint.load_orbax_item(tmp)
+        except FileNotFoundError:
+            pass
+        else:
+            raise AssertionError("no _METADATA, yet it read")
         assert not touched, touched
         bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
         assert not bad, bad
