@@ -1,0 +1,3 @@
+"""label.idle_pct: The share of the labeling window in which no kernel, copy or set ran on the card (%)."""
+
+from portbench.readers import idle_pct as read  # noqa: F401

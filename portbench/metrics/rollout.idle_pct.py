@@ -1,0 +1,3 @@
+"""rollout.idle_pct: The share of the rollout window in which no kernel, copy or set ran on the card (%)."""
+
+from portbench.readers import idle_pct as read  # noqa: F401

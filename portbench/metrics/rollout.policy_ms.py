@@ -1,0 +1,8 @@
+"""rollout.policy_ms: the synchronised time of the policy's greedy_action a lockstep step (ms), noted by the
+benchmark's wrappers in a traced run."""
+
+from portbench.readers import span_ms
+
+
+def read(record: dict):
+    return span_ms(record, "policy_ms")

@@ -1,0 +1,3 @@
+"""serve.idle_pct: The share of the reward server's window in which no kernel, copy or set ran on the card (%)."""
+
+from portbench.readers import idle_pct as read  # noqa: F401
