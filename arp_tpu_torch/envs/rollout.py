@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..profiling import span
 from ..serve import to_host
 
 
@@ -332,49 +333,54 @@ def parallel_rollout(
         goal_input = transform(np.asarray(goal_images))  # (N, ...) constant per episode
 
     for t in range(episode_length):
-        out = policy_fn(inputs=windows.inputs(goal_input), rngs=rng)
-        actions = to_host(out)  # one copy from the card a step, for the envs
-        # the chosen action into the CURRENT frame's slot (a 0 placeholder during the policy call):
-        # slot k pairs a_k with obs_k, the pairing training used
-        windows.set_action(out)
+        with span("rollout.step"):
+            with span("rollout.policy"):
+                out = policy_fn(inputs=windows.inputs(goal_input), rngs=rng)
+                actions = to_host(out)  # one copy from the card a step, for the envs
+                # the chosen action into the CURRENT frame's slot (a 0 placeholder during the policy call):
+                # slot k pairs a_k with obs_k, the pairing training used
+                windows.set_action(out)
 
-        # rtg decrements use the PRE-step frame, the obs the policy just acted on; envs already
-        # done before this step keep a frozen rtg
-        if reward_engine is not None:
-            for key in image_keys:
-                frames = np.stack([np.asarray(o["image"][key]) for o in obs])
-                if use_crop:
-                    frames = _crop_half(frames)
-                if vl_type in ("clip", "clip_ft"):
-                    rewards = reward_engine.text_rewards_with_features(frames, text_feat)
-                elif "goal_conditioned" in vl_type:
-                    rewards = reward_engine.goal_rewards_with_features(frames, goal_feats)
-                else:
-                    raise ValueError(f"parallel_rollout: unsupported vl_type {vl_type}")
-                if use_normalize:
-                    rmin = reward_min[key] if isinstance(reward_min, dict) else reward_min
-                    rewards = rewards - rmin
-                rtg_now[key] = np.where(done, rtg_now[key], rtg_now[key] - rewards / scale)
+            # rtg decrements use the PRE-step frame, the obs the policy just acted on; envs already
+            # done before this step keep a frozen rtg
+            if reward_engine is not None:
+                with span("rollout.reward"):
+                    for key in image_keys:
+                        frames = np.stack([np.asarray(o["image"][key]) for o in obs])
+                        if use_crop:
+                            frames = _crop_half(frames)
+                        if vl_type in ("clip", "clip_ft"):
+                            rewards = reward_engine.text_rewards_with_features(frames, text_feat)
+                        elif "goal_conditioned" in vl_type:
+                            rewards = reward_engine.goal_rewards_with_features(frames, goal_feats)
+                        else:
+                            raise ValueError(f"parallel_rollout: unsupported vl_type {vl_type}")
+                        if use_normalize:
+                            rmin = reward_min[key] if isinstance(reward_min, dict) else reward_min
+                            rewards = rewards - rmin
+                        rtg_now[key] = np.where(done, rtg_now[key], rtg_now[key] - rewards / scale)
 
-        raw_frames = {key: [] for key in image_keys}
-        step_rewards = np.zeros(n, np.float64)
-        for i, env in enumerate(envs):
-            if done[i]:
-                for key in image_keys:
-                    raw_frames[key].append(np.asarray(obs[i]["image"][key]))
-                continue
-            o, r, d, info = env.step(int(actions[i]))
-            obs[i] = o
-            step_rewards[i] = r
-            if d:
-                done[i] = True
-                ep_lens[i] = info["episode_len"]
-            for key in image_keys:
-                raw_frames[key].append(np.asarray(o["image"][key]))
-        total_reward += step_rewards
+            with span("rollout.env"):
+                raw_frames = {key: [] for key in image_keys}
+                step_rewards = np.zeros(n, np.float64)
+                for i, env in enumerate(envs):
+                    if done[i]:
+                        for key in image_keys:
+                            raw_frames[key].append(np.asarray(obs[i]["image"][key]))
+                        continue
+                    o, r, d, info = env.step(int(actions[i]))
+                    obs[i] = o
+                    step_rewards[i] = r
+                    if d:
+                        done[i] = True
+                        ep_lens[i] = info["episode_len"]
+                    for key in image_keys:
+                        raw_frames[key].append(np.asarray(o["image"][key]))
+                total_reward += step_rewards
 
-        # the new obs into the windows; its action slot is the 0 placeholder until the next call
-        windows.push({key: transform(np.stack(raw_frames[key])) for key in image_keys}, rtg_now)
+            # the new obs into the windows; its action slot is the 0 placeholder until the next call
+            with span("rollout.push"):
+                windows.push({key: transform(np.stack(raw_frames[key])) for key in image_keys}, rtg_now)
 
         if done.all():
             break

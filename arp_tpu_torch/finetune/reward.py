@@ -23,9 +23,8 @@ trunk and the adapter.
 from __future__ import annotations
 
 import os
-from typing import Optional, Sequence, Union
+from typing import Optional, Union
 
-import numpy as np
 import torch
 
 from ..checkpoint import (
@@ -128,9 +127,6 @@ class ClipFtRewardEngine(ClipRewardEngine):
         inter = inter[: self.adapter.num_clip_layers]  # (L, B, D) in layer order -> (B, L * D)
         return self.adapter.adapt_image_features(inter.transpose(0, 1).reshape(inter.shape[1], -1), final)
 
-    @torch.inference_mode()
-    def encode_text_features(self, text: Union[str, Sequence[str], np.ndarray]) -> np.ndarray:
+    def _text_tower(self, tokens: torch.Tensor) -> torch.Tensor:
         """The adapter's normalized text features, (n_text, D)."""
-        tokens = self.tokenize(text) if isinstance(text, (str, list, tuple)) else np.asarray(text)
-        tokens = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
-        return self.adapter.encode_text(self.model, tokens).float().cpu().numpy()
+        return self.adapter.encode_text(self.model, tokens)

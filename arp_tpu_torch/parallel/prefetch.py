@@ -17,6 +17,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from ..profiling import span
+
 
 def _map(tree, fn):
     if isinstance(tree, dict):
@@ -71,7 +73,8 @@ class ThreadedPrefetch:
         return self
 
     def __next__(self):
-        item = self._queue.get()
+        with span("prefetch.wait"):
+            item = self._queue.get()
         if item is self._SENTINEL:
             # re-arm so calling __next__ again keeps raising StopIteration
             # instead of blocking forever on an empty queue

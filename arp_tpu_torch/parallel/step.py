@@ -39,6 +39,8 @@ import torch.distributed as dist
 from torch.nn.parallel import DistributedDataParallel
 from torch.nn.parameter import UninitializedParameter
 
+from ..profiling import span
+
 
 def trainable_parameters(model: torch.nn.Module) -> list:
     """(name, parameter) of every parameter the optimizer updates: those with ``requires_grad``
@@ -333,17 +335,21 @@ def make_train_step(loss_fn: Callable, *, mesh=None, weight_decay: float = 0.0,
         for _, p in state.params:
             p.grad = None
         if accum_steps == 1:
-            loss, aux = loss_with_penalty(state, batch, generator)
-            loss.backward()
-            aux = {k: _scalar(v) for k, v in aux.items()}
+            with span("train.forward"):
+                loss, aux = loss_with_penalty(state, batch, generator)
+            with span("train.backward"):
+                loss.backward()
+                aux = {k: _scalar(v) for k, v in aux.items()}
         else:
             base = int(torch.randint(0, 2 ** 62, (), generator=generator, device=generator.device))
             aux = None
             for i in range(accum_steps):
                 own = torch.Generator(device=generator.device).manual_seed(base + i)
                 with _gradient_sync(state.model, i == accum_steps - 1):
-                    loss, mb_aux = loss_with_penalty(state, _microbatch(batch, i, accum_steps), own)
-                    loss.backward()
+                    with span("train.forward"):
+                        loss, mb_aux = loss_with_penalty(state, _microbatch(batch, i, accum_steps), own)
+                    with span("train.backward"):
+                        loss.backward()
                 mb_aux = {k: _scalar(v) for k, v in mb_aux.items()}
                 aux = mb_aux if aux is None else {k: aux[k] + mb_aux[k] for k in aux}
             aux = {k: v * (1.0 / accum_steps) for k, v in aux.items()}
@@ -358,9 +364,11 @@ def make_train_step(loss_fn: Callable, *, mesh=None, weight_decay: float = 0.0,
         return grads, aux
 
     def train_step(state, batch, generator):
-        grads, aux = accumulate(state, batch, generator)
         step = state.step
-        state.apply_gradients(grads)
+        with span("train.step"):
+            grads, aux = accumulate(state, batch, generator)
+            with span("train.update"):
+                state.apply_gradients(grads)
         aux["train_state_step"] = step
         if learning_rate_fn is not None:
             aux["learning_rate"] = float(learning_rate_fn(step))

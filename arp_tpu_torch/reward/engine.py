@@ -88,6 +88,7 @@ from ..ops import vit_infer
 from ..ops.preprocess import (center_crop_np, clip_preprocess, clip_preprocess_packed_patches,
                               resize_bicubic_pil_host)
 from ..ops.quantization import quantize_linears
+from ..profiling import span
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -221,6 +222,9 @@ class ClipRewardEngine:
         model.visual.to(compute_dtype)
         self.logit_scale = float(np.exp(model.logit_scale.item()))
         self.batch_size = batch_size
+        # cumulative counts (the reward server's /v1/health): frames encoded, the padding that filled their last
+        # batches, device batches, text encodes
+        self.frames_real = self.frames_padded = self.batches = self.text_encodes = 0
         self.image_size = image_size or model.image_size
         self.compute_dtype = compute_dtype
         self._tokenizer = tokenizer
@@ -415,36 +419,48 @@ class ClipRewardEngine:
             raise ValueError("no frames to encode")
         bs = self.batch_size
         pin = self.device.type == "cuda"
+        starts = list(range(0, n, bs))
+        padded = len(starts) * bs - n
+        self.frames_real += n
+        self.frames_padded += padded
+        self.batches += len(starts)
 
-        def host_stage(start: int) -> torch.Tensor:
-            chunk = np.asarray(frames[start : start + bs])
-            if chunk.shape[0] < bs:
-                pad = np.repeat(chunk[-1:], bs - chunk.shape[0], axis=0)
-                chunk = np.concatenate([chunk, pad], axis=0)
-            if self._host_resize:
-                if self.use_crop:
-                    chunk = center_crop_np(chunk, chunk.shape[1] // 2, chunk.shape[2] // 2)
-                if chunk.shape[1:3] != (self.image_size, self.image_size):
-                    chunk = resize_bicubic_pil_host(chunk, self.image_size, self.image_size)
-            # (B, H, W, C) -> packed (B, H, W*C); a read-only buffer (a request's bytes) is copied
-            chunk = torch.from_numpy(np.require(chunk, requirements=("C", "W")).reshape(bs, chunk.shape[1], -1))
-            return chunk.pin_memory() if pin else chunk
+        def host_stage(start: int, parent) -> torch.Tensor:
+            with span("engine.host_stage", parent=parent):
+                chunk = np.asarray(frames[start : start + bs])
+                if chunk.shape[0] < bs:
+                    pad = np.repeat(chunk[-1:], bs - chunk.shape[0], axis=0)
+                    chunk = np.concatenate([chunk, pad], axis=0)
+                if self._host_resize:
+                    if self.use_crop:
+                        chunk = center_crop_np(chunk, chunk.shape[1] // 2, chunk.shape[2] // 2)
+                    if chunk.shape[1:3] != (self.image_size, self.image_size):
+                        chunk = resize_bicubic_pil_host(chunk, self.image_size, self.image_size)
+                # (B, H, W, C) -> packed (B, H, W*C); a read-only buffer (a request's bytes) is copied
+                chunk = torch.from_numpy(np.require(chunk, requirements=("C", "W")).reshape(bs, chunk.shape[1], -1))
+                return chunk.pin_memory() if pin else chunk
 
         outputs = []
-        starts = list(range(0, n, bs))
-        with ThreadPoolExecutor(max_workers=1) as pool:
-            pending = deque(pool.submit(host_stage, s) for s in starts[:2])
-            for k in range(len(starts)):
-                if k + 2 < len(starts):
-                    pending.append(pool.submit(host_stage, starts[k + 2]))
-                chunk = pending.popleft().result()
-                if self._replicas is None:
-                    outputs.append(self._encode_chunk(chunk.to(self.device, non_blocking=True), normalize))
-                else:
-                    outputs.extend(self._encode_shares(chunk, normalize))
-        if self._replicas is not None:  # the shares' features, from their devices, in row order
-            return torch.cat([o.to("cpu") for o in outputs]).numpy()[:n]
-        return torch.cat(outputs).cpu().numpy()[:n]
+        with span("engine.images") as images:
+            if images:
+                images.set(frames=n, padded=padded)
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                pending = deque(pool.submit(host_stage, s, images) for s in starts[:2])
+                for k in range(len(starts)):
+                    if k + 2 < len(starts):
+                        pending.append(pool.submit(host_stage, starts[k + 2], images))
+                    with span("engine.host_wait"):
+                        chunk = pending.popleft().result()
+                    with span("engine.encode"):
+                        if self._replicas is None:
+                            outputs.append(self._encode_chunk(chunk.to(self.device, non_blocking=True), normalize))
+                        else:
+                            outputs.extend(self._encode_shares(chunk, normalize))
+            # after the producer thread's join, which the device's queued work covers
+            with span("engine.fetch"):
+                if self._replicas is not None:  # the shares' features, from their devices, in row order
+                    return torch.cat([o.to("cpu") for o in outputs]).numpy()[:n]
+                return torch.cat(outputs).cpu().numpy()[:n]
 
     def encode_image_features(self, frames, normalize: bool = True) -> np.ndarray:
         """Public batched image-feature extraction (streaming, padded batches)."""
@@ -453,19 +469,26 @@ class ClipRewardEngine:
     @torch.inference_mode()
     def encode_text_features(self, text: Union[str, Sequence[str], np.ndarray]) -> np.ndarray:
         """L2-normalized float32 text features, (n_text, embed_dim)."""
-        tokens = self.tokenize(text) if isinstance(text, (str, list, tuple)) else np.asarray(text)
-        tokens = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
-        return self.model.encode_text(tokens, normalize=True).float().cpu().numpy()
+        self.text_encodes += 1
+        with span("engine.text"):
+            tokens = self.tokenize(text) if isinstance(text, (str, list, tuple)) else np.asarray(text)
+            tokens = torch.from_numpy(np.asarray(tokens, np.int64)).to(self.device)
+            return self._text_tower(tokens).float().cpu().numpy()
+
+    def _text_tower(self, tokens: torch.Tensor) -> torch.Tensor:
+        """(n_text, context) token ids on the device -> normalized text features."""
+        return self.model.encode_text(tokens, normalize=True)
 
     # -- rewards --------------------------------------------------------------
 
     def text_rewards_with_features(self, frames, txt_feat: np.ndarray) -> np.ndarray:
         """Text rewards against precomputed (normalized) text features."""
         img_feat = self._batched_image_features(frames, normalize=True)
-        logits_per_text = self.logit_scale * (txt_feat @ img_feat.T)  # (n_text, N)
-        if logits_per_text.shape[0] > 1:
-            return logits_per_text.mean(axis=0)
-        return logits_per_text[0]
+        with span("engine.score"):
+            logits_per_text = self.logit_scale * (txt_feat @ img_feat.T)  # (n_text, N)
+            if logits_per_text.shape[0] > 1:
+                return logits_per_text.mean(axis=0)
+            return logits_per_text[0]
 
     def text_rewards(self, frames, text: Union[str, Sequence[str], np.ndarray]) -> np.ndarray:
         """logit_scale * cosine(image, text); averaged over multiple texts."""
@@ -475,13 +498,15 @@ class ClipRewardEngine:
         """-||f(img) - f(goal)||_2 against precomputed unnormalized goal
         features ((D,) shared or (N, D) per-frame)."""
         feats = self._batched_image_features(frames, normalize=False)
-        return -np.linalg.norm(feats - np.atleast_2d(goal_feat), axis=-1)
+        with span("engine.score"):
+            return -np.linalg.norm(feats - np.atleast_2d(goal_feat), axis=-1)
 
     def goal_rewards(self, frames, goal_index: int = -1) -> np.ndarray:
         """-||f(img) - f(goal)||_2 on unnormalized features; the goal is the
         frame at ``goal_index`` within ``frames``."""
         feats = self._batched_image_features(frames, normalize=False)
-        return -np.linalg.norm(feats - feats[goal_index][None], axis=-1)
+        with span("engine.score"):
+            return -np.linalg.norm(feats - feats[goal_index][None], axis=-1)
 
     def goal_rewards_vs(self, frames, goal_frame: np.ndarray) -> np.ndarray:
         """Goal rewards against an explicit goal image."""

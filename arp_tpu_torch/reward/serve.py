@@ -16,7 +16,21 @@ API (JSON over HTTP):
                         -||f_img - f_goal||_2 on unnormalized features; the
                         goal defaults to the last frame.
   GET  /v1/health       -> {"status": "ok", "engine": ..., "batch_size": N,
-                            "cached_texts", "frames_served", "busy_seconds", "mean_fps"}
+                            "cached_texts", "frames_served", "busy_seconds", "mean_fps",
+                            "requests", "text_cache_hits", "text_cache_misses",
+                            "lock_wait_seconds", "frames_real", "frames_padded", "batches",
+                            "text_encodes"}
+                        counts since the start: requests that reached the engine, text features
+                        found in or missing from the cache, seconds requests
+                        waited for the engine's lock; and the engine's own: frames
+                        it encoded, frames it added to fill its last device batch of
+                        each call, device batches it ran, text encodes (the warm-up's
+                        included).
+
+Under a ``torch.profiler`` each request records host spans
+(``arp_tpu_torch.profiling``): ``serve.request`` (route, frames) over
+``serve.decode``, ``serve.lock_wait`` and ``serve.engine`` (everything under
+the lock), and the engine's own spans below that.
 
 Frame wire formats, cheapest first:
   * raw binary: POST ``/v1/reward/text_raw`` / ``/v1/reward/goal_raw`` with
@@ -32,6 +46,7 @@ Frame wire formats, cheapest first:
 from __future__ import annotations
 
 import base64
+import contextlib
 import json
 import threading
 import time
@@ -40,6 +55,7 @@ from urllib.parse import unquote
 
 import numpy as np
 
+from ..profiling import span
 from ..serve import make_json_http_server
 
 
@@ -70,18 +86,38 @@ class RewardServer:
         self._lock = threading.Lock()
         self.frames_served = 0
         self.busy_seconds = 0.0
+        # counted under the lock, as the two above
+        self.requests = self.text_cache_hits = self.text_cache_misses = 0
+        self.lock_wait_seconds = 0.0
+
+    @contextlib.contextmanager
+    def _engine_locked(self):
+        """The engine's lock for one request, the wait for it counted."""
+        with span("serve.lock_wait"):
+            t0 = time.perf_counter()
+            self._lock.acquire()
+            waited = time.perf_counter() - t0
+        try:
+            self.lock_wait_seconds += waited
+            self.requests += 1
+            with span("serve.engine"):
+                yield
+        finally:
+            self._lock.release()
 
     def _text_rewards(self, frames: np.ndarray, text) -> dict:
         # a type-prefixed key: the string '["go"]' and the list ["go"] are different texts
         key = "list:" + json.dumps(list(text)) if isinstance(text, (list, tuple)) else "str:" + str(text)
-        with self._lock:
+        with self._engine_locked():
             feat = self._text_feats.get(key)
             if feat is None:
+                self.text_cache_misses += 1
                 feat = self.engine.encode_text_features(text)
                 self._text_feats[key] = feat
                 if len(self._text_feats) > self.MAX_CACHED_TEXTS:
                     self._text_feats.popitem(last=False)
             else:
+                self.text_cache_hits += 1
                 self._text_feats.move_to_end(key)
             t0 = time.monotonic()
             rewards = self.engine.text_rewards_with_features(frames, feat)
@@ -97,7 +133,7 @@ class RewardServer:
         self.engine.encode_text_features("warmup")
 
     def _goal_rewards(self, frames: np.ndarray, goal) -> dict:
-        with self._lock:
+        with self._engine_locked():
             t0 = time.monotonic()
             if goal is not None:
                 rewards = self.engine.goal_rewards_vs(frames, goal)
@@ -108,16 +144,25 @@ class RewardServer:
         return {"rewards": np.asarray(rewards, np.float32).tolist()}
 
     def text_rewards(self, body: dict) -> dict:
-        frames = _decode_frames(body, "frames")
-        if frames is None:
-            raise KeyError("frames")
-        return self._text_rewards(frames, body["text"])
+        with span("serve.request") as request:
+            with span("serve.decode"):
+                frames = _decode_frames(body, "frames")
+            if frames is None:
+                raise KeyError("frames")
+            if request:
+                request.set(route="text", frames=len(frames))
+            return self._text_rewards(frames, body["text"])
 
     def goal_rewards(self, body: dict) -> dict:
-        frames = _decode_frames(body, "frames")
-        if frames is None:
-            raise KeyError("frames")
-        return self._goal_rewards(frames, _decode_frames(body, "goal"))
+        with span("serve.request") as request:
+            with span("serve.decode"):
+                frames = _decode_frames(body, "frames")
+                if frames is None:
+                    raise KeyError("frames")
+                goal = _decode_frames(body, "goal")
+            if request:
+                request.set(route="goal", frames=len(frames))
+            return self._goal_rewards(frames, goal)
 
     # -- raw binary wire format ------------------------------------------------
 
@@ -133,33 +178,41 @@ class RewardServer:
         return shape
 
     def text_rewards_raw(self, headers, data: bytes) -> dict:
-        shape = self._header_shape(headers, "X-Frames-Shape")
-        text = headers.get("X-Text")
-        if shape is None:
-            raise KeyError("X-Frames-Shape")
-        if text is None:
-            raise KeyError("X-Text")
-        # HTTP headers are latin-1 on the wire: clients percent-encode the UTF-8 text
-        # (urllib.parse.quote); plain ASCII without '%' passes through unchanged
-        text = unquote(text, encoding="utf-8")
-        frames = np.frombuffer(data, np.uint8).reshape(shape)
-        return self._text_rewards(frames, text)
+        with span("serve.request") as request:
+            with span("serve.decode"):
+                shape = self._header_shape(headers, "X-Frames-Shape")
+                text = headers.get("X-Text")
+                if shape is None:
+                    raise KeyError("X-Frames-Shape")
+                if text is None:
+                    raise KeyError("X-Text")
+                # HTTP headers are latin-1 on the wire: clients percent-encode the UTF-8 text
+                # (urllib.parse.quote); plain ASCII without '%' passes through unchanged
+                text = unquote(text, encoding="utf-8")
+                frames = np.frombuffer(data, np.uint8).reshape(shape)
+            if request:
+                request.set(route="text_raw", frames=len(frames))
+            return self._text_rewards(frames, text)
 
     def goal_rewards_raw(self, headers, data: bytes) -> dict:
-        shape = self._header_shape(headers, "X-Frames-Shape")
-        if shape is None:
-            raise KeyError("X-Frames-Shape")
-        goal_shape = self._header_shape(headers, "X-Goal-Shape")
-        n = int(np.prod(shape))
-        expected = n + (int(np.prod(goal_shape)) if goal_shape is not None else 0)
-        if len(data) != expected:
-            # scoring truncated or shifted frames with a 200 would hide the client's fault
-            raise ValueError(f"body is {len(data)} bytes but the shape headers imply {expected}")
-        frames = np.frombuffer(data[:n], np.uint8).reshape(shape)
-        goal = None
-        if goal_shape is not None:
-            goal = np.frombuffer(data[n:], np.uint8).reshape(goal_shape)
-        return self._goal_rewards(frames, goal)
+        with span("serve.request") as request:
+            with span("serve.decode"):
+                shape = self._header_shape(headers, "X-Frames-Shape")
+                if shape is None:
+                    raise KeyError("X-Frames-Shape")
+                goal_shape = self._header_shape(headers, "X-Goal-Shape")
+                n = int(np.prod(shape))
+                expected = n + (int(np.prod(goal_shape)) if goal_shape is not None else 0)
+                if len(data) != expected:
+                    # scoring truncated or shifted frames with a 200 would hide the client's fault
+                    raise ValueError(f"body is {len(data)} bytes but the shape headers imply {expected}")
+                frames = np.frombuffer(data[:n], np.uint8).reshape(shape)
+                goal = None
+                if goal_shape is not None:
+                    goal = np.frombuffer(data[n:], np.uint8).reshape(goal_shape)
+            if request:
+                request.set(route="goal_raw", frames=len(frames))
+            return self._goal_rewards(frames, goal)
 
     def health(self) -> dict:
         return {
@@ -170,6 +223,14 @@ class RewardServer:
             "frames_served": self.frames_served,
             "busy_seconds": round(self.busy_seconds, 3),
             "mean_fps": round(self.frames_served / max(self.busy_seconds, 1e-9), 1),
+            "requests": self.requests,
+            "text_cache_hits": self.text_cache_hits,
+            "text_cache_misses": self.text_cache_misses,
+            "lock_wait_seconds": round(self.lock_wait_seconds, 3),
+            "frames_real": self.engine.frames_real,
+            "frames_padded": self.engine.frames_padded,
+            "batches": self.engine.batches,
+            "text_encodes": self.engine.text_encodes,
         }
 
     def make_http_server(self, host: str = "127.0.0.1", port: int = 8788):
