@@ -1,6 +1,7 @@
 """Batched CLIP reward engine on one GPU (port of arp_tpu/reward/engine.py).
 
-Per fixed-size padded batch of uint8 frames:
+Per device batch of uint8 frames (``batch_size`` rows, the last batch of a call
+its own rows):
 
     packed (B, H, W*C) frames -> bit-exact Pillow resize, normalize, patchify
     -> ViT image tower (attention through kernel K1 on CUDA)
@@ -23,7 +24,7 @@ The image tower runs one of three ways, as in the JAX engine:
     first device batch, every int8 matmul through kernel K2 on CUDA and,
     under ``fast_int8_attn``, w8a8 attention.
 
-A producer thread slices and pads host chunks and pins them, so the HDF5 read
+A producer thread slices host chunks and pins them, so the HDF5 read
 of the next batches overlaps the device's work on this one; each chunk goes
 to the device with a ``non_blocking`` copy, and the device work is queued
 without waiting.  Rewards are computed on the host in numpy, as in the JAX
@@ -57,11 +58,12 @@ tag, image size, float32 weights in the Flax layout) for both packages'
 ``mesh`` (parallel/mesh.py::mesh_from_count, ``--mesh_dp``) is JAX's
 single-process data parallelism over local devices: the weights go once to each
 device (the module or the packed trunk, and the int8 pack once calibrated);
-each chunk's rows split into ``n`` contiguous shares, share i encoded on device
-i, the features gathered back in row order.  One host thread launches every
-share before anything waits, so the devices overlap.  The int8 calibration runs
-once, on the whole first chunk, as GSPMD's amax is the global batch's, and the
-calibrated pack is copied to every device.
+each chunk's rows split into ``n`` contiguous shares (``torch.chunk``'s: a last
+chunk that ``n`` does not divide gives shorter or fewer shares), share i encoded
+on device i, the features gathered back in row order.  One host thread launches
+every share before anything waits, so the devices overlap.  The
+int8 calibration runs once, on the whole first chunk, as GSPMD's amax is the
+global batch's, and the calibrated pack is copied to every device.
 Without ``variables`` or ``model`` the engine reads the OpenAI checkpoint of
 ``model_name`` from a local file
 (:func:`arp_tpu_torch.models.clip.load_model_vars`), as the JAX engine does.
@@ -120,7 +122,8 @@ class ClipRewardEngine:
         flattened ``"params/a/b"`` keys; see ``models/clip/convert.py``).
         None with a ``model``: the model's own weights; None without one:
         ``load_model_vars(model_name)``, a local OpenAI checkpoint.
-      batch_size: fixed device batch; inputs are padded to multiples.
+      batch_size: the largest device batch: a call's frames run in chunks of this many rows, the last
+        chunk at its own size.
       resize_mode: "pil" (Pillow's bicubic, bit for bit, on the device),
         "host" (the same bytes, resized on the host before the copy) or
         "fast" (the antialiased float bicubic).
@@ -222,8 +225,8 @@ class ClipRewardEngine:
         model.visual.to(compute_dtype)
         self.logit_scale = float(np.exp(model.logit_scale.item()))
         self.batch_size = batch_size
-        # cumulative counts (the reward server's /v1/health): frames encoded, the padding that filled their last
-        # batches, device batches, text encodes
+        # cumulative counts (the reward server's /v1/health): frames encoded, frames added as padding (none:
+        # every batch runs at its own size), device batches, text encodes
         self.frames_real = self.frames_padded = self.batches = self.text_encodes = 0
         self.image_size = image_size or model.image_size
         self.compute_dtype = compute_dtype
@@ -273,8 +276,9 @@ class ClipRewardEngine:
         return twin
 
     def _encode_shares(self, chunk: torch.Tensor, normalize: bool) -> list:
-        """One host chunk over the mesh: its rows in contiguous shares, share i encoded on replica i, every
-        share launched before any waits; the features of each share, on its device."""
+        """One host chunk over the mesh: its rows in contiguous shares (``torch.chunk``'s: a chunk that the
+        replicas do not divide gives a shorter last share, or fewer shares), share i encoded on replica i,
+        every share launched before any waits; the features of each share, on its device."""
         if self._fast is not None and self._fast_int8 and self._fast_q is None:
             # calibrate on the whole first chunk (GSPMD's amax is the global batch's), then copy the pack
             x = self._patches(chunk.to(self.device, non_blocking=True))
@@ -408,11 +412,12 @@ class ClipRewardEngine:
         return feat
 
     def _batched_image_features(self, frames, normalize: bool) -> np.ndarray:
-        """Encode (N, H, W, C) uint8 frames in fixed-size padded batches.
+        """Encode (N, H, W, C) uint8 frames in device batches of at most ``batch_size`` rows.
 
-        ``frames`` is anything that slices like an array (an ndarray, or the
-        labeler's lazy HDF5 window).  A producer thread slices, pads and (``resize_mode="host"``)
-        crops and resizes the next chunks while the device works on this one.
+        Every chunk but the last holds ``batch_size`` rows; the last runs at its own size, unpadded.
+        ``frames`` is anything that slices like an array (an ndarray, or the labeler's lazy HDF5 window).
+        A producer thread slices and (``resize_mode="host"``) crops and resizes the next chunks while the
+        device works on this one.
         """
         n = frames.shape[0]
         if n == 0:
@@ -420,30 +425,26 @@ class ClipRewardEngine:
         bs = self.batch_size
         pin = self.device.type == "cuda"
         starts = list(range(0, n, bs))
-        padded = len(starts) * bs - n
         self.frames_real += n
-        self.frames_padded += padded
         self.batches += len(starts)
 
         def host_stage(start: int, parent) -> torch.Tensor:
             with span("engine.host_stage", parent=parent):
                 chunk = np.asarray(frames[start : start + bs])
-                if chunk.shape[0] < bs:
-                    pad = np.repeat(chunk[-1:], bs - chunk.shape[0], axis=0)
-                    chunk = np.concatenate([chunk, pad], axis=0)
                 if self._host_resize:
                     if self.use_crop:
                         chunk = center_crop_np(chunk, chunk.shape[1] // 2, chunk.shape[2] // 2)
                     if chunk.shape[1:3] != (self.image_size, self.image_size):
                         chunk = resize_bicubic_pil_host(chunk, self.image_size, self.image_size)
                 # (B, H, W, C) -> packed (B, H, W*C); a read-only buffer (a request's bytes) is copied
-                chunk = torch.from_numpy(np.require(chunk, requirements=("C", "W")).reshape(bs, chunk.shape[1], -1))
+                chunk = np.require(chunk, requirements=("C", "W"))
+                chunk = torch.from_numpy(chunk.reshape(chunk.shape[0], chunk.shape[1], -1))
                 return chunk.pin_memory() if pin else chunk
 
         outputs = []
         with span("engine.images") as images:
             if images:
-                images.set(frames=n, padded=padded)
+                images.set(frames=n, padded=0)
             with ThreadPoolExecutor(max_workers=1) as pool:
                 pending = deque(pool.submit(host_stage, s, images) for s in starts[:2])
                 for k in range(len(starts)):
@@ -459,11 +460,11 @@ class ClipRewardEngine:
             # after the producer thread's join, which the device's queued work covers
             with span("engine.fetch"):
                 if self._replicas is not None:  # the shares' features, from their devices, in row order
-                    return torch.cat([o.to("cpu") for o in outputs]).numpy()[:n]
-                return torch.cat(outputs).cpu().numpy()[:n]
+                    return torch.cat([o.to("cpu") for o in outputs]).numpy()
+                return torch.cat(outputs).cpu().numpy()
 
     def encode_image_features(self, frames, normalize: bool = True) -> np.ndarray:
-        """Public batched image-feature extraction (streaming, padded batches)."""
+        """Public batched image-feature extraction (streaming, in device batches of at most ``batch_size``)."""
         return self._batched_image_features(frames, normalize=normalize)
 
     @torch.inference_mode()

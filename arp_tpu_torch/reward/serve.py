@@ -23,9 +23,9 @@ API (JSON over HTTP):
                         counts since the start: requests that reached the engine, text features
                         found in or missing from the cache, seconds requests
                         waited for the engine's lock; and the engine's own: frames
-                        it encoded, frames it added to fill its last device batch of
-                        each call, device batches it ran, text encodes (the warm-up's
-                        included).
+                        it encoded, frames it added as padding (0: every device batch
+                        runs at its own size), device batches it ran, text encodes
+                        (the warm-up's included).
 
 Under a ``torch.profiler`` each request records host spans
 (``arp_tpu_torch.profiling``): ``serve.request`` (route, frames) over
@@ -270,7 +270,7 @@ def main(argv=None):
     parser.add_argument("--model_type", default="clip", help="clip | clip_ft (requires --model_ckpt_dir)")
     parser.add_argument("--model_ckpt_dir", default=None)
     parser.add_argument("--batch_size", type=int, default=64,
-                        help="device batch; online request batches pad up to it")
+                        help="largest device batch; a request's frames run in batches of at most this many")
     parser.add_argument("--resize_mode", default="pil", choices=["pil", "host", "fast"])
     parser.add_argument("--use_crop", type=lambda s: s.lower() in ("1", "true"), default=False)
     parser.add_argument("--bf16", action="store_true")

@@ -513,16 +513,18 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
                               instruction_pad.expand(FT_BATCH, 77).contiguous())
     cases["slice_ft_text"] = (1, 77, 8, 64, MaskSpec("causal"), instruction_pad)
     # the rollout: the tower at B * w frames while the window fills (w = 1..4; B = 1 sequential, the
-    # card-vs-CPU run's envs, a wave's), the policy blocks at those batches, the reward engine's ViT at
-    # build_test_step's batch (the text is slice_ft_text's)
+    # card-vs-CPU run's envs, a wave's), the policy blocks at those batches, and the reward engine's ViT on a
+    # step's B frames, which run at their own size below build_test_step's batch (the text is slice_ft_text's)
     for b in sorted({1, ROLLOUT_CPU_ENVS, ROLLOUT_ENVS}):
         for w in range(1, POLICY_WINDOW + 1):
             cases[f"rollout_tower_b{b * w}"] = (b * w, M3AE_TOKENS, 12, 64, MaskSpec("none"), None)
             cases[f"rollout_policy_b{b}_n{3 * w}"] = (b, 3 * w, 8, 16, MaskSpec("dt", 1, 3), None)
-    cases["rollout_engine_vit"] = (ROLLOUT_ENGINE_BATCH, TOKENS, 12, 64, MaskSpec("none"), None)
-    # the reward server: its engine's ViT at (SERVE_BATCH, 197), float32 and (calibrating fast_int8) bf16, and
+        cases[f"rollout_engine_vit_b{b}"] = (b, TOKENS, 12, 64, MaskSpec("none"), None)
+    # the reward server: its engine's ViT on a request's 16 frames, the 8 warm-up frames and a goal's one, each
+    # at its own size, float32 and (calibrating fast_int8) bf16; the labeling run's full batch is vit_b16's;
     # the text tower at one instruction (slice_ft_text's shape) or a list of two
-    cases["reward_serve_vit"] = (SERVE_BATCH, TOKENS, 12, 64, MaskSpec("none"), None)
+    for b in sorted({SERVE_REQUEST_FRAMES, SERVE_WARM_FRAMES, 1}):
+        cases[f"reward_serve_vit_b{b}"] = (b, TOKENS, 12, 64, MaskSpec("none"), None)
     cases["reward_serve_text_b2"] = (2, 77, 8, 64, MaskSpec("causal"), pad_from_lengths(77, [12, 9]))
     # M3AE pretraining at batch 64 (the JAX trainer's default model): the encoder over cls + 64 kept patches + 16
     # kept text tokens, the decoder at head_dim 32 over cls + 256 patches + 64 text tokens; the keys padded where
@@ -542,12 +544,14 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
     cases["pp_policy_d16_dt_n12"] = (POLICY_BATCH // TP_PP_MICROBATCHES, 3 * POLICY_WINDOW, 8, 16,
                                      MaskSpec("dt", 1, 3), None)
     # the drivers: stub_benchmark's tiny reward CLIP, its training step (vision, and text causal + padding at
-    # head_dim 16, under a gradient) and its engine at the driver's batch (one instruction)
+    # head_dim 16, under a gradient) and its engine at the driver's batch and on the spec's reward frames, a
+    # batch of their own (one instruction)
     (vit_n, vit_h, vit_d), (_, text_h, text_d) = drivers_attention_dims()
     drivers_pad = torch.from_numpy(drivers_tokens() == 0).to("cuda")
     cases["drivers_clip_vit"] = (DRIVERS_CLIP_BATCH, vit_n, vit_h, vit_d, MaskSpec("none"), None)
     cases["drivers_clip_text"] = (len(drivers_pad), 77, text_h, text_d, MaskSpec("causal"), drivers_pad)
     cases["drivers_engine_vit"] = (DRIVERS_ENGINE_BATCH, vit_n, vit_h, vit_d, MaskSpec("none"), None)
+    cases["drivers_engine_vit_rewards"] = (DRIVERS_REWARD_FRAMES, vit_n, vit_h, vit_d, MaskSpec("none"), None)
     cases["drivers_engine_text"] = (1, 77, text_h, text_d, MaskSpec("causal"), drivers_pad[:1])
 
     errors = {}
@@ -653,9 +657,10 @@ K2_M3AE_SITES = {
 }
 
 
-# K2's sites under the reward server's fast_int8 engine at its batch of 64 (reward/serve.py): M = 64 * 197
-SERVE_BATCH = 64
-K2_SERVE_SITES = {f"serve_{label}": (SERVE_BATCH * TOKENS, k, n, dtype, act)
+# K2's sites under the reward server's fast_int8 engine (reward/serve.py, batch 64) on a rollout worker's request
+# of 16 frames, which runs at its own size: M = 16 * 197
+SERVE_BATCH, SERVE_REQUEST_FRAMES = 64, 16
+K2_SERVE_SITES = {f"serve_{label}": (SERVE_REQUEST_FRAMES * TOKENS, k, n, dtype, act)
                   for label, (_, k, n, dtype, act) in K2_SITES.items() if label in ("qkv", "attn_out", "fc", "proj")}
 
 
@@ -711,8 +716,10 @@ def phase_k2(vi, quant) -> dict:
     for m in (1, 129, 1003):  # the tanh-GELU over ragged rows, and beyond the scale
         cases[f"ragged_m{m}_gelu_tanh"] = (m, 768, 3072, torch.bfloat16, "gelu_tanh", "dense", 1.05, True)
     cases["m1003_k768_n3072_gelu_tanh_clamped_f32"] = (1003, 768, 3072, torch.float32, "gelu_tanh", "dense", 0.4, True)
-    for label, (m, k, n, dtype, act) in K2_SITES.items():  # every site of the reward server's fast_int8 engine
-        cases[f"reward_serve_{label}"] = (m // BATCH * SERVE_BATCH, k, n, dtype, act, "dense", 1.05, True)
+    # every site of the reward server's fast_int8 engine on a request, the warm-up frames and a goal frame
+    for b in sorted({SERVE_REQUEST_FRAMES, SERVE_WARM_FRAMES, 1}):
+        for label, (m, k, n, dtype, act) in K2_SITES.items():
+            cases[f"reward_serve_{label}_b{b}"] = (m // BATCH * b, k, n, dtype, act, "dense", 1.05, True)
     for label, (m, k, n, dtype, act) in K2_SITES.items():  # mesh_tp_pp: two engine shares of 128 frames
         cases[f"mesh_share_{label}"] = (m // 2, k, n, dtype, act, "dense", 1.05, True)
     for w in range(1, POLICY_WINDOW + 1):  # the frozen_int8 tower in a rollout wave while the window fills
@@ -961,7 +968,7 @@ def phase_slice_fast(counters, ClipRewardEngine, CLIP, CONFIGS, flax_to_torch, l
         want = cpu.text_rewards(frames8, text)  # an int8 engine calibrates on these 8 frames
         del cpu
         eng = engine("cuda", BATCH, **knobs)
-        eng.text_rewards(frames8, text)  # the same first batch: 8 frames padded with the last one
+        eng.text_rewards(frames8, text)  # the same first batch: the 8 frames, at their own size
         feat_cos = cosine(eng.encode_image_features(frames8), ref)
         g = MemoryGroup((k, g_src[k]) for k in ("ob", "act", "done"))
         torch.cuda.synchronize()
@@ -2035,7 +2042,7 @@ def phase_slice_ft(counters, weights, label_group, vit_infer) -> dict:
         want = cpu.text_rewards(frames8, FT_TEXT)  # an int8 engine calibrates on these frames
         del cpu
         eng = engine(DEVICE, FT_BATCH_LABEL, **knobs)
-        eng.text_rewards(frames8, FT_TEXT)  # the same first batch: the rows, padded with the last one
+        eng.text_rewards(frames8, FT_TEXT)  # the same first batch: the rows, at their own size
         g = MemoryGroup((k, g_src[k]) for k in ("ob", "act", "done"))
         sync()
         for fn in counters.values():
@@ -2483,7 +2490,7 @@ def phase_rollout(counters, weights, policy_lib, flax_m3ae_to_torch) -> dict:
 
 SERVE_CLIP = "vit_b16"  # the reference's reward model
 SERVE_IMAGE = 224
-SERVE_REQUEST_FRAMES, SERVE_FRAME = 16, 64  # a rollout worker's request: 16 frames of 64 x 64 x 3
+SERVE_FRAME = 64  # a rollout worker's request: SERVE_REQUEST_FRAMES frames of 64 x 64 x 3
 SERVE_CLIENTS = 4  # concurrent client threads
 SERVE_CPU_FRAMES, SERVE_WARM_FRAMES = 4, 8  # the CPU engine's frames; the frames the servers warm up (int8: calibrate) on
 SERVE_LABEL_FRAMES, SERVE_LABEL_SIZE = LABEL_FRAMES, 256  # the host-vs-pil labeling run: the slice's demo group
@@ -2645,7 +2652,7 @@ def phase_reward_serve(counters, preprocess) -> tuple[dict, "LaunchShapes"]:
         eng = engine(DEVICE, SERVE_BATCH, **knobs)
         server = RewardServer(eng)
         t0 = time.perf_counter()
-        server.warmup(warm)  # the warm-up frames pad to the batch with copies of the last: the same amaxes
+        server.warmup(warm)  # the 8 warm-up frames run at their own size; an amax, a max over rows, is the padded batch's
         sync()
         warm_s = time.perf_counter() - t0
         httpd = server.make_http_server("127.0.0.1", 0)

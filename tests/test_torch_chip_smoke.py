@@ -407,7 +407,13 @@ def test_finetune_phases_rehearsed_on_the_cpu(monkeypatch, capsys):
     assert step["quadruples"] == 2 and step["trained_params"] > 0 and np.isfinite(step["loss"])
     assert {"preprocess_ms", "clip_encode_ms", "adapter_forward_backward_adamw_ms"} <= set(step)
     assert [r["mode"] for r in by_phase["slice_ft"]] == list(chip_smoke.FT_MODES)
-    assert all(r["reward_mae_vs_cpu"] < 1e-5 and r["frames"] == 9 for r in by_phase["slice_ft"])
+    # the engine runs its last batch at its own size: at batch 4 the 9 frames leave row 8 alone, where the CPU
+    # engine encodes it among 3 rows.  Float32 rounding in module_f32 and fast_int8 (measured 6e-7, 1e-6); a bf16
+    # trunk's rounding in the other two (measured 1.4e-2, 6.5e-3), held to the phase's bf16 bound (BF16_COS_MAE
+    # times the engine's logit scale)
+    for r in by_phase["slice_ft"]:
+        bound = 1e-5 if r["mode"] in ("module_f32", "fast_int8") else r["mae_bound"]
+        assert r["frames"] == 9 and r["reward_mae_vs_cpu"] < bound, r
     f2 = by_phase["f2"][0]
     assert f2["frames"] == 9 and f2["k2_vs_plain_on_card_mae"] == 0.0  # on the CPU both runs are the plain version
 
@@ -487,6 +493,11 @@ def test_rollout_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     sites = {(int(key.split()[0][2:]), key.split()[-1]) for key in shapes.k2}
     assert {m for m, _ in sites} == {2 * w * t for w in (1, 2) for t in (tokens, tokens - 1)}
     assert {act for _, act in sites} == {"none", "gelu_tanh"}
+    # the engine's ViT on a step's frames, at their own size: K1 holds the sequential run's, the card-vs-CPU
+    # run's and a wave's
+    import inspect
+
+    assert 'cases[f"rollout_engine_vit_b{b}"] = (b, TOKENS,' in inspect.getsource(chip_smoke.phase_k1)
 
 
 def test_reward_serve_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
@@ -514,7 +525,8 @@ def test_reward_serve_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
     launches, shapes = chip_smoke.phase_reward_serve(counters, preprocess)
     # on the CPU attention never reaches K1's wrapper; K2's takes its plain version, noted at the int8 engine's sites
     assert set(launches) == set(counters) and not shapes.k1
-    assert {key.split()[0] for key in shapes.k2} == {"m=8", "m=32", "m=40"}  # final (batch 8), conv1, the layers
+    # a request's 5 frames at their own size (final 5, conv1 20, the layers 25) and a goal's 1 frame (1, 4, 5)
+    assert {key.split()[0] for key in shapes.k2} == {"m=1", "m=4", "m=5", "m=20", "m=25"}
     by_phase = {}
     for line in capsys.readouterr().out.splitlines():
         if line.startswith("{"):
@@ -538,12 +550,18 @@ def test_reward_serve_phase_rehearsed_on_the_cpu(monkeypatch, capsys):
 
 
 def test_reward_serve_cases_are_held_by_the_kernel_checks():
-    """Every K2 site of the server's fast_int8 engine at its batch of 64, and the timed serve sites, are shapes
-    K2 takes; the requests' wire formats are the server's routes."""
+    """Every K2 site of the server's fast_int8 engine on a request of 16 frames (its own size under the batch of
+    64), the timed serve sites, are shapes K2 takes, and phase_k2 holds them; the requests' wire formats are the
+    server's routes."""
+    import inspect
     import json
 
     for label, (m, k, n, dtype, act) in chip_smoke.K2_SERVE_SITES.items():
-        assert m == 64 * 197 == 12_608 and k % 32 == 0 and n % 8 == 0, label
+        assert m == 16 * 197 == 3_152 and k % 32 == 0 and n % 8 == 0, label
+    k2 = inspect.getsource(chip_smoke.phase_k2)
+    assert "for b in sorted({SERVE_REQUEST_FRAMES, SERVE_WARM_FRAMES, 1}):" in k2
+    assert 'cases[f"reward_serve_{label}_b{b}"] = (m // BATCH * b,' in k2
+    assert 'cases[f"reward_serve_vit_b{b}"] = (b, TOKENS,' in inspect.getsource(chip_smoke.phase_k1)
     path, body, headers = chip_smoke.reward_request("goal", "raw", np.zeros((2, 4, 4, 3), np.uint8),
                                                     goal=np.ones((4, 4, 3), np.uint8))
     assert path == "/v1/reward/goal_raw" and len(body) == 3 * 48 and headers["X-Goal-Shape"] == "4,4,3"
@@ -1029,7 +1047,8 @@ def test_drivers_phase_joins_the_path_launches_and_its_shapes_are_k1_cases():
     np.testing.assert_array_equal(tokens, Char97Tokenizer()(sb.clip_texts("coinrun")))
     assert tokens.shape == (4, 77) and (tokens == 0).any(axis=1).all()  # every text padded
     k1 = inspect.getsource(chip_smoke.phase_k1)
-    for case in ("drivers_clip_vit", "drivers_clip_text", "drivers_engine_vit", "drivers_engine_text"):
+    for case in ("drivers_clip_vit", "drivers_clip_text", "drivers_engine_vit", "drivers_engine_vit_rewards",
+                 "drivers_engine_text"):
         assert f'cases["{case}"]' in k1
     for timed in ("drivers_clip_vit", "drivers_clip_text"):  # timed beside their bound, on the kernels line
         assert f'"{timed}": (cases["{timed}"], (torch.float32,))' in k1 and f'"{timed}_float32"' in src

@@ -82,6 +82,89 @@ def test_features_match_jax(jax_engine, port_engine):
     )
 
 
+def _recording_rows(engine) -> list:
+    """The row counts of the device batches ``engine`` encodes from now on (its replicas on one device are
+    the engine itself)."""
+    rows, encode = [], engine._encode_chunk
+
+    def recorded(frames, normalize):
+        rows.append(frames.shape[0])
+        return encode(frames, normalize)
+
+    engine._encode_chunk = recorded
+    return rows
+
+
+TAIL_BATCH = 8
+
+
+@pytest.mark.parametrize("n", [1, TAIL_BATCH - 1, TAIL_BATCH, TAIL_BATCH + 1, 2 * TAIL_BATCH + 3])
+def test_the_last_chunk_runs_at_its_own_size(jax_engine, n):
+    """Every device batch but the last holds ``batch_size`` rows, the last its own; nothing is padded, the
+    features are the frame-by-frame encodes', and the rewards JAX's (whose engine pads to its batch)."""
+    engine = _port_engine(jax_engine, batch_size=TAIL_BATCH)
+    rows = _recording_rows(engine)
+    frames = _frames(30 + n, n)
+    feats = engine.encode_image_features(frames, normalize=False)
+    assert rows == [TAIL_BATCH] * (n // TAIL_BATCH) + [n % TAIL_BATCH] * (n % TAIL_BATCH > 0)
+    batches = -(-n // TAIL_BATCH)
+    assert (engine.frames_real, engine.frames_padded, engine.batches) == (n, 0, batches)
+    one_by_one = np.concatenate([engine.encode_image_features(frames[i : i + 1], normalize=False)
+                                 for i in range(n)])
+    np.testing.assert_allclose(feats, one_by_one, rtol=1e-5, atol=1e-6)
+    text = "collect the coin."
+    got, want = engine.text_rewards(frames, text), jax_engine.text_rewards(frames, text)
+    assert got.shape == want.shape == (n,) and np.abs(got - want).mean() <= MAE
+    np.testing.assert_allclose(got, want, atol=1e-5)
+    got, want = engine.goal_rewards(frames), jax_engine.goal_rewards(frames)
+    assert np.abs(got - want).mean() <= MAE
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_a_meshed_tail_splits_into_uneven_shares(jax_engine):
+    """The CPU named twice: 11 frames at batch 8 run as 8 rows (two shares of 4) and a tail of 3 in shares of
+    2 and 1, nothing padded; the features are the unmeshed engine's."""
+    from arp_tpu_torch.parallel import mesh as tmesh
+
+    meshed = _port_engine(jax_engine, mesh=tmesh.mesh_from_count(2, devices=["cpu", "cpu"]))
+    plain = _port_engine(jax_engine)
+    rows, plain_rows = _recording_rows(meshed), _recording_rows(plain)
+    frames = _frames(41, 11)
+    for normalize in (True, False):
+        got = meshed.encode_image_features(frames, normalize=normalize)
+        assert got.shape == (11, TINY_CLIP_CFG["embed_dim"])
+        np.testing.assert_allclose(got, plain.encode_image_features(frames, normalize=normalize),
+                                   rtol=1e-5, atol=1e-6)
+    assert rows == [4, 4, 2, 1] * 2 and plain_rows == [8, 3] * 2
+    assert (meshed.frames_real, meshed.frames_padded, meshed.batches) == (22, 0, 4)
+    assert (plain.frames_real, plain.frames_padded, plain.batches) == (22, 0, 4)
+
+
+def test_int8_calibration_on_a_short_first_batch_is_the_padded_batch_s(jax_engine):
+    """The lazy int8 calibration takes the first device batch, now 10 rows at batch 64: each site's amax is a
+    max over rows, so the last frame repeated up to 64 rows (the padding it replaced) gives the same amax,
+    and the engine's pack is the one quantized from it."""
+    from arp_tpu_torch.ops import vit_infer
+
+    engine = _port_engine(jax_engine, batch_size=64, fast_int8=True)
+    frames = _frames(51, 10)
+    engine.encode_image_features(frames)
+    padded = np.concatenate([frames, np.repeat(frames[-1:], 54, axis=0)])
+    x = engine._patches(torch.from_numpy(padded.reshape(64, 48, -1)))
+    amax_short = vit_infer.calibrate_vit(engine._fast, x[:10], engine._heads)
+    amax_padded = vit_infer.calibrate_vit(engine._fast, x, engine._heads)
+    for a, b in zip(_leaves(amax_short), _leaves(amax_padded)):
+        assert torch.equal(a, b)
+    for a, b in zip(_leaves(engine._fast_q), _leaves(vit_infer.quantize_packed(engine._fast, amax_padded))):
+        assert torch.equal(a, b)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree] if isinstance(tree, torch.Tensor) else []
+
+
 def test_bf16_engine_within_the_jax_bf16_bound(jax_engine, port_engine):
     """tests/test_quantization.py's bf16 bound (MAE < 0.05 at this logit_scale)."""
     bf16 = _port_engine(jax_engine, compute_dtype=torch.bfloat16)

@@ -164,10 +164,10 @@ def test_text_cache_keys_lru_and_health_match_jax(monkeypatch):
     assert tserve.RewardServer.MAX_CACHED_TEXTS == JServer.MAX_CACHED_TEXTS == 256
     got, want = tserver.health(), jserver.health()
     # the port's own counters besides JAX's fields: 8 requests, every text missed the 3-entry cache and was
-    # encoded, and the engine padded 2-frame calls to its batch of 4 seven times and the 3-frame goal call once,
-    # one device batch each
+    # encoded, and the engine ran seven 2-frame calls and the 3-frame goal call at their own sizes under its
+    # batch of 4, nothing padded, one device batch each
     counters = {"requests": 8, "text_cache_hits": 0, "text_cache_misses": 7, "frames_real": 7 * 2 + 3,
-                "frames_padded": 7 * 2 + 1, "batches": 8, "text_encodes": 7}
+                "frames_padded": 0, "batches": 8, "text_encodes": 7}
     assert set(got) == set(want) | set(counters) | {"lock_wait_seconds"}
     assert {k: got[k] for k in counters} == counters and got["lock_wait_seconds"] >= 0
     for key in ("status", "batch_size", "cached_texts", "frames_served"):

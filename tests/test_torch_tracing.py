@@ -1,6 +1,7 @@
 """The port's host spans and counters (arp_tpu_torch/profiling.py and the layers that record them): nothing is
 recorded without a profiler; under one, spans nest, cross the engine's producer thread with their parent and
-share their root's trace id; they land on the profiler's clock; the engine counts its padding; a lockstep step's
+share their root's trace id; they land on the profiler's clock; the engine counts its padding (none without a
+mesh); a lockstep step's
 four children cover it; ``Trace`` writes the spans into its Chrome trace; the reward server counts its requests,
 its text cache and its lock."""
 
@@ -58,11 +59,12 @@ def test_nothing_is_recorded_without_a_profiler():
         assert not outer  # so a caller sets no attributes
         engine.text_rewards_with_features(frames(3), np.ones((1, 16), np.float32) / 4)
     assert spans() == [] and span("x") is span("y")
-    assert (engine.frames_real, engine.frames_padded, engine.batches) == (3, 5, 1)  # counters are always on
+    assert (engine.frames_real, engine.frames_padded, engine.batches) == (3, 0, 1)  # counters are always on
 
 
 def test_spans_nest_cross_the_producer_thread_and_share_the_trace_id():
-    """10 frames at batch 64: one ``engine.images`` span with its counts; the producer thread's host stage is
+    """10 frames at batch 64, one device batch of 10 rows: one ``engine.images`` span with its counts (nothing
+    padded); the producer thread's host stage is
     its child, as are the wait, the encode and the fetch; the engine call nests under the caller's span."""
     engine = tiny_engine(64)
     txt = engine.encode_text_features("collect the coin")
@@ -73,8 +75,8 @@ def test_spans_nest_cross_the_producer_thread_and_share_the_trace_id():
     assert rewards.shape == (10,)
     got = by_name(spans())
     (images,) = got["engine.images"]
-    assert images.attrs == {"frames": 10, "padded": 54}
-    assert (engine.frames_real, engine.frames_padded, engine.batches, engine.text_encodes) == (10, 54, 1, 1)
+    assert images.attrs == {"frames": 10, "padded": 0}
+    assert (engine.frames_real, engine.frames_padded, engine.batches, engine.text_encodes) == (10, 0, 1, 1)
     (root,) = got["caller"]
     assert root.parent_id is None and root.trace_id == root.span_id and root.attrs == {"kind": "test"}
     assert images.parent_id == caller.span_id
@@ -118,7 +120,7 @@ def test_a_lockstep_step_is_covered_by_its_four_children():
     assert sum(c.end_ns - c.start_ns for c in children) >= 0.95 * step_ns
     rewards = {s.span_id for s in got["rollout.reward"]}
     images = [s for s in got["engine.images"] if s.parent_id in rewards]
-    assert len(images) == 4 and all(s.attrs["padded"] == 5 for s in images)
+    assert len(images) == 4 and all(s.attrs == {"frames": 3, "padded": 0} for s in images)
 
 
 def test_trace_writes_the_host_spans_into_its_chrome_trace(tmp_path):
@@ -159,7 +161,7 @@ def test_reward_server_counts_requests_cache_and_lock():
     health = server.health()
     assert health["frames_served"] == 13 and health["busy_seconds"] >= 0 and health["mean_fps"] > 0
     counters = {"requests": 3, "text_cache_hits": 1, "text_cache_misses": 1, "frames_real": 5 + 5 + 3,
-                "frames_padded": 3 + 3 + 5, "batches": 3, "text_encodes": 1}
+                "frames_padded": 0, "batches": 3, "text_encodes": 1}
     assert {k: health[k] for k in counters} == counters
     assert health["lock_wait_seconds"] >= 0
     got = by_name(spans())
