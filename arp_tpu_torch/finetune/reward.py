@@ -121,11 +121,12 @@ class ClipFtRewardEngine(ClipRewardEngine):
     def _encode_chunk(self, frames: torch.Tensor, normalize: bool) -> torch.Tensor:
         del normalize  # the adapter's features are normalized either way, as in the JAX engine
         x = self._patches(frames)
-        if self._fast is None:
-            return self.adapter.encode_image(self.model, x)
-        final, inter = self._packed_trunk(x, return_intermediates=True)
-        inter = inter[: self.adapter.num_clip_layers]  # (L, B, D) in layer order -> (B, L * D)
-        return self.adapter.adapt_image_features(inter.transpose(0, 1).reshape(inter.shape[1], -1), final)
+        with self._timed_tower():
+            if self._fast is None:
+                return self.adapter.encode_image(self.model, x)
+            final, inter = self._packed_trunk(x, return_intermediates=True)
+            inter = inter[: self.adapter.num_clip_layers]  # (L, B, D) in layer order -> (B, L * D)
+            return self.adapter.adapt_image_features(inter.transpose(0, 1).reshape(inter.shape[1], -1), final)
 
     def _text_tower(self, tokens: torch.Tensor) -> torch.Tensor:
         """The adapter's normalized text features, (n_text, D)."""

@@ -22,7 +22,10 @@ stem, Bottleneck blocks with anti-aliased average-pool downsampling, BatchNorm
 in eval mode (its running statistics are buffers, Flax's ``batch_stats``), and
 the attention pool, whose one query (the mean token) attends in plain torch as
 JAX computes it outside any Pallas kernel.  ``vision_return_map`` returns the
-feature map instead of the pooled embedding.
+feature map instead of the pooled embedding.  A float32 tower convolves in
+IEEE float32 whatever the process asked of cuDNN: PyTorch lets cuDNN's float32
+convolutions take TF32 by default (``torch.backends.cudnn.allow_tf32``), a
+lower precision than the tower's (:func:`_ieee_convolutions`).
 
 :func:`load_model_vars` reads a local OpenAI checkpoint (a ``.npy`` of its
 state dict or the ``.pt`` jit archive) into arp_tpu's Flax layout, as the JAX
@@ -31,9 +34,11 @@ package's does; fetching it is not ported.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
 import os
+import threading
 from collections import OrderedDict
 from typing import Optional, Sequence, Union
 
@@ -205,6 +210,28 @@ class BatchNorm(nn.Module):
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias, False, 0.0, self.eps)
 
 
+_IEEE_LOCK = threading.RLock()
+
+
+@contextlib.contextmanager
+def _ieee_convolutions():
+    """cuDNN's float32 convolutions in IEEE float32, not TF32, inside the block; the process's setting
+    after it.  The setting is the process's (torch's ``fp32_precision`` of cuDNN's convolutions, which
+    the legacy ``allow_tf32`` flag also writes): only the convolutions' own entry changes, so cuDNN's
+    other flags and TF32 in matmuls stay as the caller set them.  One thread at a time holds the block
+    (two towers' forwards in two threads would otherwise restore each other's setting partway); another
+    thread that reads ``torch.backends.cudnn.allow_tf32`` meanwhile meets torch's error for the legacy
+    flag read while the convolutions' entry differs from the RNNs'."""
+    conv = torch.backends.cudnn.conv
+    with _IEEE_LOCK:
+        before = conv.fp32_precision
+        conv.fp32_precision = "ieee"
+        try:
+            yield
+        finally:
+            conv.fp32_precision = before
+
+
 def _avg_pool(x, stride: int):
     """Flax's ``avg_pool(x, (s, s), (s, s))`` (VALID): the identity at stride 1."""
     return F.avg_pool2d(x, stride) if stride > 1 else x
@@ -292,6 +319,12 @@ class ModifiedResNet(nn.Module):
             self.attnpool = AttentionPool(in_features, num_heads, out_features, (image_size // 32) ** 2 + 1)
 
     def forward(self, x):
+        if self.conv1.weight.dtype == torch.float32:
+            with _ieee_convolutions():
+                return self._forward(x)
+        return self._forward(x)
+
+    def _forward(self, x):
         x = x.permute(0, 3, 1, 2)
         for i in (1, 2, 3):
             x = F.relu(getattr(self, f"bn{i}")(getattr(self, f"conv{i}")(x)))

@@ -24,6 +24,10 @@ The image tower runs one of three ways, as in the JAX engine:
     first device batch, every int8 matmul through kernel K2 on CUDA and,
     under ``fast_int8_attn``, w8a8 attention.
 
+``tower_seconds`` counts the image tower's time over every chunk (the resize and
+the copies left out): on CUDA from two timing events around each chunk's tower
+call, read at the call's fetch, which already waits for the card.
+
 A producer thread slices host chunks and pins them, so the HDF5 read
 of the next batches overlaps the device's work on this one; each chunk goes
 to the device with a ``non_blocking`` copy, and the device work is queued
@@ -71,8 +75,10 @@ Without ``variables`` or ``model`` the engine reads the OpenAI checkpoint of
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import time
 import warnings
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -228,6 +234,10 @@ class ClipRewardEngine:
         # cumulative counts (the reward server's /v1/health): frames encoded, frames added as padding (none:
         # every batch runs at its own size), device batches, text encodes
         self.frames_real = self.frames_padded = self.batches = self.text_encodes = 0
+        # the image tower's seconds over every chunk (_timed_tower), and a call's readings not yet added: a
+        # list the mesh's replicas share, drained at the call's fetch
+        self.tower_seconds = 0.0
+        self._tower_times = []
         self.image_size = image_size or model.image_size
         self.compute_dtype = compute_dtype
         self._tokenizer = tokenizer
@@ -399,14 +409,38 @@ class ClipRewardEngine:
         return vit_infer.vit_encode_int8(self._fast_q, x, self._heads, score_dtype=self._score_dtype,
                                          return_intermediates=return_intermediates, int8_attn=self._int8_attn)
 
+    @contextlib.contextmanager
+    def _timed_tower(self):
+        """Around one chunk's image-tower call: its time, added to ``tower_seconds`` at the call's fetch.  On
+        the card two CUDA timing events on the tower's stream, read once the fetch has waited for them (they add
+        no synchronise); on the CPU, which computes as it goes, the host's clock."""
+        if self.device.type != "cuda":
+            start = time.perf_counter()
+            yield
+            self._tower_times.append(time.perf_counter() - start)
+            return
+        stream = torch.cuda.current_stream(self.device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        yield
+        end.record(stream)
+        self._tower_times.append((start, end))
+
+    def _add_tower_times(self) -> None:
+        """Add the readings of ``_timed_tower`` to ``tower_seconds``; after the fetch, so every event is done."""
+        for t in self._tower_times:
+            self.tower_seconds += t if isinstance(t, float) else t[0].elapsed_time(t[1]) / 1e3
+        self._tower_times.clear()
+
     @torch.inference_mode()
     def _encode_chunk(self, frames: torch.Tensor, normalize: bool) -> torch.Tensor:
         """One device batch of packed uint8 frames (B, H, W*C) -> float32 features."""
         x = self._patches(frames)
-        if self._fast is None:
-            feat = self.model.encode_image(x.to(self.compute_dtype), normalize=False).float()
-        else:
-            feat = self._packed_trunk(x)
+        with self._timed_tower():
+            if self._fast is None:
+                feat = self.model.encode_image(x.to(self.compute_dtype), normalize=False).float()
+            else:
+                feat = self._packed_trunk(x)
         if normalize:
             feat = feat / torch.linalg.vector_norm(feat, dim=-1, keepdim=True)
         return feat
@@ -460,8 +494,11 @@ class ClipRewardEngine:
             # after the producer thread's join, which the device's queued work covers
             with span("engine.fetch"):
                 if self._replicas is not None:  # the shares' features, from their devices, in row order
-                    return torch.cat([o.to("cpu") for o in outputs]).numpy()
-                return torch.cat(outputs).cpu().numpy()
+                    feats = torch.cat([o.to("cpu") for o in outputs]).numpy()
+                else:
+                    feats = torch.cat(outputs).cpu().numpy()
+                self._add_tower_times()
+                return feats
 
     def encode_image_features(self, frames, normalize: bool = True) -> np.ndarray:
         """Public batched image-feature extraction (streaming, in device batches of at most ``batch_size``)."""

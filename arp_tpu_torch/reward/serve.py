@@ -19,13 +19,14 @@ API (JSON over HTTP):
                             "cached_texts", "frames_served", "busy_seconds", "mean_fps",
                             "requests", "text_cache_hits", "text_cache_misses",
                             "lock_wait_seconds", "frames_real", "frames_padded", "batches",
-                            "text_encodes"}
+                            "text_encodes", "tower_seconds"}
                         counts since the start: requests that reached the engine, text features
                         found in or missing from the cache, seconds requests
                         waited for the engine's lock; and the engine's own: frames
                         it encoded, frames it added as padding (0: every device batch
                         runs at its own size), device batches it ran, text encodes
-                        (the warm-up's included).
+                        (the warm-up's included), and the image tower's seconds (on
+                        the card its device time, from CUDA events).
 
 Under a ``torch.profiler`` each request records host spans
 (``arp_tpu_torch.profiling``): ``serve.request`` (route, frames) over
@@ -231,6 +232,7 @@ class RewardServer:
             "frames_padded": self.engine.frames_padded,
             "batches": self.engine.batches,
             "text_encodes": self.engine.text_encodes,
+            "tower_seconds": round(self.engine.tower_seconds, 6),
         }
 
     def make_http_server(self, host: str = "127.0.0.1", port: int = 8788):

@@ -512,6 +512,8 @@ def phase_k1(attn, MaskSpec, materialize_mask) -> dict:
     cases["finetune_text"] = (FT_BATCH, 77, 8, 64, MaskSpec("causal"),
                               instruction_pad.expand(FT_BATCH, 77).contiguous())
     cases["slice_ft_text"] = (1, 77, 8, 64, MaskSpec("causal"), instruction_pad)
+    # CLIP RN50x64's text tower (1,024 wide: 16 heads of 64) on one instruction, as the labeler encodes it
+    cases["rn50x64_text"] = (1, 77, 16, 64, MaskSpec("causal"), instruction_pad)
     # the rollout: the tower at B * w frames while the window fills (w = 1..4; B = 1 sequential, the
     # card-vs-CPU run's envs, a wave's), the policy blocks at those batches, and the reward engine's ViT on a
     # step's B frames, which run at their own size below build_test_step's batch (the text is slice_ft_text's)

@@ -727,6 +727,19 @@ def test_new_phases_and_their_path_kernels_are_pinned():
     assert "slice_ft_text" in inspect.getsource(chip_smoke.phase_k1)
 
 
+def test_rn50x64_text_tower_k1_shape_is_held():
+    """The RN50x64 labeling cell's text tower launches K1 at one instruction of 77 tokens, 16 heads of 64,
+    causal with key padding: a shape that k1_check holds against the plain version."""
+    import inspect
+
+    from arp_tpu_torch.models.clip import CONFIGS
+
+    cfg = CONFIGS["resnet_50x64"]
+    assert (cfg["text_num_heads"], cfg["text_features"] // cfg["text_num_heads"]) == (16, 64)
+    src = inspect.getsource(chip_smoke.phase_k1)
+    assert 'cases["rn50x64_text"] = (1, 77, 16, 64, MaskSpec("causal"), instruction_pad)' in src
+
+
 @pytest.mark.parametrize("pool_padding", ["same", "torch"])
 def test_impala_branches_replay_another_run_s_relus_and_pools(pool_padding):
     """ImpalaBranches: a replayed forward computes what the noting run computed, and counts where its own

@@ -168,8 +168,9 @@ def test_text_cache_keys_lru_and_health_match_jax(monkeypatch):
     # batch of 4, nothing padded, one device batch each
     counters = {"requests": 8, "text_cache_hits": 0, "text_cache_misses": 7, "frames_real": 7 * 2 + 3,
                 "frames_padded": 0, "batches": 8, "text_encodes": 7}
-    assert set(got) == set(want) | set(counters) | {"lock_wait_seconds"}
+    assert set(got) == set(want) | set(counters) | {"lock_wait_seconds", "tower_seconds"}
     assert {k: got[k] for k in counters} == counters and got["lock_wait_seconds"] >= 0
+    assert 0 < got["tower_seconds"] <= got["busy_seconds"]
     for key in ("status", "batch_size", "cached_texts", "frames_served"):
         assert got[key] == want[key], key
     assert got["engine"] == want["engine"] == "ClipRewardEngine" and got["frames_served"] == 17
