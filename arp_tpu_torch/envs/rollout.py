@@ -23,6 +23,12 @@ to the host once a step, for the envs.  The windows hold the values JAX's
 hold: the current frame's action slot is a 0 placeholder while the policy
 decides and takes the chosen action after; the rtg is lowered with the
 pre-step frame; an env that is done keeps a frozen rtg.
+
+The windows also carry a cache of the frozen tower's outputs (:class:`TowerRing`, one a view, handed to the
+policy as ``inputs["tower_cache"]``), rolled with the frames: a policy with a frozen tower sends only the
+newest slot of each window through it, and reads the other slots' outputs back.  The cache lives and dies with
+one rollout's windows, so weights that change between two evals are never served from an old one.  A policy
+that does not know the key ignores it.
 """
 
 from __future__ import annotations
@@ -99,29 +105,90 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def _shift(buf: torch.Tensor) -> None:
+    """Shift the slots (dim 1) one toward the past in place (slot by slot: no overlapping copy, no temporary);
+    the newest slot keeps its value until it is written."""
+    for j in range(buf.shape[1] - 1):
+        buf[:, j].copy_(buf[:, j + 1])
+
+
+class TowerRing:
+    """The frozen tower's outputs for one view's window slots in one rollout, rolled as the windows roll their
+    frames and filled by the policy's encode (``BasePolicy._frozen_frames``), so that each frame goes through
+    the tower once and not once for every window it sits in.
+
+    ``buf`` (n, W, L, ...): each env's and slot's outputs of L layers, allocated at the first fill.  The slots
+    ``[W - pending - held, W - pending)`` hold outputs: ``pending`` counts the slots pushed since the last fill.
+    ``owner``: the policy that computed the outputs; ``fixed``: the inputs besides the frame (the instruction's
+    row and its padding) it computed them with, None for the frame alone."""
+
+    def __init__(self, window_size: int):
+        self.window_size = window_size
+        self.buf: Optional[torch.Tensor] = None
+        self.held = self.pending = 0
+        self.owner = self.fixed = None
+
+    def push(self) -> None:
+        """A new step: every slot one toward the past; the newest has no output yet."""
+        if self.buf is not None:
+            _shift(self.buf)
+        self.pending += 1
+
+    def keep_if(self, owner, fixed: Optional[tuple]) -> None:
+        """Drop the outputs unless ``owner`` computed them, with the inputs ``fixed`` besides the frame (two
+        policies called on one rollout's windows each encode the whole window)."""
+        same = owner is self.owner and (fixed is None) == (self.fixed is None) and (
+            fixed is None or all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(fixed, self.fixed)))
+        if not same:
+            self.buf, self.held, self.owner = None, 0, owner
+            self.fixed = None if fixed is None else tuple(t.clone() for t in fixed)
+
+    def missing(self, w: int) -> int:
+        """How many of the ``w`` newest slots need the tower: those pushed since the last fill, or all ``w`` when
+        an older one of them holds no output."""
+        k = min(self.pending, w)
+        return k if self.held >= w - k else w
+
+    def fill(self, new: Optional[torch.Tensor], w: int) -> torch.Tensor:
+        """``new`` (n, k, L, ...): the tower's outputs for the ``k`` newest slots (None when :meth:`missing` gave
+        0); gives the ``w`` newest slots' (n, w, L, ...), a view of the ring."""
+        size = self.window_size
+        if new is not None:
+            k = new.shape[1]
+            if self.buf is None:
+                self.buf = new.new_empty((new.shape[0], size, *new.shape[2:]))
+            self.buf[:, size - k:] = new
+            # the outputs held before stay next to the new ones only when no slot between them went unfilled
+            self.held = min(size, self.held + k) if k == self.pending else k
+            self.pending = 0
+        return self.buf[:, size - w:]
+
+
 class _Windows:
     """The policy's input windows of ``n`` envs on ``device``: per view (n, W, ...) images and
     (n, W, 1) rtg, and (n, W) int32 actions.  The newest slot is the current step; the windows are
-    first filled with the first step, and ``inputs`` hands out the ``valid`` newest slots."""
+    first filled with the first step, and ``inputs`` hands out the ``valid`` newest slots, with the views'
+    rings of tower outputs (:class:`TowerRing`) under ``tower_cache``."""
 
     def __init__(self, first: dict, rtg: dict, window_size: int, device: torch.device):
         n = next(iter(first.values())).shape[0]
         self.image = {k: v[:, None].repeat_interleave(window_size, dim=1).contiguous() for k, v in first.items()}
         self.rtg = {k: torch.as_tensor(r[:, None, None]).repeat(1, window_size, 1).to(device) for k, r in rtg.items()}
         self.action = torch.zeros((n, window_size), dtype=torch.int32, device=device)
+        self.tower_cache = {k: TowerRing(window_size) for k in first}
         self.window_size, self.valid, self.device = window_size, 1, device
 
     @staticmethod
     def _roll(buf: torch.Tensor, new) -> None:
-        """Shift one slot toward the past in place (slot by slot: no overlapping copy, no temporary)."""
-        for j in range(buf.shape[1] - 1):
-            buf[:, j].copy_(buf[:, j + 1])
+        """Shift one slot toward the past in place and write ``new`` into the newest."""
+        _shift(buf)
         buf[:, -1] = new
 
     def push(self, frames: dict, rtg: dict) -> None:
         """A new step: its frames (on the device) and rtg (host (n,) float32), the 0 action placeholder."""
         for k, v in frames.items():
             self._roll(self.image[k], v)
+            self.tower_cache[k].push()
         for k, r in rtg.items():
             self._roll(self.rtg[k], torch.as_tensor(r[:, None]).to(self.device))
         self._roll(self.action, 0)
@@ -139,6 +206,7 @@ class _Windows:
             "action": self.action[:, -w:],
             "instruct": None,
             "text_padding_mask": None,
+            "tower_cache": self.tower_cache,
         }
         if goal is not None:
             inputs["goal"] = {"ob": goal[:, None].expand(goal.shape[0], w, *goal.shape[1:])}

@@ -46,6 +46,7 @@ from torch.nn.parameter import UninitializedParameter
 
 from ...config import Config, update_config
 from ...ops.masks import MaskSpec
+from ...profiling import span
 from ...utils import get_1d_sincos_pos_embed, get_2d_sincos_pos_embed, symexp, symlog
 from .. import m3ae as m3ae_lib
 from ..clip import model as clip_lib
@@ -248,6 +249,8 @@ class BasePolicy(nn.Module):
         self.config = cfg = self.get_default_config(config_updates)
         self.register_buffer("_anchor", torch.zeros(()), persistent=False)  # says where the module lives
         self.needs_first_forward = True  # the lazy layers and the adapter take their shapes at the first forward
+        # frames the frozen tower encoded, and frames whose outputs a rollout's window cache gave back instead
+        self.tower_frames_encoded = self.tower_frames_reused = 0
         if self.use_goal and not (cfg.transfer_type.startswith("m3ae") or cfg.transfer_type.endswith("_cached")):
             warnings.warn(
                 f"GCBC with transfer_type={cfg.transfer_type!r} does NOT consume the goal frame "
@@ -458,6 +461,100 @@ class BasePolicy(nn.Module):
         with torch.no_grad():
             return method(*args, deterministic=True, **kwargs)
 
+    # -- the frozen tower, frame by frame ----------------------------------------------------
+
+    def _window_rings(self, batch, views, text=None, text_padding_mask=None):
+        """The rings of a rollout's window cache (``batch["tower_cache"]``, one a view: envs/rollout.py::TowerRing)
+        for a frozen tower whose output for a frame depends on that frame alone, and on ``text`` where every
+        row carries the same instruction; None, which sends every frame through the tower, otherwise.  A ring
+        another policy filled, or filled with another instruction, starts empty."""
+        cache = batch.get("tower_cache")
+        if cache is None or set(cache) != set(views):
+            return None
+        fixed = None
+        if text is not None:
+            fixed = (text[:1], text_padding_mask[:1])
+            if not bool(((text == fixed[0]).all() & (text_padding_mask == fixed[1]).all()).item()):
+                return None
+        rings = [cache[v] for v in views]
+        for ring in rings:
+            ring.keep_if(self, fixed)
+        return rings
+
+    def _frozen_frames(self, image, encode, rings=None):
+        """The frozen tower's outputs for the frames ``image`` (V, B, T, H, W, C), as ``encode`` gives them for
+        all V * B * T frames: ``encode`` takes (M, H, W, C) frames to (L * M, ...) rows, layer-major.  With
+        ``rings`` (:meth:`_window_rings`) only the newest slots the rings lack go through ``encode``; the
+        other slots' outputs come back from the rings."""
+        num_image, batch_size, num_timestep = image.shape[:3]
+        frames = num_image * batch_size
+        k = num_timestep if rings is None else max(ring.missing(num_timestep) for ring in rings)
+        encoded, reused = frames * k, frames * (num_timestep - k)
+        with span("policy.tower") as s:
+            if s:
+                s.set(encoded=encoded, reused=reused)
+            out = encode(image[:, :, num_timestep - k:].reshape(-1, *image.shape[-3:])) if k else None
+            if rings is not None:
+                if k:
+                    out = out.reshape(-1, num_image, batch_size, k, *out.shape[1:])  # (L, V, B, k, ...)
+                held = torch.stack([ring.fill(None if out is None else out[:, v].movedim(0, 2), num_timestep)
+                                    for v, ring in enumerate(rings)])
+                out = held.movedim(3, 0).reshape(-1, *held.shape[4:])  # (V, B, T, L, ...) back to layer-major rows
+        self.tower_frames_encoded += encoded
+        self.tower_frames_reused += reused
+        return out
+
+    def _clip_input(self, image):
+        if self.resize_clip_input and image.shape[1] != 224:
+            from ...ops.augment import resize_image
+
+            image = resize_image(image, 224, 224, "bicubic")
+        return image
+
+    def _frozen_mae(self, frames):
+        patch = self.patchify(frames)
+        if self._frozen_fast_int8():
+            return self._fast_encode(patch, self.config.mae.num_heads)
+        return self._frozen_out(self._frozen_tower(self.pt_model.forward_representation, patch))
+
+    @staticmethod
+    def _tile_instruction(text, text_padding_mask, rows: int):
+        """The batch's instruction rows repeated over ``rows`` frames (None without one)."""
+        if text is None:
+            return None, None
+        reps = rows // text.shape[0]
+        return text.repeat(reps, 1), text_padding_mask.repeat(reps, 1)
+
+    def _frozen_m3ae(self, frames, text, text_padding_mask):
+        """The frozen M3AE tower on frames (M, H, W, C) with the batch's instruction: (L * M, N, D) rows,
+        layer-major, L the tower's depth with ``use_intermediate``, else 1."""
+        cfg = self.config
+        patch = self.patchify(frames)
+        tokenized_caption, tiled_pad = self._tile_instruction(text, text_padding_mask, patch.shape[0])
+        if self._frozen_fast_int8():
+            kw = dict(text_ids=tokenized_caption, text_padding_mask=tiled_pad)
+            if cfg.use_intermediate:
+                out, inter = self._fast_encode(patch, cfg.m3ae.num_heads, return_intermediates=True, **kw)
+                # (L-1, B', N, D) block outputs flatten along the batch: the layout
+                # the module path's concat of intermediates builds
+                inter = self._frozen_out(inter[:-1].reshape(-1, *inter.shape[2:]))
+                return torch.cat([inter, out], dim=0)
+            return self._fast_encode(patch, cfg.m3ae.num_heads, **kw)
+        if cfg.use_intermediate:
+            out, states = self._frozen_tower(self.pt_model.forward_representation, patch, tokenized_caption,
+                                             tiled_pad, return_intermediates=True)
+            intermediate_embs = [self._frozen_out(s) for s in states[: cfg.m3ae.depth - 1]]
+            return torch.cat(intermediate_embs + [self._frozen_out(out)], dim=0)
+        return self._frozen_out(self._frozen_tower(self.pt_model.forward_representation, patch, tokenized_caption,
+                                                   tiled_pad))
+
+    def _frozen_m3ae_joint(self, frames, goal_patch):
+        """The frozen M3AE tower's joint (obs, goal) encode of GCBC: frame i with goal patches i."""
+        patch = self.patchify(frames)
+        if self._frozen_fast_int8():
+            return self._fast_encode(patch, self.config.m3ae.num_heads, goal_patch=goal_patch)
+        return self._frozen_out(self._frozen_tower(self.pt_model.forward_gc_representations, patch, goal_patch))
+
     # -- encode ---------------------------------------------------------------
 
     def encode(self, batch):
@@ -546,17 +643,14 @@ class BasePolicy(nn.Module):
             return num_obs_token, patch, action_emb, state_emb, rtg_emb
 
         if transfer_type.startswith("clip"):
-            image = image.reshape(-1, *image.shape[-3:])
-            if self.resize_clip_input and image.shape[1] != 224:
-                from ...ops.augment import resize_image
-
-                image = resize_image(image, 224, 224, "bicubic")
             if cfg.use_impala_backbone:
-                img_emb = self.impala(image)
+                img_emb = self.impala(self._clip_input(image.reshape(-1, *image.shape[-3:])))
             elif cfg.use_from_scratch:
-                img_emb = self.pt_model.encode_image(image)
+                img_emb = self.pt_model.encode_image(self._clip_input(image.reshape(-1, *image.shape[-3:])))
             else:
-                img_emb = self._frozen_clip_apply(self.pt_model.encode_image, image)
+                img_emb = self._frozen_frames(
+                    image, lambda frames: self._frozen_clip_apply(self.pt_model.encode_image, self._clip_input(frames)),
+                    self._window_rings(batch, image_batch))
 
             if cfg.use_adapter:
                 img_emb = self._apply_adapter(img_emb.detach())
@@ -579,13 +673,11 @@ class BasePolicy(nn.Module):
             return 1, project(image_text_emb), action_emb, state_emb, rtg_emb
 
         if transfer_type.startswith("mae"):
-            patch = self.patchify(image.reshape(-1, *image.shape[-3:]))
             if cfg.use_from_scratch:
+                patch = self.patchify(image.reshape(-1, *image.shape[-3:]))
                 image_text_emb = self.pt_model.forward_representation(patch, deterministic=True)
-            elif self._frozen_fast_int8():
-                image_text_emb = self._fast_encode(patch, cfg.mae.num_heads)
             else:
-                image_text_emb = self._frozen_out(self._frozen_tower(self.pt_model.forward_representation, patch))
+                image_text_emb = self._frozen_frames(image, self._frozen_mae, self._window_rings(batch, image_batch))
             image_text_emb = image_text_emb.detach()
             if cfg.use_adapter:
                 image_text_emb = self._apply_adapter(image_text_emb)
@@ -593,50 +685,28 @@ class BasePolicy(nn.Module):
             return 1, project(image_text_emb), action_emb, state_emb, rtg_emb
 
         if transfer_type.startswith("m3ae"):
-            patch = self.patchify(image.reshape(-1, *image.shape[-3:]))
             num_layers = 1
             if self.use_goal:
                 goal_image = self._stack(batch["goal"], torch.float32)
                 goal_patch = self.patchify(goal_image.reshape(-1, *goal_image.shape[-3:]))
                 if cfg.use_from_scratch:
-                    image_text_emb = self.pt_model.forward_gc_representations(patch, goal_patch, deterministic=True)
-                elif self._frozen_fast_int8():
-                    image_text_emb = self._fast_encode(patch, cfg.m3ae.num_heads, goal_patch=goal_patch).detach()
+                    image_text_emb = self.pt_model.forward_gc_representations(
+                        self.patchify(image.reshape(-1, *image.shape[-3:])), goal_patch, deterministic=True)
                 else:
-                    image_text_emb = self._frozen_out(self._frozen_tower(
-                        self.pt_model.forward_gc_representations, patch, goal_patch)).detach()
+                    # the joint (obs, goal) encode pairs each frame with its row's goal: never from a window cache
+                    image_text_emb = self._frozen_frames(
+                        image, lambda frames: self._frozen_m3ae_joint(frames, goal_patch)).detach()
+            elif cfg.use_from_scratch:
+                patch = self.patchify(image.reshape(-1, *image.shape[-3:]))
+                tokenized_caption, tiled_pad = self._tile_instruction(text, text_padding_mask, patch.shape[0])
+                image_text_emb = self.pt_model.forward_representation(
+                    patch, tokenized_caption, tiled_pad, deterministic=True).detach()
             else:
-                if text is not None:
-                    tokenized_caption = text.repeat(num_image * num_timestep, 1)
-                    tiled_pad = text_padding_mask.repeat(num_image * num_timestep, 1)
-                else:
-                    tokenized_caption = tiled_pad = None
-
-                if cfg.use_from_scratch:
-                    image_text_emb = self.pt_model.forward_representation(
-                        patch, tokenized_caption, tiled_pad, deterministic=True)
-                elif self._frozen_fast_int8():
-                    kw = dict(text_ids=tokenized_caption, text_padding_mask=tiled_pad)
-                    if cfg.use_intermediate:
-                        out, inter = self._fast_encode(patch, cfg.m3ae.num_heads, return_intermediates=True, **kw)
-                        num_layers = cfg.m3ae.depth
-                        # (L-1, B', N, D) block outputs flatten along the batch: the layout
-                        # the module path's concat of intermediates builds
-                        inter = self._frozen_out(inter[:-1].reshape(-1, *inter.shape[2:]))
-                        image_text_emb = torch.cat([inter, out], dim=0)
-                    else:
-                        image_text_emb = self._fast_encode(patch, cfg.m3ae.num_heads, **kw)
-                elif cfg.use_intermediate:
-                    image_text_emb, states = self._frozen_tower(
-                        self.pt_model.forward_representation, patch, tokenized_caption, tiled_pad,
-                        return_intermediates=True)
+                if cfg.use_intermediate:
                     num_layers = cfg.m3ae.depth
-                    intermediate_embs = [self._frozen_out(s) for s in states[: num_layers - 1]]
-                    image_text_emb = torch.cat(intermediate_embs + [self._frozen_out(image_text_emb)], dim=0)
-                else:
-                    image_text_emb = self._frozen_out(self._frozen_tower(
-                        self.pt_model.forward_representation, patch, tokenized_caption, tiled_pad))
-                image_text_emb = image_text_emb.detach()
+                image_text_emb = self._frozen_frames(
+                    image, lambda frames: self._frozen_m3ae(frames, text, text_padding_mask),
+                    self._window_rings(batch, image_batch, text, text_padding_mask)).detach()
 
             if cfg.use_adapter:
                 image_text_emb = self._apply_adapter(image_text_emb)

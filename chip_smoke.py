@@ -2170,8 +2170,10 @@ def rollout_flags(spec: str, mode: dict, **over):
 
 
 def clone_inputs(batch: dict) -> dict:
+    """A copy of a policy call's inputs, without the rollout's window cache (its rings roll on with the rollout):
+    the copy's every frame goes through the tower again."""
     return {k: ({kk: vv.clone() for kk, vv in v.items()} if isinstance(v, dict)
-                else v.clone() if isinstance(v, torch.Tensor) else v) for k, v in batch.items()}
+                else v.clone() if isinstance(v, torch.Tensor) else v) for k, v in batch.items() if k != "tower_cache"}
 
 
 class RolloutMeter:
